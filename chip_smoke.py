@@ -1,0 +1,251 @@
+"""Smoke run of the PyTorch/CUDA port (picaso_tpu_torch) on one NVIDIA GPU.
+
+Drives the port's main path -- ``pipeline.build_problem`` and
+``pipeline.forward`` at the production shape: ragged 1060-point (T, P)
+grid, 16 molecules, nwno = 50 000, 90 layers, 5 disk angles, cloudy, 2 CIA
+continua, Rayleigh, reflected + thermal + transit -- through its two
+hand-written CUDA kernels, and checks each kernel against its plain
+PyTorch twin and the forward against a float64 oracle.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises, so the exit code is nonzero):
+ 1. the card's name and power limit (nvidia-smi); no CUDA device -> error
+ 2. build the kernels from picaso_tpu_torch/csrc with nvcc (sm_90a)
+ 3. build the production problem on the card
+ 4. gather kernel vs its twin at the production shape (max rel <= 1e-5)
+ 5. spectrum kernel vs its twin at the production shape
+    (max rel <= 1e-3, median rel <= 1e-5)
+ 6. forward on 4 temperature-perturbed scenes: finite outputs, each
+    kernel launched exactly once per forward
+ 7. nwno = 5000 oracle: the plain path in float64 against the kernel path
+    in float32 (max rel <= 5e-3, median rel <= 2e-4, TPU_PARITY.json's
+    forward tolerances)
+ 8. timings: forward with kernels vs the plain path, each kernel vs twin
+ 9. one JSON line per kernel summary, then the result line.
+"""
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+NWNO = 50_000
+NLEVEL = 91
+ORACLE_NWNO = 5_000
+N_SCENES = 4
+TOL = {'gather_max_rel': 1e-5, 'spectrum_max_rel': 1e-3,
+       'spectrum_median_rel': 1e-5, 'forward_max_rel': 5e-3,
+       'forward_median_rel': 2e-4}
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def rel_stats(a, b):
+    """(max, median) relative deviation of a from b, with the scale floored
+    at 1e-9 of b's largest magnitude (scripts/tpu_parity.py)."""
+    a, b = a.double().flatten(), b.double().flatten()
+    scale = torch.clamp(b.abs(), min=b.abs().max().item() * 1e-9 + 1e-300)
+    rel = (a - b).abs() / scale
+    return rel.max().item(), rel.median().item()
+
+
+def check(name, value, limit):
+    ok = value <= limit
+    log(f'  {name}: {value:.3e} (limit {limit:.0e}) {"OK" if ok else "FAIL"}')
+    if not ok:
+        raise AssertionError(f'{name} = {value:.3e} exceeds {limit:.0e}')
+
+
+def cuda_ms(fn, n):
+    """Mean device time of fn() over n calls, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def wall_ms(fn, n, passes=2):
+    """Best-of-passes mean wall time of fn() + synchronize over n calls."""
+    fn()
+    torch.cuda.synchronize()
+    best = float('inf')
+    for _ in range(passes):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) / n)
+    return best * 1e3
+
+
+def perturbed(scene, n):
+    """bench.py:179-182: temperatures scaled by (1 + 0.001 i)."""
+    return [scene._replace(tlevel=scene.tlevel * (1 + 0.001 * i),
+                           tlayer=scene.tlayer * (1 + 0.001 * i))
+            for i in range(n)]
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit('chip_smoke: no CUDA device; this script runs '
+                         'only on a GPU machine')
+    # phase 1: the card
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    log(smi[0])
+    log(f'torch {torch.__version__} cuda {torch.version.cuda} '
+        f'device {torch.cuda.get_device_name(0)} '
+        f'count {torch.cuda.device_count()}')
+
+    from picaso_tpu_torch import _build, pipeline
+    from picaso_tpu_torch.opacities.cuda_interp import (interp_tau,
+                                                        interp_tau_plain)
+    from picaso_tpu_torch.rt.cuda_toon import (spectrum_toon,
+                                               spectrum_toon_plain)
+    dev = torch.device('cuda')
+
+    # phase 2: build
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    _build.library()
+    log(f'[2] built {lib_path} in {time.perf_counter() - t0:.1f} s')
+
+    # phase 3: the production problem
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    scene, grid, config = pipeline.build_problem(NWNO, nlevel=NLEVEL,
+                                                 production=True, device=dev)
+    torch.cuda.synchronize()
+    table_bytes = grid.log_kappa.numel() * grid.log_kappa.element_size()
+    log(f'[3] production problem in {time.perf_counter() - t0:.1f} s: '
+        f'log_kappa {tuple(grid.log_kappa.shape)} {table_bytes} bytes, '
+        f'{scene.ubar0.numel()} angles, peak '
+        f'{torch.cuda.max_memory_allocated()} bytes')
+
+    # phase 4: gather kernel vs twin
+    g_args = pipeline.gather_args(scene, grid, config)
+    k1 = interp_tau(*g_args)
+    k1_ref = interp_tau_plain(*g_args)
+    torch.cuda.synchronize()
+    k1_max, k1_med = rel_stats(k1, k1_ref)
+    k1_abs = (k1 - k1_ref).abs().max().item()
+    log(f'[4] gather kernel vs twin {tuple(k1.shape)}: median rel '
+        f'{k1_med:.3e}, max abs {k1_abs:.3e}')
+    check('gather max rel', k1_max, TOL['gather_max_rel'])
+
+    # phase 5: spectrum kernel vs twin
+    tg, tr, rf = pipeline.rt_sources(scene, grid, config)
+    s_args, s_kw = pipeline.spectrum_args(scene, grid, config, tg, tr, rf)
+    xint, therm = spectrum_toon(*s_args, **s_kw)
+    xint_ref, therm_ref = spectrum_toon_plain(*s_args, **s_kw)
+    torch.cuda.synchronize()
+    k2_abs = 0.0
+    for name, out, ref in (('xint', xint, xint_ref),
+                           ('thermal', therm, therm_ref)):
+        if not (torch.isfinite(out).all() and torch.isfinite(ref).all()):
+            raise AssertionError(f'spectrum {name}: non-finite values')
+        mx, med = rel_stats(out, ref)
+        k2_abs = max(k2_abs, (out - ref).abs().max().item())
+        log(f'[5] spectrum kernel vs twin, {name} {tuple(out.shape)}: '
+            f'max abs {(out - ref).abs().max().item():.3e}')
+        check(f'spectrum {name} max rel', mx, TOL['spectrum_max_rel'])
+        check(f'spectrum {name} median rel', med,
+              TOL['spectrum_median_rel'])
+    del xint, therm, xint_ref, therm_ref
+
+    # phase 6: the main path, counted
+    scenes = perturbed(scene, N_SCENES)
+    interp_tau.launches = 0
+    spectrum_toon.launches = 0
+    outs = [pipeline.forward(s, grid, config) for s in scenes]
+    torch.cuda.synchronize()
+    launches = {'interp_tau': interp_tau.launches,
+                'spectrum_toon': spectrum_toon.launches}
+    log(f'[6] {N_SCENES} forwards, launches {launches}')
+    for name, count in launches.items():
+        if count != N_SCENES:
+            raise AssertionError(f'{name} launched {count} times in '
+                                 f'{N_SCENES} forwards')
+    for i, out in enumerate(outs):
+        assert set(out) == {'albedo', 'thermal', 'transit_depth'}, out.keys()
+        for key, val in out.items():
+            if val.shape != (NWNO,) or not torch.isfinite(val).all():
+                raise AssertionError(f'scene {i} {key}: shape '
+                                     f'{tuple(val.shape)} or non-finite')
+    a = outs[0]
+    log(f'    albedo mean {a["albedo"].mean().item():.6g}, thermal mean '
+        f'{a["thermal"].mean().item():.6g}, transit mean '
+        f'{a["transit_depth"].mean().item():.6g}')
+    del outs
+
+    # phase 7: float64 oracle
+    o_scene, o_grid, o_config = pipeline.build_problem(
+        ORACLE_NWNO, nlevel=NLEVEL, production=False, device=dev,
+        dtype=torch.float64)
+    oracle = pipeline.forward(o_scene, o_grid, dataclasses.replace(
+        o_config, use_kernels=False))
+    f_scene, f_grid, f_config = pipeline.build_problem(
+        ORACLE_NWNO, nlevel=NLEVEL, production=False, device=dev)
+    f_out = pipeline.forward(f_scene, f_grid, f_config)
+    torch.cuda.synchronize()
+    for key in ('albedo', 'thermal', 'transit_depth'):
+        mx, med = rel_stats(f_out[key], oracle[key])
+        log(f'[7] f32 kernels vs f64 oracle, {key}')
+        check(f'{key} max rel', mx, TOL['forward_max_rel'])
+        check(f'{key} median rel', med, TOL['forward_median_rel'])
+
+    # phase 8: timings (nothing asserted)
+    s0 = scenes[0]
+    plain_cfg = dataclasses.replace(config, use_kernels=False)
+    torch.cuda.reset_peak_memory_stats()
+    fwd_ms = wall_ms(lambda: pipeline.forward(s0, grid, config), 10)
+    fwd_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    plain_ms = wall_ms(lambda: pipeline.forward(s0, grid, plain_cfg), 5)
+    plain_peak = torch.cuda.max_memory_allocated()
+    fwd_ms2 = wall_ms(lambda: pipeline.forward(s0, grid, config), 10)
+    log(f'[8] forward, kernels: {fwd_ms:.3f} / {fwd_ms2:.3f} ms '
+        f'({1e3 / min(fwd_ms, fwd_ms2):.2f} forwards/s), peak {fwd_peak} '
+        f'bytes; plain path: {plain_ms:.3f} ms '
+        f'({1e3 / plain_ms:.2f} forwards/s), peak {plain_peak} bytes')
+    k1_ms = cuda_ms(lambda: interp_tau(*g_args), 20)
+    k1_plain_ms = cuda_ms(lambda: interp_tau_plain(*g_args), 5)
+    k2_ms = cuda_ms(lambda: spectrum_toon(*s_args, **s_kw), 10)
+    k2_plain_ms = cuda_ms(lambda: spectrum_toon_plain(*s_args, **s_kw), 3)
+    log(f'    interp_tau {k1_ms:.3f} ms vs twin {k1_plain_ms:.3f} ms; '
+        f'spectrum_toon {k2_ms:.3f} ms vs twin {k2_plain_ms:.3f} ms')
+
+    # phase 9: summary
+    kernels = [
+        {'name': 'interp_tau', 'route': 'cuda',
+         'source': 'picaso_tpu_torch/csrc/interp_tau.cu',
+         'replaces': 'picaso_tpu/opacities/pallas_interp.py:263',
+         'launches': launches['interp_tau'], 'max_abs_err': k1_abs,
+         'ms': k1_ms, 'plain_ms': k1_plain_ms},
+        {'name': 'spectrum_toon', 'route': 'cuda',
+         'source': 'picaso_tpu_torch/csrc/toon_spectrum.cu',
+         'replaces': 'picaso_tpu/rt/pallas_toon.py:788',
+         'launches': launches['spectrum_toon'], 'max_abs_err': k2_abs,
+         'ms': k2_ms, 'plain_ms': k2_plain_ms},
+    ]
+    print(json.dumps({'kernels': kernels}))
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == '__main__':
+    sys.exit(main())

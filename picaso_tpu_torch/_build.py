@@ -1,0 +1,119 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
+shared library with a plain C interface, loaded with :mod:`ctypes`.  No
+PyTorch header is included, so the build takes seconds, not minutes.  The
+library lands in ``build/picaso_tpu_torch/<hash of sources and flags>/``
+beside the package, so an edited source is rebuilt and an unchanged one
+is loaded from disk.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` raises on a nonzero code.
+
+``-fmad=false`` keeps nvcc from contracting a*b+c into one fused
+multiply-add: every operation is then rounded on its own, as in the eager
+PyTorch twins the kernels are held against (no ``-use_fast_math``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+
+__all__ = ['library', 'check', 'NVCC_FLAGS']
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+_CSRC = os.path.join(_PKG, 'csrc')
+_BUILD_ROOT = os.path.join(os.path.dirname(_PKG), 'build', 'picaso_tpu_torch')
+
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-fmad=false')
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# argument types of every C entry point in csrc/
+_SIGNATURES = {
+    # log_kappa, idx, w4, mixcol, out, nmol, npt, nwno, nlayer, ln10,
+    # log_avo, stream
+    'interp_tau_launch': [_P] * 5 + [_I] * 4 + [_F] * 2 + [_P],
+    # all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, rf, surf_reflect,
+    # F0PI, ubar0, ubar1, cos_theta, ptfac, xint, thermal, scratch,
+    # nlayer, nwno, nang, single_phase, multi_phase, toon_coefficients,
+    # frac_a, frac_b, frac_c, constant_back, constant_forward, b_top,
+    # stream, delta_eddington, hard_surface, cuda stream
+    'toon_spectrum_launch': [_P] * 16 + [_I] * 6 + [_F] * 6
+                            + [_I] * 3 + [_P],
+    # number of [nlayer + 1, nwno] scratch slots the kernel expects
+    'toon_spectrum_scratch_slots': [],
+}
+
+
+def _nvcc():
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
+    cand = os.path.join(home, 'bin', 'nvcc')
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError('nvcc not found (PATH, $CUDA_HOME/bin): the CUDA '
+                       'kernels of picaso_tpu_torch cannot be built')
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(_CSRC, '*.cu'))
+                  + glob.glob(os.path.join(_CSRC, '*.cuh')))
+
+
+def _digest(paths):
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for p in paths:
+        h.update(os.path.basename(p).encode())
+        with open(p, 'rb') as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def build():
+    """Compile ``csrc/*.cu`` if the library for these sources is missing;
+    return its path.  A missing nvcc or a failed build raises with the
+    compiler's output."""
+    paths = _sources()
+    out_dir = os.path.join(_BUILD_ROOT, _digest(paths))
+    lib = os.path.join(out_dir, 'libpicaso_kernels.so')
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f'{lib}.{os.getpid()}.tmp'
+    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp,
+           *[p for p in paths if p.endswith('.cu')]]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f'nvcc failed ({res.returncode}): {" ".join(cmd)}'
+                           f'\n{res.stdout}\n{res.stderr}')
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library():
+    """The loaded kernel library (built on first use), argtypes set."""
+    lib = ctypes.CDLL(build())
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(code, name):
+    """Raise if a launch returned a nonzero cudaError_t."""
+    if code != 0:
+        raise RuntimeError(f'{name}: CUDA error {code} at launch')

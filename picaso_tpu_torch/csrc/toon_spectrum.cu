@@ -1,0 +1,600 @@
+// Toon89 reflected + thermal spectrum for every wavenumber column.
+//
+// Replaces the TPU kernel spectrum_pallas_fused (_spectrum_kernel_fused ->
+// _optics_block, _reflected_core, _thermal_core, _solve_two_stream_scratch)
+// of picaso_tpu/rt/pallas_toon.py.  Per wavenumber column it builds the
+// delta-Eddington and OG optics from the six source strips, solves the
+// Toon89 eqn-44 tridiagonal system for the reflected beam (factorisation
+// shared by all disk angles, one right-hand side per angle), runs the TOA
+// intensity recursion with the single-scattering phase function, solves
+// the thermal two-stream system and runs the per-angle source-function
+// up-sweep.  Outputs xint and thermal, each [nang, nwno].
+//
+// What bounds it on this card: fp32 expf and division, and the chain of
+// dependent layer steps.  Each column is a sequential recursion over the
+// layers (Thomas elimination up, substitution down, intensity sweep up),
+// so only the wavenumber axis is parallel: 50k columns are ~390 blocks of
+// 128 threads, about three per SM, and each thread waits on its own chain.
+//
+// Design: one thread per column, everything about its column in that
+// thread.  Per-layer intermediates go to global scratch laid out
+// [slot, row, nwno], so the 32 threads of a warp touch 128 contiguous
+// bytes per access; the wrapper allocates it (the kernel allocates
+// nothing).  The arithmetic follows the TPU kernel, not the JAX scan path:
+// stable gama = g2/(g1+lamda), exptrm_minus = 1/exptrm_positive, the
+// e_u0dt/e_u1 products in place of extra exps, product-form resonant
+// limits, exp clip 10, beam dither 1e-3, resonance switch 1e-4 with the
+// 1e-6 sign-preserving clamp.  Expressions keep the twin's (and the TPU
+// kernel's) order of operations; built with -fmad=false, each operation
+// rounds as the eager PyTorch twin's does.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr float kClip = 10.0f;                        // _exp_clip(f32)
+constexpr float kPi = (float)3.141592653589793;
+constexpr float kTwoPi = (float)(2.0 * 3.141592653589793);
+constexpr float kHalfInvPi = (float)(0.5 / 3.141592653589793);
+constexpr float k4Pi = (float)(4.0 * 3.141592653589793);
+constexpr float kSq3 = (float)1.7320508075688772;
+constexpr float kUbar2Fac = (float)(3.0 * 0.767 * 0.767);
+constexpr float kDitherDelta = 1e-3f;
+constexpr float kOnePlusDelta = (float)(1.0 + 1e-3);
+
+// scratch slots, each [nlayer + 1, nwno]
+enum Slot {
+  S_DTAU, S_TAU, S_W0, S_COSB, S_FTC, S_GCOS2, S_DTAU_OG, S_TAU_OG, S_W0_OG,
+  S_LAM, S_GAMA, S_EP, S_G1, S_G2, S_PSINGLE,
+  S_ASE, S_ASO, S_XE, S_XO,              // reflected factorisation
+  S_DSE, S_DSO, S_CPU, S_CMU, S_EU0DT,   // reflected, one angle at a time
+  T_LAM, T_GAMA, T_EP, T_EPM, T_B1, T_GPG, T_ASE, T_ASO, T_DSE, T_DSO,
+  kSlots
+};
+
+struct Params {
+  const float *all_b, *taugas, *tauray, *cld_opd, *cld_w0, *cld_g0, *rf;
+  const float *sr, *f0pi, *u0, *u1, *cos_theta, *ptfac;
+  float *xint, *therm, *scr;
+  int nlayer, nwno, nang;
+  int single_phase, multi_phase, toon_coef;
+  float frac_a, frac_b, frac_c, constant_back, constant_forward, b_top;
+  int stream, dedd, hard_surface;
+};
+
+// one thread's view of its column
+struct Col {
+  const Params& p;
+  long long w;
+  __device__ float& s(int slot, int row) const {
+    return p.scr[((long long)slot * (p.nlayer + 1) + row) * p.nwno + w];
+  }
+  __device__ float in(const float* a, int row) const {
+    return a[(long long)row * p.nwno + w];
+  }
+};
+
+// x**n as repeated products (the TPU kernel's integer pow)
+__device__ float ipow(float x, int n) {
+  const int m = n < 0 ? -n : n;
+  float r = m == 0 ? 1.0f : x;
+  for (int i = 1; i < m; ++i) r = r * x;
+  return n < 0 ? 1.0f / r : r;
+}
+
+__device__ float cube(float x) { return x * x * x; }
+
+__device__ float safe_den(float den) {
+  return fabsf(den) < 1e-6f ? (den < 0.0f ? -1e-6f : 1e-6f) : den;
+}
+
+// num/den with the analytic limit near den = 0 (|den|-only rule)
+__device__ float resonant_ratio(float num, float den, float limit) {
+  return fabsf(den) < 1e-4f ? limit : num / safe_den(den);
+}
+
+__device__ float dither_u0(float lam, float u0) {
+  return fabsf(lam * u0 - 1.0f) < kDitherDelta
+             ? 1.0f / (lam * kOnePlusDelta) : u0;
+}
+
+// gama and the e1..e4 combinations of one layer
+struct ERow {
+  float g, e1, e2, e3, e4;
+};
+
+__device__ ERow erow(float gama, float ep) {
+  const float em = 1.0f / ep;
+  return {gama, ep + gama * em, ep - gama * em, gama * ep + em,
+          gama * ep - em};
+}
+
+// the four particular-solution sources of one layer
+struct CRow {
+  float cpu, cmu, cpd, cmd;
+};
+
+// Toon89 eqn-44 rows of layer n (odd: ao bo co do; even: ae be ce de),
+// with em1/ep1 the layers above/below; tridiag.setup_tri_diag.
+struct Coef {
+  float ao, bo, co, d_o, ae, be, ce, de;
+};
+
+__device__ Coef coef(int n, int L, const ERow& em1, const ERow& e,
+                     const ERow& ep1, const CRow& cm1, const CRow& c,
+                     const CRow& cp1, float b_top, float b_surface,
+                     float sr) {
+  Coef k;
+  if (n == 0) {
+    k.ao = 0.0f;
+    k.bo = e.g + 1.0f;
+    k.co = e.g - 1.0f;
+    k.d_o = b_top - c.cmu;
+  } else {
+    k.ao = 2.0f * (1.0f - em1.g * em1.g);
+    k.bo = (em1.e1 - em1.e3) * (e.g + 1.0f);
+    k.co = (em1.e1 + em1.e3) * (e.g - 1.0f);
+    k.d_o = em1.e3 * (c.cpu - cm1.cpd) + em1.e1 * (cm1.cmd - c.cmu);
+  }
+  if (n < L - 1) {
+    k.ae = (e.e1 + e.e3) * (ep1.g - 1.0f);
+    k.be = (e.e2 + e.e4) * (ep1.g - 1.0f);
+    k.ce = 2.0f * (1.0f - ep1.g * ep1.g);
+    k.de = (ep1.g - 1.0f) * (cp1.cpu - c.cpd)
+           + (1.0f - ep1.g) * (c.cmd - cp1.cmu);
+  } else {
+    k.ae = e.e1 - sr * e.e3;
+    k.be = e.e2 - sr * e.e4;
+    k.ce = 0.0f;
+    k.de = b_surface - c.cpd + sr * c.cmd;
+  }
+  return k;
+}
+
+__device__ ERow refl_e(const Col& c, int j) {
+  return erow(c.s(S_GAMA, j), c.s(S_EP, j));
+}
+
+// reflected beam sources of layer j for incidence u0; also stores the
+// values the intensity sweep reads again (c+up, c-up, e_u0dt)
+__device__ CRow refl_c(const Col& c, int j, float u0, float f0pi) {
+  const Params& p = c.p;
+  const float ftc = c.s(S_FTC, j), cosb = c.s(S_COSB, j);
+  const float w0 = c.s(S_W0, j), lam = c.s(S_LAM, j);
+  const float g1 = c.s(S_G1, j), g2 = c.s(S_G2, j);
+  const float g3 = p.toon_coef == 1
+                       ? (2.0f - 3.0f * ftc * cosb * u0) / 4.0f
+                       : 0.5f * (1.0f - kSq3 * ftc * cosb * u0);
+  const float g4 = 1.0f - g3;
+  const float u0b = dither_u0(lam, u0);
+  const float denominator = lam * lam - 1.0f / (u0b * u0b);
+  const float a_minus =
+      f0pi * w0 * (g4 * (g1 + 1.0f / u0b) + g2 * g3) / denominator;
+  const float a_plus =
+      f0pi * w0 * (g3 * (g1 - 1.0f / u0b) + g2 * g4) / denominator;
+  const float x_up = expf(-c.s(S_TAU, j) / u0b);
+  const float e_u0dt = expf(-c.s(S_DTAU, j) / u0b);
+  const float x_dn = x_up * e_u0dt;
+  const CRow r = {a_plus * x_up, a_minus * x_up, a_plus * x_dn,
+                  a_minus * x_dn};
+  c.s(S_CPU, j) = r.cpu;
+  c.s(S_CMU, j) = r.cmu;
+  c.s(S_EU0DT, j) = e_u0dt;
+  return r;
+}
+
+__device__ ERow therm_e(const Col& c, int j) {
+  return erow(c.s(T_GAMA, j), c.s(T_EP, j));
+}
+
+__device__ CRow therm_c(const Col& c, int j) {
+  const float twopimu = kPi;  // 2 * pi * mu1 with mu1 = 0.5
+  const float b0 = c.in(c.p.all_b, j), b1 = c.s(T_B1, j);
+  const float dtau = c.s(S_DTAU_OG, j), gpg = c.s(T_GPG, j);
+  return {twopimu * (b0 + b1 * gpg), twopimu * (b0 - b1 * gpg),
+          twopimu * (b0 + b1 * dtau + b1 * gpg),
+          twopimu * (b0 + b1 * dtau - b1 * gpg)};
+}
+
+// ---------------------------------------------------------------------
+// optics (pallas_toon.py:_optics_block) and the per-layer reflected
+// two-stream quantities, top down
+// ---------------------------------------------------------------------
+__device__ void reflected_layers(const Col& c, float ct) {
+  const Params& p = c.p;
+  const int L = p.nlayer;
+  float tau = 0.0f, tau_og = 0.0f;
+  for (int j = 0; j < L; ++j) {
+    const float tg = c.in(p.taugas, j), tr = c.in(p.tauray, j);
+    const float copd = c.in(p.cld_opd, j), cw0 = c.in(p.cld_w0, j);
+    const float cg0 = c.in(p.cld_g0, j), rf = c.in(p.rf, j);
+    const float dtau_og = tg + tr + copd;
+    const float cldw = cw0 * copd;
+    const float ftau_cld = cldw / (cldw + tr);
+    const float ftau_ray = tr / (tr + cldw);
+    const float gcos2 = 0.5f * ftau_ray;
+    const float w0_og = (tr * rf + cldw) / dtau_og;
+    const float cosb_og = cg0;
+    float dtau = dtau_og, w0 = w0_og, cosb = cosb_og;
+    if (p.dedd) {
+      const float f = ipow(cosb_og, p.stream);
+      w0 = w0_og * (1.0f - f) / (1.0f - w0_og * f);
+      cosb = (cosb_og - f) / (1.0f - f);
+      dtau = dtau_og * (1.0f - w0_og * f);
+    }
+    c.s(S_TAU, j) = tau;
+    c.s(S_TAU_OG, j) = tau_og;
+    tau = tau + dtau;
+    tau_og = tau_og + dtau_og;
+
+    float g1, g2;
+    if (p.toon_coef == 1) {
+      g1 = (7.0f - w0 * (4.0f + 3.0f * ftau_cld * cosb)) / 4.0f;
+      g2 = -(1.0f - w0 * (4.0f - 3.0f * ftau_cld * cosb)) / 4.0f;
+    } else {
+      g1 = (kSq3 * 0.5f) * (2.0f - w0 * (1.0f + ftau_cld * cosb));
+      g2 = (kSq3 * w0 * 0.5f) * (1.0f - ftau_cld * cosb);
+    }
+    const float lam = sqrtf(g1 * g1 - g2 * g2);
+    const float gama = g2 / (g1 + lam);
+    const float ep = expf(fminf(lam * dtau, kClip));
+
+    float p_single;
+    if (p.single_phase == 1) {  // OTHG
+      p_single = (1.0f - cosb_og * cosb_og)
+                 / sqrtf(cube(1.0f + cosb_og * cosb_og + 2.0f * cosb_og * ct));
+    } else {
+      const float g_fwd = p.constant_forward * cosb_og;
+      const float g_back = p.constant_back * cosb_og;
+      const float fc = p.frac_c;
+      const float g_back_pow = fc == truncf(fc)
+                                   ? ipow(g_back, (int)fc)
+                                   : expf(fc * logf(fabsf(g_back)));
+      const float f = p.frac_a + p.frac_b * g_back_pow;
+      const float hg_fwd = (1.0f - g_fwd * g_fwd)
+                           / sqrtf(cube(1.0f + g_fwd * g_fwd + 2.0f * g_fwd * ct));
+      const float hg_back = (1.0f - g_back * g_back)
+                            / sqrtf(cube(1.0f + g_back * g_back + 2.0f * g_back * ct));
+      if (p.single_phase == 0) {         // cahoy
+        p_single = f * hg_fwd + (1.0f - f) * hg_back + gcos2;
+      } else if (p.single_phase == 2) {  // TTHG
+        p_single = f * hg_fwd + (1.0f - f) * hg_back;
+      } else {                           // TTHG_ray
+        p_single = ftau_cld * (f * hg_fwd + (1.0f - f) * hg_back)
+                   + ftau_ray * (0.75f * (1.0f + ct * ct));
+      }
+    }
+    c.s(S_DTAU, j) = dtau;
+    c.s(S_W0, j) = w0;
+    c.s(S_COSB, j) = cosb;
+    c.s(S_FTC, j) = ftau_cld;
+    c.s(S_GCOS2, j) = gcos2;
+    c.s(S_DTAU_OG, j) = dtau_og;
+    c.s(S_W0_OG, j) = w0_og;
+    c.s(S_LAM, j) = lam;
+    c.s(S_GAMA, j) = gama;
+    c.s(S_EP, j) = ep;
+    c.s(S_G1, j) = g1;
+    c.s(S_G2, j) = g2;
+    c.s(S_PSINGLE, j) = p_single;
+  }
+  c.s(S_TAU, L) = tau;
+  c.s(S_TAU_OG, L) = tau_og;
+}
+
+// angle-independent factorisation of the reflected system, bottom up
+__device__ void reflected_factor(const Col& c, float sr) {
+  const int L = c.p.nlayer;
+  const CRow z = {0.0f, 0.0f, 0.0f, 0.0f};
+  ERow ep1 = refl_e(c, L - 1), e = ep1, em1 = refl_e(c, L - 2);
+  Coef k = coef(L - 1, L, em1, e, ep1, z, z, z, 0.0f, 0.0f, sr);
+  const float as_last = k.ae / k.be;
+  const float xo_l = 1.0f / (k.bo - k.co * as_last);
+  float as_n = k.ao * xo_l;
+  c.s(S_ASE, L - 1) = as_last;
+  c.s(S_ASO, L - 1) = as_n;
+  c.s(S_XO, L - 1) = xo_l;
+  for (int n = L - 2; n >= 0; --n) {
+    ep1 = e;
+    e = em1;
+    if (n > 0) em1 = refl_e(c, n - 1);
+    k = coef(n, L, em1, e, ep1, z, z, z, 0.0f, 0.0f, sr);
+    const float xe = 1.0f / (k.be - k.ce * as_n);
+    const float as_e = k.ae * xe;
+    const float xo = 1.0f / (k.bo - k.co * as_e);
+    as_n = k.ao * xo;
+    c.s(S_ASE, n) = as_e;
+    c.s(S_ASO, n) = as_n;
+    c.s(S_XE, n) = xe;
+    c.s(S_XO, n) = xo;
+  }
+}
+
+// one disk angle of the reflected solve and the TOA intensity
+__device__ float reflected_angle(const Col& c, float u0, float u1, float sr,
+                                 float f0pi) {
+  const Params& p = c.p;
+  const int L = p.nlayer;
+  // right-hand sides, reverse elimination (shared factorisation)
+  ERow ep1 = refl_e(c, L - 1), e = ep1, em1 = refl_e(c, L - 2);
+  CRow cp1 = refl_c(c, L - 1, u0, f0pi), cc = cp1;
+  CRow cm1 = refl_c(c, L - 2, u0, f0pi);
+  const float cpd_last = cc.cpd;
+  const float b_surface =
+      sr * u0 * f0pi * expf(-c.s(S_TAU, L) / u0);
+  Coef k = coef(L - 1, L, em1, e, ep1, cm1, cc, cp1, p.b_top, b_surface, sr);
+  const float ds_last = k.de / k.be;
+  float ds_n = (k.d_o - k.co * ds_last) * c.s(S_XO, L - 1);
+  c.s(S_DSE, L - 1) = ds_last;
+  c.s(S_DSO, L - 1) = ds_n;
+  for (int n = L - 2; n >= 0; --n) {
+    ep1 = e;
+    e = em1;
+    cp1 = cc;
+    cc = cm1;
+    if (n > 0) {
+      em1 = refl_e(c, n - 1);
+      cm1 = refl_c(c, n - 1, u0, f0pi);
+    }
+    k = coef(n, L, em1, e, ep1, cm1, cc, cp1, p.b_top, b_surface, sr);
+    const float xe = c.s(S_XE, n), xo = c.s(S_XO, n);
+    const float ce_x = k.ce * xe;
+    const float co_x = k.co * xo;
+    const float ds_e = k.de * xe - ce_x * ds_n;
+    ds_n = k.d_o * xo - co_x * ds_e;
+    c.s(S_DSE, n) = ds_e;
+    c.s(S_DSO, n) = ds_n;
+  }
+  // forward substitution; positive/negative replace ds in place
+  float x_o = c.s(S_DSO, 0);
+  float x_e = c.s(S_DSE, 0) - c.s(S_ASE, 0) * x_o;
+  c.s(S_DSO, 0) = x_o + x_e;
+  c.s(S_DSE, 0) = x_o - x_e;
+  for (int n = 1; n < L; ++n) {
+    x_o = c.s(S_DSO, n) - c.s(S_ASO, n) * x_e;
+    x_e = c.s(S_DSE, n) - c.s(S_ASE, n) * x_o;
+    c.s(S_DSO, n) = x_o + x_e;
+    c.s(S_DSE, n) = x_o - x_e;
+  }
+  // TOA intensity: ascend from the bottom boundary
+  const float ep_l = c.s(S_EP, L - 1);
+  const float flux_zero = c.s(S_DSO, L - 1) * ep_l
+                          + c.s(S_GAMA, L - 1) * c.s(S_DSE, L - 1)
+                                * (1.0f / ep_l)
+                          + cpd_last;
+  float x = flux_zero / kPi;
+  for (int j = L - 1; j >= 0; --j) {
+    const float positive = c.s(S_DSO, j), negative = c.s(S_DSE, j);
+    const float ftc = c.s(S_FTC, j), cosb = c.s(S_COSB, j);
+    const float gama = c.s(S_GAMA, j), w0 = c.s(S_W0, j);
+    const float lam = c.s(S_LAM, j), dtau = c.s(S_DTAU, j);
+    const float ep = c.s(S_EP, j);
+    const float em = 1.0f / ep;
+    float multi_plus, multi_minus;
+    if (p.multi_phase == 0) {
+      const float gcos2 = c.s(S_GCOS2, j);
+      multi_plus = 1.0f + 1.5f * ftc * cosb * u1
+                   + gcos2 * (kUbar2Fac * u1 * u1 - 1.0f) / 2.0f;
+      multi_minus = 1.0f - 1.5f * ftc * cosb * u1
+                    + gcos2 * (kUbar2Fac * u1 * u1 - 1.0f) / 2.0f;
+    } else {
+      multi_plus = 1.0f + 1.5f * ftc * cosb * u1;
+      multi_minus = 1.0f - 1.5f * ftc * cosb * u1;
+    }
+    const float G =
+        positive * (multi_plus + gama * multi_minus) * w0 * kHalfInvPi;
+    const float H =
+        negative * (gama * multi_plus + multi_minus) * w0 * kHalfInvPi;
+    const float A = (multi_plus * c.s(S_CPU, j) + multi_minus * c.s(S_CMU, j))
+                    * w0 * kHalfInvPi;
+    const float e_u1 = expf(-dtau / u1);
+    const float ssterm = (c.s(S_W0_OG, j) * f0pi / k4Pi)
+                         * c.s(S_PSINGLE, j)
+                         * expf(-c.s(S_TAU_OG, j) / u0)
+                         * (1.0f - expf(-c.s(S_DTAU_OG, j) * (u0 + u1)
+                                        / (u0 * u1)))
+                         * (u0 / (u0 + u1));
+    const float den_u1 = lam * u1 - 1.0f;
+    const float hdt1 = dtau / u1;
+    const float x1 = hdt1 * den_u1;
+    const float msterm =
+        A * (1.0f - c.s(S_EU0DT, j) * e_u1) * (u0 / (u0 + u1))
+        + G * resonant_ratio(ep * e_u1 - 1.0f, den_u1,
+                             hdt1 * (1.0f + x1 * (0.5f + x1 / 6.0f)))
+        + H * (1.0f - em * e_u1) / (lam * u1 + 1.0f);
+    x = x * e_u1 + (ssterm + msterm);
+  }
+  return x;
+}
+
+// ---------------------------------------------------------------------
+// thermal (pallas_toon.py:_thermal_core on the OG optics)
+// ---------------------------------------------------------------------
+__device__ void thermal_layers(const Col& c) {
+  const Params& p = c.p;
+  for (int j = 0; j < p.nlayer; ++j) {
+    const float dtau = c.s(S_DTAU_OG, j);
+    const float w0 = (c.in(p.tauray, j) * 0.99999f
+                      + c.in(p.cld_w0, j) * c.in(p.cld_opd, j)) / dtau;
+    const float cosb = c.in(p.cld_g0, j);
+    const float b0 = c.in(p.all_b, j);
+    const float b1 = (c.in(p.all_b, j + 1) - b0) / dtau;
+    const float g1 = 2.0f - w0 * (1.0f + cosb);
+    const float g2 = w0 * (1.0f - cosb);
+    const float lam = sqrtf(g1 * g1 - g2 * g2);
+    const float exptrm = fminf(lam * dtau, kClip);
+    c.s(T_LAM, j) = lam;
+    c.s(T_GAMA, j) = g2 / (g1 + lam);
+    c.s(T_GPG, j) = 1.0f / (g1 + g2);
+    c.s(T_B1, j) = b1;
+    c.s(T_EP, j) = expf(exptrm);
+    c.s(T_EPM, j) = expf(0.5f * exptrm);
+  }
+}
+
+// thermal tridiagonal solve (_solve_two_stream_scratch); leaves
+// positive/negative in T_DSO/T_DSE
+__device__ void thermal_solve(const Col& c, float sr) {
+  const Params& p = c.p;
+  const int L = p.nlayer;
+  const float tau_top = c.s(S_DTAU_OG, 0) * p.ptfac[0];
+  const float b_top =
+      (1.0f - expf(-tau_top / 0.5f)) * c.in(p.all_b, 0) * kPi;
+  const float b_surface =
+      p.hard_surface ? (1.0f - sr) * c.in(p.all_b, L) * kPi
+                     : (c.in(p.all_b, L) + c.s(T_B1, L - 1) * 0.5f) * kPi;
+  ERow ep1 = therm_e(c, L - 1), e = ep1, em1 = therm_e(c, L - 2);
+  CRow cp1 = therm_c(c, L - 1), cc = cp1, cm1 = therm_c(c, L - 2);
+  Coef k = coef(L - 1, L, em1, e, ep1, cm1, cc, cp1, b_top, b_surface, sr);
+  const float as_last = k.ae / k.be;
+  const float ds_last = k.de / k.be;
+  const float xo_l = 1.0f / (k.bo - k.co * as_last);
+  float as_n = k.ao * xo_l;
+  float ds_n = (k.d_o - k.co * ds_last) * xo_l;
+  c.s(T_ASE, L - 1) = as_last;
+  c.s(T_DSE, L - 1) = ds_last;
+  c.s(T_ASO, L - 1) = as_n;
+  c.s(T_DSO, L - 1) = ds_n;
+  for (int n = L - 2; n >= 0; --n) {
+    ep1 = e;
+    e = em1;
+    cp1 = cc;
+    cc = cm1;
+    if (n > 0) {
+      em1 = therm_e(c, n - 1);
+      cm1 = therm_c(c, n - 1);
+    }
+    k = coef(n, L, em1, e, ep1, cm1, cc, cp1, b_top, b_surface, sr);
+    const float xe = 1.0f / (k.be - k.ce * as_n);
+    const float as_e = k.ae * xe;
+    const float ds_e = (k.de - k.ce * ds_n) * xe;
+    const float xo = 1.0f / (k.bo - k.co * as_e);
+    as_n = k.ao * xo;
+    ds_n = (k.d_o - k.co * ds_e) * xo;
+    c.s(T_ASE, n) = as_e;
+    c.s(T_DSE, n) = ds_e;
+    c.s(T_ASO, n) = as_n;
+    c.s(T_DSO, n) = ds_n;
+  }
+  float x_o = c.s(T_DSO, 0);
+  float x_e = c.s(T_DSE, 0) - c.s(T_ASE, 0) * x_o;
+  c.s(T_DSO, 0) = x_o + x_e;
+  c.s(T_DSE, 0) = x_o - x_e;
+  for (int n = 1; n < L; ++n) {
+    x_o = c.s(T_DSO, n) - c.s(T_ASO, n) * x_e;
+    x_e = c.s(T_DSE, n) - c.s(T_ASE, n) * x_o;
+    c.s(T_DSO, n) = x_o + x_e;
+    c.s(T_DSE, n) = x_o - x_e;
+  }
+}
+
+// one disk angle of the source-function up-sweep: TOA thermal flux
+__device__ float thermal_angle(const Col& c, float iubar, float sr) {
+  const Params& p = c.p;
+  const int L = p.nlayer;
+  float fp = p.hard_surface
+                 ? (1.0f - sr) * c.in(p.all_b, L) * 2.0f * kPi
+                 : (c.in(p.all_b, L) + c.s(T_B1, L - 1) * iubar) * 2.0f * kPi;
+  float fp_mid = fp;
+  for (int j = L - 1; j >= 0; --j) {
+    const float dtau = c.s(S_DTAU_OG, j);
+    const float lam = c.s(T_LAM, j), gama = c.s(T_GAMA, j);
+    const float ep = c.s(T_EP, j), epm = c.s(T_EPM, j);
+    const float em = 1.0f / ep, emm = 1.0f / epm;
+    const float b0 = c.in(p.all_b, j), b1 = c.s(T_B1, j);
+    const float G = (2.0f - lam) * c.s(T_DSO, j);
+    const float H = gama * (lam + 2.0f) * c.s(T_DSE, j);
+    const float alpha1 = kTwoPi * (b0 + b1 * (c.s(T_GPG, j) - 0.5f));
+    const float alpha2 = kTwoPi * b1;
+    const float eam = expf(-0.5f * dtau / iubar);
+    const float ea = eam * eam;
+    const float den = lam * iubar - 1.0f;
+    const float hdt = dtau / iubar;
+    const float xden = hdt * den;
+    const float up_full =
+        G * resonant_ratio(ep * ea - 1.0f, den,
+                           hdt * (1.0f + xden * (0.5f + xden / 6.0f)))
+        + H / (lam * iubar + 1.0f) * (1.0f - em * ea)
+        + alpha1 * (1.0f - ea)
+        + alpha2 * (iubar - (dtau + iubar) * ea);
+    const float up_mid =
+        G * resonant_ratio(ep * eam - epm, den,
+                           epm * 0.5f * hdt
+                               * (1.0f + 0.25f * xden + xden * xden / 24.0f))
+        - H / (lam * iubar + 1.0f) * (em * eam - emm)
+        + alpha1 * (1.0f - eam)
+        + alpha2 * (iubar + 0.5f * dtau - (dtau + iubar) * eam);
+    fp_mid = fp * eam + up_mid;
+    fp = fp * ea + up_full;
+  }
+  return fp_mid;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    toon_spectrum_kernel(const Params p) {
+  const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= p.nwno) return;
+  const Col c{p, w};
+  const float sr = p.sr[w], f0pi = p.f0pi[w];
+  reflected_layers(c, p.cos_theta[0]);
+  reflected_factor(c, sr);
+  for (int a = 0; a < p.nang; ++a)
+    p.xint[(long long)a * p.nwno + w] =
+        reflected_angle(c, p.u0[a], p.u1[a], sr, f0pi);
+  thermal_layers(c);
+  thermal_solve(c, sr);
+  for (int a = 0; a < p.nang; ++a)
+    p.therm[(long long)a * p.nwno + w] = thermal_angle(c, p.u1[a], sr);
+}
+
+}  // namespace
+
+extern "C" int toon_spectrum_scratch_slots() { return kSlots; }
+
+extern "C" int toon_spectrum_launch(
+    const void* all_b, const void* taugas, const void* tauray,
+    const void* cld_opd, const void* cld_w0, const void* cld_g0,
+    const void* rf, const void* surf_reflect, const void* F0PI,
+    const void* ubar0, const void* ubar1, const void* cos_theta,
+    const void* ptfac, void* xint, void* therm, void* scratch, int nlayer,
+    int nwno, int nang, int single_phase, int multi_phase,
+    int toon_coefficients, float frac_a, float frac_b, float frac_c,
+    float constant_back, float constant_forward, float b_top, int stream,
+    int delta_eddington, int hard_surface, void* cuda_stream) {
+  Params p;
+  p.all_b = (const float*)all_b;
+  p.taugas = (const float*)taugas;
+  p.tauray = (const float*)tauray;
+  p.cld_opd = (const float*)cld_opd;
+  p.cld_w0 = (const float*)cld_w0;
+  p.cld_g0 = (const float*)cld_g0;
+  p.rf = (const float*)rf;
+  p.sr = (const float*)surf_reflect;
+  p.f0pi = (const float*)F0PI;
+  p.u0 = (const float*)ubar0;
+  p.u1 = (const float*)ubar1;
+  p.cos_theta = (const float*)cos_theta;
+  p.ptfac = (const float*)ptfac;
+  p.xint = (float*)xint;
+  p.therm = (float*)therm;
+  p.scr = (float*)scratch;
+  p.nlayer = nlayer;
+  p.nwno = nwno;
+  p.nang = nang;
+  p.single_phase = single_phase;
+  p.multi_phase = multi_phase;
+  p.toon_coef = toon_coefficients;
+  p.frac_a = frac_a;
+  p.frac_b = frac_b;
+  p.frac_c = frac_c;
+  p.constant_back = constant_back;
+  p.constant_forward = constant_forward;
+  p.b_top = b_top;
+  p.stream = stream;
+  p.dedd = delta_eddington;
+  p.hard_surface = hard_surface;
+  const int blocks = (nwno + kThreads - 1) / kThreads;
+  toon_spectrum_kernel<<<blocks, kThreads, 0, (cudaStream_t)cuda_stream>>>(p);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,357 @@
+"""The spectrum pipeline: opacities -> optics -> RT -> disk integration.
+
+Port of ``picaso_tpu/pipeline.py`` for the Toon two-stream solver with
+reflected and thermal spectra (and transmission when the star radius is
+finite), Raman off (``raman=2``), no ``test_mode``.  With ``use_kernels``
+(the default) the two hot stages go through the hand-written kernels:
+
+* ``opacities.cuda_interp.interp_tau`` -- the molecular opacity gather;
+* ``rt.cuda_toon.spectrum_toon`` -- optics + reflected + thermal solves.
+
+Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
+twin for CPU tensors.  ``use_kernels=False`` runs the plain reference
+path instead (``interp_molecular`` + ``molecular_tau``, ``combine_optics``
++ ``reflected_1d``/``thermal_1d``), the counterpart of the JAX scan path.
+Everything between the two kernels (continuum, Rayleigh, Planck, disk
+compression, transit) is plain PyTorch.
+
+Every other configuration raises ``NotImplementedError`` naming the
+ROADMAP item that will bring it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import default_dtype
+from . import disco as disco_mod
+from .constants import PCONV
+from .opacities import assemble
+from .opacities.cuda_interp import interp_tau
+from .opacities.db import (OpacityGrid, _find_indices, interp_molecular,
+                           nearest_continuum)
+from .optics import combine_optics
+from .rt import toon
+from .rt.cuda_toon import spectrum_toon
+from .rt.transit import transit_depth
+
+__all__ = ['SceneTensors', 'SpectrumConfig', 'forward', 'gather_args',
+           'gather_taugas', 'rt_sources', 'spectrum_args',
+           'scene_from_arrays', 'build_problem', 'MOLECULES_16', 'MIX_16']
+
+
+class SceneTensors(NamedTuple):
+    """All per-scene tensors (CGS), field for field as in the JAX package."""
+    tlevel: torch.Tensor          # [nlevel]
+    plevel: torch.Tensor          # [nlevel] dyne/cm^2
+    tlayer: torch.Tensor          # [nlayer]
+    player: torch.Tensor          # [nlayer] dyne/cm^2
+    colden: torch.Tensor          # [nlayer] g/cm^2
+    mmw_layer: torch.Tensor       # [nlayer] amu
+    mix: torch.Tensor             # [nmol, nlayer] mixing ratios
+    electrons: torch.Tensor       # [nlayer]
+    z: torch.Tensor               # [nlevel] cm
+    dz: torch.Tensor              # [nlevel] cm
+    cld_opd: torch.Tensor         # [nlayer, nwno]
+    cld_g0: torch.Tensor
+    cld_w0: torch.Tensor
+    sigma_ray: torch.Tensor       # [nray, nwno] Rayleigh cross sections
+    mix_ray: torch.Tensor         # [nray, nlayer]
+    ubar0: torch.Tensor           # [ng, nt]
+    ubar1: torch.Tensor
+    gweight: torch.Tensor
+    tweight: torch.Tensor
+    F0PI: torch.Tensor            # [nwno]
+    surf_reflect: torch.Tensor    # [nwno]
+    rstar: torch.Tensor           # scalar (cm)
+    cos_theta: torch.Tensor       # scalar cos(phase angle)
+    # Raman inputs, empty/neutral while Raman is off:
+    raman_shifts: torch.Tensor    # [nrow, nwno]
+    raman_c: torch.Tensor         # [nrow]
+    raman_ji: torch.Tensor        # [nrow] int32
+    raman_dnu: torch.Tensor       # [nrow]
+    raman_pollack_row: torch.Tensor  # [nwno]
+
+
+@dataclasses.dataclass(frozen=True)
+class SpectrumConfig:
+    """Options that shape the computation (static in the JAX package)."""
+    mol_indices: Tuple[int, ...]          # rows of grid.log_kappa to use
+    continuum_specs: Tuple[assemble.ContinuumSpec, ...]
+    cont_indices: Tuple[int, ...]         # rows of grid.cont_opa per spec
+    mix_index: Tuple[Tuple[str, int], ...]  # molecule name -> row in mix
+    controls: toon.ScatteringControls = toon.ScatteringControls()
+    raman: int = 2                        # 0 oklopcic 1 pollack 2 none
+    delta_eddington: bool = True
+    stream: int = 2
+    rt_method: int = 0                    # 0 Toon89, 1 spherical harmonics
+    test_mode: Optional[str] = None
+    hard_surface: bool = False
+    reflected: bool = True
+    thermal: bool = True
+    transmission: bool = False
+    # the hand-written kernels (CUDA tensors) or their twins (CPU tensors);
+    # False runs the plain reference path
+    use_kernels: bool = True
+
+
+def _check_config(config: SpectrumConfig):
+    if config.rt_method != 0:
+        raise NotImplementedError(
+            'spherical-harmonics RT (rt_method=1) is not ported yet: '
+            'ROADMAP Queue 1 item 9')
+    if config.raman != 2:
+        raise NotImplementedError(
+            f'Raman mode {config.raman} is not ported yet: ROADMAP Queue 1 '
+            'item 8')
+    if config.test_mode is not None:
+        raise NotImplementedError(
+            f'test_mode={config.test_mode!r} is not ported yet: ROADMAP '
+            'Queue 1 item 14')
+    if not (config.reflected and config.thermal):
+        raise NotImplementedError(
+            'reflected-only and thermal-only spectra are not ported yet: '
+            'ROADMAP Queue 2 items 3-4')
+
+
+def gather_args(scene: SceneTensors, grid: OpacityGrid,
+                config: SpectrumConfig):
+    """The gather kernel's arguments (log_kappa, idx, t_w, p_w, mixcol):
+    neighbour rows and weights of every layer, and the mix * colden / mmw
+    column weight of every table molecule (zero for unused ones)."""
+    nlayer = scene.tlayer.shape[0]
+    rows = [dict(config.mix_index)[grid.molecules[i]]
+            for i in config.mol_indices]
+    t_w, p_w, idx = _find_indices(grid.pt, scene.tlayer,
+                                  scene.player / PCONV)
+    colw = scene.colden / scene.mmw_layer
+    mixcol = torch.zeros((len(grid.molecules), nlayer),
+                         dtype=scene.mix.dtype, device=scene.mix.device)
+    mixcol[list(config.mol_indices)] = scene.mix[rows] * colw
+    return grid.log_kappa, idx, t_w, p_w, mixcol
+
+
+def gather_taugas(scene: SceneTensors, grid: OpacityGrid,
+                  config: SpectrumConfig):
+    """The molecular-opacity stage alone: taugas [nlayer, nwno]."""
+    if config.use_kernels:
+        return interp_tau(*gather_args(scene, grid, config))
+    rows = [dict(config.mix_index)[grid.molecules[i]]
+            for i in config.mol_indices]
+    kappa = interp_molecular(grid, scene.tlayer, scene.player / PCONV)
+    kappa = kappa[list(config.mol_indices)]
+    return assemble.molecular_tau(kappa, scene.mix[rows], scene.colden,
+                                  scene.mmw_layer)
+
+
+def rt_sources(scene: SceneTensors, grid: OpacityGrid,
+               config: SpectrumConfig):
+    """Per-source optical depths (taugas with continua, tauray) and the
+    Raman factor, each [nlayer, nwno] and contiguous."""
+    nwno = grid.wno.shape[0]
+    nlayer = scene.tlayer.shape[0]
+    dtype = scene.cld_opd.dtype
+    dev = scene.cld_opd.device
+
+    taugas = gather_taugas(scene, grid, config)
+    if config.continuum_specs:
+        cont = nearest_continuum(grid, scene.tlayer)
+        # layer gravity from the column-density definition colden = dP/g
+        gravity_layer = (scene.plevel[1:] - scene.plevel[:-1]) / scene.colden
+        coef1 = assemble.amagat_coef1(
+            scene.tlevel, scene.plevel / PCONV, scene.tlayer,
+            scene.player / PCONV, gravity_layer, scene.mmw_layer)
+        mix_named = {name: scene.mix[row] for name, row in config.mix_index}
+        cont_kappa = {spec.name: cont[ci] for spec, ci in
+                      zip(config.continuum_specs, config.cont_indices)}
+        for spec in config.continuum_specs:
+            for m in (spec.mol1, spec.mol2):
+                if m and m not in mix_named:
+                    mix_named[m] = torch.zeros(nlayer, dtype=dtype,
+                                               device=dev)
+        taugas = taugas + assemble.continuum_tau(
+            config.continuum_specs, cont_kappa, mix_named, scene.electrons,
+            coef1, scene.player, scene.tlayer, scene.colden,
+            scene.mmw_layer)
+    tauray = assemble.rayleigh_tau(scene.sigma_ray, scene.mix_ray,
+                                   scene.colden, scene.mmw_layer)
+    rf = torch.full((nlayer, nwno), 0.99999, dtype=dtype, device=dev)
+    return taugas.to(dtype).contiguous(), tauray.to(dtype).contiguous(), rf
+
+
+def spectrum_args(scene: SceneTensors, grid: OpacityGrid, config, tg, tr,
+                  rf):
+    """The spectrum kernel's arguments and options, as ``forward`` passes
+    them: (args, kwargs) for ``spectrum_toon``."""
+    dtype = scene.cld_opd.dtype
+    all_b = toon.blackbody(scene.tlevel, 1.0 / grid.wno).to(dtype)
+    ptfac = scene.plevel[0] / (scene.plevel[1] - scene.plevel[0])
+    args = (all_b, tg, tr, scene.cld_opd, scene.cld_w0, scene.cld_g0, rf,
+            ptfac, scene.surf_reflect, scene.ubar0, scene.ubar1,
+            scene.cos_theta, scene.F0PI)
+    kwargs = dict(controls=config.controls, stream=config.stream,
+                  delta_eddington=config.delta_eddington,
+                  hard_surface=config.hard_surface)
+    return args, kwargs
+
+
+def forward(scene: SceneTensors, grid: OpacityGrid, config: SpectrumConfig):
+    """Full 1D spectrum: a dict of tensors albedo [nwno], thermal [nwno]
+    and, with ``config.transmission``, transit_depth [nwno]."""
+    _check_config(config)
+    tg, tr, rf = rt_sources(scene, grid, config)
+    out = {}
+    if config.use_kernels:
+        args, kwargs = spectrum_args(scene, grid, config, tg, tr, rf)
+        xint, flux_top = spectrum_toon(*args, **kwargs)
+        dtau_total = tg + tr + scene.cld_opd
+    else:
+        props = combine_optics(tg, tr, scene.cld_opd, scene.cld_w0,
+                               scene.cld_g0, rf,
+                               delta_eddington=config.delta_eddington,
+                               stream=config.stream)
+        xint = toon.reflected_1d(
+            props.dtau, props.tau, props.w0, props.cosb, props.gcos2,
+            props.ftau_cld, props.ftau_ray, props.dtau_og, props.tau_og,
+            props.w0_og, props.cosb_og, scene.surf_reflect, scene.ubar0,
+            scene.ubar1, scene.cos_theta, scene.F0PI,
+            controls=config.controls)
+        flux_top = toon.thermal_1d(
+            scene.tlevel, props.dtau_og, props.w0_no_raman, props.cosb_og,
+            scene.plevel, scene.ubar1, scene.surf_reflect, grid.wno,
+            hard_surface=config.hard_surface)
+        dtau_total = props.dtau_og
+    out['albedo'] = disco_mod.compress_disco(
+        xint, scene.gweight, scene.tweight, scene.cos_theta, scene.F0PI)
+    out['thermal'] = disco_mod.compress_thermal(
+        flux_top, scene.gweight, scene.tweight)
+    if config.transmission:
+        out['transit_depth'] = transit_depth(
+            scene.z, scene.dz, scene.rstar, scene.mmw_layer, scene.plevel,
+            scene.tlevel, scene.colden, dtau_total)
+    return out
+
+
+def scene_from_arrays(profile_bar, t_level, mix_named, grid: OpacityGrid,
+                      gravity, radius=np.nan, mass=np.nan, p_reference=1.0,
+                      num_gangle=10, cld=None, F0PI=None, rstar=np.nan,
+                      rayleigh_species=None, dtype=None, geom=None,
+                      surf_reflect=None, device=None):
+    """Build (SceneTensors, SpectrumConfig) from plain arrays on the host
+    (numpy), then move the scene to ``device`` (default: the grid's)."""
+    from .atmosphere import build_atmosphere
+    from .rayleigh import RAYLEIGH_MOLECULES, rayleigh_sigma_table
+
+    device = grid.wno.device if device is None else torch.device(device)
+    dtype = default_dtype(device) if dtype is None else dtype
+    prof = {'pressure': profile_bar, 'temperature': t_level}
+    prof.update(mix_named)
+    wno = grid.wno.detach().cpu().numpy()
+    atm = build_atmosphere(prof, gravity=gravity, radius=radius, mass=mass,
+                           p_reference=p_reference, wno=wno,
+                           cld_profile=cld,
+                           cld_wno=None if cld is None else wno)
+    if geom is None:
+        geom = disco_mod.make_geometry(0.0, num_gangle=num_gangle,
+                                       num_tangle=1)
+
+    used = [m for m in atm.molecules if m in grid.molecules]
+    mol_indices = tuple(grid.molecules.index(m) for m in used)
+    mix_index = tuple((m, i) for i, m in enumerate(atm.molecules))
+    pairs = atm.continuum_pairs(grid.continuum_molecules)
+    specs = tuple(assemble.classify_continuum(pairs))
+    cont_indices = tuple(grid.continuum_molecules.index(s.name)
+                         for s in specs)
+
+    ray_species = (rayleigh_species if rayleigh_species is not None
+                   else atm.rayleigh_species(RAYLEIGH_MOLECULES))
+    sig_table = rayleigh_sigma_table(wno, ray_species)
+    sigma_ray = (np.stack([sig_table[m] for m in ray_species])
+                 if ray_species else np.zeros((0, len(wno))))
+    mix_ray = (np.stack([atm.mixing_ratio_layer(m) for m in ray_species])
+               if ray_species else np.zeros((0, atm.nlayer)))
+
+    nwno = len(wno)
+    zeros_cld = np.zeros((atm.nlayer, nwno))
+
+    def t(x, dt=dtype):
+        return torch.tensor(np.asarray(x), dtype=dt, device=device)
+
+    scene = SceneTensors(
+        tlevel=t(atm.temperature), plevel=t(atm.pressure),
+        tlayer=t(atm.t_layer), player=t(atm.p_layer),
+        colden=t(atm.colden), mmw_layer=t(atm.mmw_layer),
+        mix=t(atm.mixingratios_layer.T),
+        electrons=t(atm.electrons_layer if atm.electrons_layer is not None
+                    else np.zeros(atm.nlayer)),
+        z=t(atm.z), dz=t(atm.dz),
+        cld_opd=t(atm.cld_opd if atm.cld_opd is not None else zeros_cld),
+        cld_g0=t(atm.cld_g0 if atm.cld_g0 is not None else zeros_cld),
+        cld_w0=t(atm.cld_w0 if atm.cld_w0 is not None else zeros_cld),
+        sigma_ray=t(sigma_ray), mix_ray=t(mix_ray),
+        ubar0=t(geom.ubar0), ubar1=t(geom.ubar1),
+        gweight=t(geom.gweight), tweight=t(geom.tweight),
+        F0PI=t(F0PI if F0PI is not None else np.ones(nwno)),
+        surf_reflect=t(np.zeros(nwno) if surf_reflect is None
+                       else np.broadcast_to(surf_reflect, (nwno,))),
+        rstar=t(rstar), cos_theta=t(getattr(geom, 'cos_theta', 1.0)),
+        raman_shifts=t(np.zeros((0, nwno))), raman_c=t(np.zeros(0)),
+        raman_ji=t(np.zeros(0), torch.int32), raman_dnu=t(np.zeros(0)),
+        raman_pollack_row=t(np.ones(nwno)))
+    config = SpectrumConfig(mol_indices=mol_indices, continuum_specs=specs,
+                            cont_indices=cont_indices, mix_index=mix_index,
+                            transmission=bool(np.isfinite(rstar)))
+    return scene, config
+
+
+# the production problem of the JAX package's bench.py:94-142
+MOLECULES_16 = ('H2O', 'CH4', 'CO', 'NH3', 'CO2', 'H2S', 'TiO', 'VO',
+                'Na', 'K', 'FeH', 'C2H2', 'HCN', 'PH3', 'SO2', 'CrH')
+MIX_16 = {'H2O': 1e-3, 'CH4': 5e-4, 'CO': 3e-4, 'NH3': 1e-4, 'CO2': 1e-5,
+          'H2S': 3e-5, 'TiO': 1e-7, 'VO': 1e-8, 'Na': 1e-6, 'K': 1e-7,
+          'FeH': 1e-8, 'C2H2': 1e-7, 'HCN': 1e-7, 'PH3': 1e-6,
+          'SO2': 1e-8, 'CrH': 1e-9}
+
+
+def build_problem(nwno, nlevel=91, production=True, device='cpu',
+                  dtype=None):
+    """Scene + grid + config at the requested size, as ``bench.py``'s
+    ``build_problem`` builds them for the JAX package.
+
+    production=True: the ragged 1060-point (T, P) grid with 16 molecules
+    (the real table shape; 3.4 GB in float32 at nwno = 50 000), 2 CIA
+    continua, Rayleigh, a cloud deck, 5 disk angles, transmission on.
+    production=False: a small regular 15 x 10 grid with 6 molecules.
+    """
+    from .opacities import factory
+
+    device = torch.device(device)
+    dtype = default_dtype(device) if dtype is None else dtype
+    wno = np.linspace(300.0, 33000.0, nwno)  # ~0.3-33 um
+    if production:
+        grid = factory.synthetic_opacity_grid_ragged(
+            wno, molecules=MOLECULES_16, dtype=dtype, device=device)
+        mix_vals = MIX_16
+    else:
+        grid = factory.synthetic_opacity_grid(
+            wno, molecules=('H2O', 'CH4', 'CO', 'NH3', 'CO2', 'H2S'),
+            ntemp=15, npress=10, dtype=dtype, device=device)
+        mix_vals = {m: MIX_16[m] for m in grid.molecules}
+    pressure = np.logspace(-6, 2.5, nlevel)
+    temperature = np.clip(1200.0 * (pressure / 50.0) ** 0.08, 150.0, None)
+    mix = {'H2': np.zeros(nlevel) + 0.84, 'He': np.zeros(nlevel) + 0.155}
+    for m, v in mix_vals.items():
+        mix[m] = np.zeros(nlevel) + v
+    nlayer = nlevel - 1
+    cld = {'opd': np.repeat(np.linspace(0.0, 1.0, nlayer) ** 2, nwno),
+           'g0': np.zeros(nlayer * nwno) + 0.85,
+           'w0': np.zeros(nlayer * nwno) + 0.95}
+    scene, config = scene_from_arrays(
+        pressure, temperature, mix, grid, gravity=2500.0,
+        radius=7.1492e9, mass=1.898e30, cld=cld, rstar=6.96e10,
+        dtype=dtype, device=device)
+    return scene, grid, config
