@@ -1,11 +1,12 @@
 """Smoke run of the PyTorch/CUDA port (picaso_tpu_torch) on one NVIDIA GPU.
 
-Drives the port's main path -- ``pipeline.build_problem`` and
+Drives the port's main paths -- ``pipeline.build_problem`` and
 ``pipeline.forward`` at the production shape: ragged 1060-point (T, P)
 grid, 16 molecules, nwno = 50 000, 90 layers, 5 disk angles, cloudy, 2 CIA
-continua, Rayleigh, reflected + thermal + transit -- through its two
-hand-written CUDA kernels, and checks each kernel against its plain
-PyTorch twin and the forward against a float64 oracle.
+continua, Rayleigh, reflected + thermal + transit -- with the Toon solver
+and with the spherical-harmonics solver at 4 and 2 streams, through the
+six hand-written CUDA kernels, and checks each kernel against its plain
+PyTorch twin and each forward against a float64 oracle.
 
     python3 chip_smoke.py
 
@@ -22,7 +23,18 @@ Phases (any failure raises, so the exit code is nonzero):
     in float32 (max rel <= 5e-3, median rel <= 2e-4, TPU_PARITY.json's
     forward tolerances)
  8. timings: forward with kernels vs the plain path, each kernel vs twin
- 9. one JSON line per kernel summary, then the result line.
+ 9. each SH kernel (reflected/thermal at 4 and 2 streams) vs its twin at
+    the production shape (max rel <= 1e-3, median rel <= 1e-5)
+10. SH4 and SH2 forwards on the 4 perturbed scenes: finite outputs, each
+    SH kernel of the stream and the gather launched once per forward, no
+    other kernel
+11. nwno = 5000 SH oracle at 4 and 2 streams: the f32 kernel path against
+    the f64 plain path (albedo and thermal max rel <= 8e-3, median rel <=
+    1e-3, TPU_PARITY.json's SH tolerances; transit as phase 7)
+12. timings: SH forwards with kernels vs the plain path, each SH kernel vs
+    its twin
+13. the card, one JSON line with every kernel's summary, then the result
+    line.
 """
 
 import dataclasses
@@ -39,7 +51,12 @@ ORACLE_NWNO = 5_000
 N_SCENES = 4
 TOL = {'gather_max_rel': 1e-5, 'spectrum_max_rel': 1e-3,
        'spectrum_median_rel': 1e-5, 'forward_max_rel': 5e-3,
-       'forward_median_rel': 2e-4}
+       'forward_median_rel': 2e-4, 'sh_max_rel': 8e-3,
+       'sh_median_rel': 1e-3}
+SH_REPLACES = {'reflected_sh4': 'picaso_tpu/rt/pallas_sh.py:530',
+               'thermal_sh4': 'picaso_tpu/rt/pallas_sh.py:717',
+               'reflected_sh2': 'picaso_tpu/rt/pallas_sh.py:925',
+               'thermal_sh2': 'picaso_tpu/rt/pallas_sh.py:1084'}
 
 
 def log(msg):
@@ -90,6 +107,25 @@ def wall_ms(fn, n, passes=2):
     return best * 1e3
 
 
+def check_counts(got, expected):
+    """Each kernel named in ``expected`` launched once per forward, every
+    other kernel not at all."""
+    for name, count in got.items():
+        want = N_SCENES if name in expected else 0
+        if count != want:
+            raise AssertionError(f'{name} launched {count} times in '
+                                 f'{N_SCENES} forwards, expected {want}')
+
+
+def check_outputs(outs):
+    for i, out in enumerate(outs):
+        assert set(out) == {'albedo', 'thermal', 'transit_depth'}, out.keys()
+        for key, val in out.items():
+            if val.shape != (NWNO,) or not torch.isfinite(val).all():
+                raise AssertionError(f'scene {i} {key}: shape '
+                                     f'{tuple(val.shape)} or non-finite')
+
+
 def perturbed(scene, n):
     """bench.py:179-182: temperatures scaled by (1 + 0.001 i)."""
     return [scene._replace(tlevel=scene.tlevel * (1 + 0.001 * i),
@@ -113,9 +149,19 @@ def main():
     from picaso_tpu_torch import _build, pipeline
     from picaso_tpu_torch.opacities.cuda_interp import (interp_tau,
                                                         interp_tau_plain)
+    from picaso_tpu_torch.rt import cuda_sh
     from picaso_tpu_torch.rt.cuda_toon import (spectrum_toon,
                                                spectrum_toon_plain)
     dev = torch.device('cuda')
+    wrappers = {'interp_tau': interp_tau, 'spectrum_toon': spectrum_toon}
+    wrappers.update({name: getattr(cuda_sh, name) for name in SH_REPLACES})
+
+    def reset_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def counts():
+        return {name: w.launches for name, w in wrappers.items()}
 
     # phase 2: build
     t0 = time.perf_counter()
@@ -168,23 +214,13 @@ def main():
 
     # phase 6: the main path, counted
     scenes = perturbed(scene, N_SCENES)
-    interp_tau.launches = 0
-    spectrum_toon.launches = 0
+    reset_counts()
     outs = [pipeline.forward(s, grid, config) for s in scenes]
     torch.cuda.synchronize()
-    launches = {'interp_tau': interp_tau.launches,
-                'spectrum_toon': spectrum_toon.launches}
+    launches = counts()
     log(f'[6] {N_SCENES} forwards, launches {launches}')
-    for name, count in launches.items():
-        if count != N_SCENES:
-            raise AssertionError(f'{name} launched {count} times in '
-                                 f'{N_SCENES} forwards')
-    for i, out in enumerate(outs):
-        assert set(out) == {'albedo', 'thermal', 'transit_depth'}, out.keys()
-        for key, val in out.items():
-            if val.shape != (NWNO,) or not torch.isfinite(val).all():
-                raise AssertionError(f'scene {i} {key}: shape '
-                                     f'{tuple(val.shape)} or non-finite')
+    check_counts(launches, ('interp_tau', 'spectrum_toon'))
+    check_outputs(outs)
     a = outs[0]
     log(f'    albedo mean {a["albedo"].mean().item():.6g}, thermal mean '
         f'{a["thermal"].mean().item():.6g}, transit mean '
@@ -228,7 +264,84 @@ def main():
     log(f'    interp_tau {k1_ms:.3f} ms vs twin {k1_plain_ms:.3f} ms; '
         f'spectrum_toon {k2_ms:.3f} ms vs twin {k2_plain_ms:.3f} ms')
 
-    # phase 9: summary
+    # phase 9: SH kernels vs twins at the production shape
+    sh = {}
+    for stream in (4, 2):
+        cfg = dataclasses.replace(config, rt_method=1, stream=stream)
+        (r_args, r_kw), (t_args, t_kw) = pipeline.sh_args(scene, grid, cfg,
+                                                          tg, tr, rf)
+        for kind, args, kw in (('reflected', r_args, r_kw),
+                               ('thermal', t_args, t_kw)):
+            name = f'{kind}_sh{stream}'
+            kern = getattr(cuda_sh, name)
+            twin = getattr(cuda_sh, f'{name}_plain')
+            out = kern(*args, **kw)
+            ref = twin(*args, **kw)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(out).all() and torch.isfinite(ref).all()):
+                raise AssertionError(f'{name}: non-finite values')
+            mx, med = rel_stats(out, ref)
+            err = (out - ref).abs().max().item()
+            log(f'[9] {name} kernel vs twin {tuple(out.shape)}: max abs '
+                f'{err:.3e}')
+            check(f'{name} max rel', mx, TOL['spectrum_max_rel'])
+            check(f'{name} median rel', med, TOL['spectrum_median_rel'])
+            del out, ref
+            sh[name] = {'max_abs_err': err,
+                        'ms': cuda_ms(lambda: kern(*args, **kw), 10),
+                        'plain_ms': cuda_ms(lambda: twin(*args, **kw), 2)}
+            log(f'    {name} {sh[name]["ms"]:.3f} ms vs twin '
+                f'{sh[name]["plain_ms"]:.3f} ms')
+
+    # phase 10: the SH main paths, counted
+    for stream in (4, 2):
+        cfg = dataclasses.replace(config, rt_method=1, stream=stream)
+        reset_counts()
+        outs = [pipeline.forward(s, grid, cfg) for s in scenes]
+        torch.cuda.synchronize()
+        got = counts()
+        log(f'[10] SH{stream}: {N_SCENES} forwards, launches {got}')
+        check_counts(got, ('interp_tau', f'reflected_sh{stream}',
+                           f'thermal_sh{stream}'))
+        check_outputs(outs)
+        for kind in ('reflected', 'thermal'):
+            launches[f'{kind}_sh{stream}'] = got[f'{kind}_sh{stream}']
+        a = outs[0]
+        log(f'     albedo mean {a["albedo"].mean().item():.6g}, thermal '
+            f'mean {a["thermal"].mean().item():.6g}')
+        del outs
+
+    # phase 11: float64 SH oracle
+    for stream in (4, 2):
+        oracle = pipeline.forward(o_scene, o_grid, dataclasses.replace(
+            o_config, rt_method=1, stream=stream, use_kernels=False))
+        f_out = pipeline.forward(f_scene, f_grid, dataclasses.replace(
+            f_config, rt_method=1, stream=stream))
+        torch.cuda.synchronize()
+        for key in ('albedo', 'thermal', 'transit_depth'):
+            mx, med = rel_stats(f_out[key], oracle[key])
+            log(f'[11] SH{stream} f32 kernels vs f64 oracle, {key}')
+            kind = 'forward' if key == 'transit_depth' else 'sh'
+            check(f'SH{stream} {key} max rel', mx, TOL[f'{kind}_max_rel'])
+            check(f'SH{stream} {key} median rel', med,
+                  TOL[f'{kind}_median_rel'])
+
+    # phase 12: SH forward timings (nothing asserted)
+    for stream in (4, 2):
+        cfg = dataclasses.replace(config, rt_method=1, stream=stream)
+        plain_cfg = dataclasses.replace(cfg, use_kernels=False)
+        torch.cuda.reset_peak_memory_stats()
+        fwd_ms = wall_ms(lambda: pipeline.forward(s0, grid, cfg), 10)
+        fwd_peak = torch.cuda.max_memory_allocated()
+        plain_ms = wall_ms(lambda: pipeline.forward(s0, grid, plain_cfg), 2)
+        fwd_ms2 = wall_ms(lambda: pipeline.forward(s0, grid, cfg), 10)
+        log(f'[12] SH{stream} forward, kernels: {fwd_ms:.3f} / '
+            f'{fwd_ms2:.3f} ms ({1e3 / min(fwd_ms, fwd_ms2):.2f} '
+            f'forwards/s), peak {fwd_peak} bytes; plain path: '
+            f'{plain_ms:.3f} ms ({1e3 / plain_ms:.2f} forwards/s)')
+
+    # phase 13: summary
+    log(smi[0])
     kernels = [
         {'name': 'interp_tau', 'route': 'cuda',
          'source': 'picaso_tpu_torch/csrc/interp_tau.cu',
@@ -240,7 +353,11 @@ def main():
          'replaces': 'picaso_tpu/rt/pallas_toon.py:788',
          'launches': launches['spectrum_toon'], 'max_abs_err': k2_abs,
          'ms': k2_ms, 'plain_ms': k2_plain_ms},
-    ]
+    ] + [
+        {'name': name, 'route': 'cuda',
+         'source': 'picaso_tpu_torch/csrc/sh_spectrum.cu',
+         'replaces': SH_REPLACES[name], 'launches': launches[name],
+         **sh[name]} for name in SH_REPLACES]
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -52,6 +52,20 @@ _SIGNATURES = {
                             + [_I] * 3 + [_P],
     # number of [nlayer + 1, nwno] scratch slots the kernel expects
     'toon_spectrum_scratch_slots': [],
+    # stream, taugas, tauray, cld_opd, cld_w0, cld_g0, rf, surf_reflect,
+    # F0PI, ubar0, ubar1, cos_theta, out, scratch, nlayer, nwno, nang,
+    # delta_eddington, w_single_form, w_multi_form, psingle_form,
+    # w_single_rayleigh, w_multi_rayleigh, psingle_rayleigh, single_form,
+    # frac_a, frac_b, frac_c, constant_back, constant_forward, b_top,
+    # constant_forward**stream, constant_back**stream, cuda stream
+    'sh_reflected_launch': [_I] + [_P] * 13 + [_I] * 11 + [_F] * 8 + [_P],
+    # stream, all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, rf,
+    # surf_reflect, ubar1, ptfac, out, scratch, nlayer, nwno, nang,
+    # delta_eddington, hard_surface, cuda stream
+    'sh_thermal_launch': [_I] + [_P] * 12 + [_I] * 5 + [_P],
+    # scratch slots of the SH kernels: (stream, nang) and (stream)
+    'sh_reflected_scratch_slots': [_I, _I],
+    'sh_thermal_scratch_slots': [_I],
 }
 
 
@@ -83,21 +97,42 @@ def _digest(paths):
 
 def build():
     """Compile ``csrc/*.cu`` if the library for these sources is missing;
-    return its path.  A missing nvcc or a failed build raises with the
-    compiler's output."""
+    return its path.  Each source compiles in its own ``nvcc`` process, all
+    started together, then one link; ptxas's register and spill report
+    (``-Xptxas -v``) is kept in ``ptxas.log`` beside the library.  A
+    missing nvcc or a failed build raises with the compiler's output."""
     paths = _sources()
     out_dir = os.path.join(_BUILD_ROOT, _digest(paths))
     lib = os.path.join(out_dir, 'libpicaso_kernels.so')
     if os.path.exists(lib):
         return lib
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f'{lib}.{os.getpid()}.tmp'
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp,
-           *[p for p in paths if p.endswith('.cu')]]
+    tag = f'{os.getpid()}.tmp'
+    nvcc = _nvcc()
+    jobs = []
+    for src in (p for p in paths if p.endswith('.cu')):
+        obj = os.path.join(out_dir, f'{os.path.basename(src)}.{tag}.o')
+        cmd = [nvcc, *(f for f in NVCC_FLAGS if f != '-shared'), '-Xptxas',
+               '-v', '-c', '-o', obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    logs = []
+    for cmd, _, proc in jobs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc failed ({proc.returncode}): '
+                               f'{" ".join(cmd)}\n{out}\n{err}')
+        logs.append(f'{cmd[-1]}\n{out}{err}')
+    tmp = f'{lib}.{tag}'
+    cmd = [nvcc, *NVCC_FLAGS, '-o', tmp, *[obj for _, obj, _ in jobs]]
     res = subprocess.run(cmd, capture_output=True, text=True)
+    for _, obj, _ in jobs:
+        os.remove(obj)
     if res.returncode != 0:
         raise RuntimeError(f'nvcc failed ({res.returncode}): {" ".join(cmd)}'
                            f'\n{res.stdout}\n{res.stderr}')
+    with open(os.path.join(out_dir, 'ptxas.log'), 'w') as f:
+        f.write('\n'.join(logs))
     os.replace(tmp, lib)
     return lib
 

@@ -1,0 +1,881 @@
+// Spherical-harmonics (SH2/SH4) reflected and thermal solves for every
+// wavenumber column.
+//
+// Replaces the TPU kernels reflected_sh4_pallas, thermal_sh4_pallas,
+// reflected_sh2_pallas and thermal_sh2_pallas of picaso_tpu/rt/pallas_sh.py
+// (_sh{4,2}_{reflected,thermal}_core -> _optics_block, _sh{4,2}_coeffs,
+// _eta{,2}_sources, _stage_system, _solve_sh_staged, _gj_rows).  Per column
+// a kernel builds the optics from the six source strips, the SH
+// coefficients of every layer, the block-tridiagonal system in the
+// 'incoming' row grouping (S x S blocks, S = stream; every pivot block
+// stays nonsingular in fp32), eliminates it (block Thomas, pivoted
+// Gauss-Jordan on each S x 2S block row), substitutes back and runs the
+// per-angle TOA intensity sweep.  Outputs [nang, nwno].
+//
+// What bounds it on this card: the chain of dependent layer steps (the
+// elimination and the sweeps are sequential over the layers) and the fp32
+// divisions, square roots and exponentials of the per-layer coefficients.
+// Only the wavenumber axis is parallel: 50k columns are ~390 blocks of 128
+// threads, about three per SM.
+//
+// Design: one thread per column, as in toon_spectrum.cu.  The TPU kernel
+// stages the whole block system (A, B, C, D) in VMEM; here only what the
+// later passes read goes to global scratch [slot, row, nwno] (coalesced
+// across a warp): the optics of each layer, the eliminated Cp[k] (S*S
+// slots) and the right-hand sides D[k] -> Dp[k] -> X[k] (S*nang slots).
+// The block rows of the elimination are rebuilt on the fly from the
+// coefficients of layers k-1, k, k+1 (a rolling window).  The source rows
+// D are written in the optics pass with one placeholder per row: the
+// z_up value of layer k sits in its row until layer k+1 turns it into
+// z_down - z_up.  The Gauss-Jordan step eliminates [B | C] once, keeps its
+// row swaps, pivot inverses and multipliers, and replays them on each
+// right-hand side, one angle at a time: the same operations on each value
+// as eliminating the stacked matrix, with a working set of S x 2S however
+// many angles there are (nang is a runtime value).  Per-layer coefficients
+// the sweeps need are recomputed from the stored optics rather than
+// stored.  Expressions keep the TPU kernel's order of operations (integer
+// powers as lax.integer_pow's products, the Taylor expm1 below |x| 0.05,
+// the exp clip at 35, beam dither 1e-3); built with -fmad=false, so each
+// operation rounds as in the eager PyTorch twin (rt/cuda_sh.py).
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr float kClip = 35.0f;
+constexpr float kPi = (float)3.141592653589793;
+constexpr float k2Pi = (float)(2.0 * 3.141592653589793);
+constexpr float k4Pi = (float)(4.0 * 3.141592653589793);
+constexpr float kSixth = (float)(1.0 / 6.0);
+constexpr float kDitherDelta = 1e-3f;
+constexpr float kOnePlusDelta = (float)(1.0 + 1e-3);
+
+// scratch slots, each [nlayer + 1, nwno]; Cp and D follow
+enum ReflSlot { R_DTAU, R_TAU, R_W0, R_W0_OG, R_DTAU_OG, R_TAU_OG,
+                R_COSB_OG, R_FTC, R_FTR, kReflSlots };
+enum ThermSlot { T_DTAU, T_W0, T_COSB_OG, kThermSlots };
+
+struct Params {
+  const float *all_b, *taugas, *tauray, *cld_opd, *cld_w0, *cld_g0, *rf;
+  const float *sr, *f0pi, *u0, *u1, *cos_theta, *ptfac;
+  float *out, *scr;
+  int nlayer, nwno, nang, dedd, hard_surface;
+  int w_single_form, w_multi_form, psingle_form, w_single_rayleigh,
+      w_multi_rayleigh, psingle_rayleigh, single_form;
+  float frac_a, frac_b, frac_c, constant_back, constant_forward, b_top;
+  float cf_pow, cb_pow;  // constant_forward**S, constant_back**S
+};
+
+// one thread's view of its column
+struct Col {
+  const Params& p;
+  long long w;
+  __device__ float& s(int slot, int row) const {
+    return p.scr[((long long)slot * (p.nlayer + 1) + row) * p.nwno + w];
+  }
+  __device__ float in(const float* a, int row) const {
+    return a[(long long)row * p.nwno + w];
+  }
+};
+
+// x**n with lax.integer_pow's products (binary exponentiation)
+__device__ float ipow(float x, int n) {
+  if (n == 0) return 1.0f;
+  const bool recip = n < 0;
+  if (recip) n = -n;
+  float acc = 0.0f;
+  bool have = false;
+  while (n > 0) {
+    if (n & 1) {
+      acc = have ? acc * x : x;
+      have = true;
+    }
+    n >>= 1;
+    if (n > 0) x = x * x;
+  }
+  return recip ? 1.0f / acc : acc;
+}
+
+__device__ float cube(float x) { return x * (x * x); }
+
+__device__ float pow_noint(float x, float fc) {
+  return fc == truncf(fc) ? ipow(x, (int)fc) : expf(fc * logf(fabsf(x)));
+}
+
+__device__ float clip35(float x) { return fminf(fmaxf(x, -kClip), kClip); }
+
+// exp(x) - 1: 4th-order Taylor below |x| < 0.05, else the difference
+__device__ float expm1_(float x) {
+  if (fabsf(x) < 0.05f)
+    return x * (1.0f + x * (0.5f + x * (kSixth + x / 24.0f)));
+  return expf(x) - 1.0f;
+}
+
+// growing-mode source integral (pallas_sh.py:_scaled_bet)
+__device__ float scaled_bet(float ex, float trans, float beta, float dtau) {
+  const float bd = beta * dtau;
+  if (!(fabsf(bd) < 1.0f)) return (ex - trans) / (beta == 0.0f ? 1.0f : beta);
+  if (fabsf(beta) < 1e-4f) return ex * (dtau * (1.0f - 0.5f * bd));
+  return ex * (-expm1_(-fminf(fmaxf(bd, -1.0f), 1.0f)) / beta);
+}
+
+__device__ float dither_u0(float lam, float u0) {
+  return fabsf(lam * u0 - 1.0f) < kDitherDelta
+             ? 1.0f / (lam * kOnePlusDelta) : u0;
+}
+
+__device__ void legp(float mu, float P[4]) {
+  P[0] = 1.0f;
+  P[1] = mu;
+  P[2] = (3.0f * (mu * mu) - 1.0f) / 2.0f;
+  P[3] = (5.0f * cube(mu) - 3.0f * mu) / 2.0f;
+}
+
+// ---------------------------------------------------------------------
+// optics (pallas_toon.py:_optics_block) of layer j
+// ---------------------------------------------------------------------
+struct Optics {
+  float dtau, w0, w0_og, dtau_og, cosb_og, ftc, ftr;
+};
+
+__device__ Optics optics(const Col& c, int j, int S) {
+  const Params& p = c.p;
+  const float tg = c.in(p.taugas, j), tr = c.in(p.tauray, j);
+  const float copd = c.in(p.cld_opd, j), cw0 = c.in(p.cld_w0, j);
+  const float cg0 = c.in(p.cld_g0, j), rf = c.in(p.rf, j);
+  Optics o;
+  o.dtau_og = tg + tr + copd;
+  const float cldw = cw0 * copd;
+  o.ftc = cldw / (cldw + tr);
+  o.ftr = tr / (tr + cldw);
+  o.w0_og = (tr * rf + cldw) / o.dtau_og;
+  o.cosb_og = cg0;
+  o.w0 = o.w0_og;
+  o.dtau = o.dtau_og;
+  if (p.dedd) {
+    const float f = ipow(o.cosb_og, S);
+    o.w0 = o.w0_og * (1.0f - f) / (1.0f - o.w0_og * f);
+    o.dtau = o.dtau_og * (1.0f - o.w0_og * f);
+  }
+  return o;
+}
+
+// Legendre expansion weights (pallas_sh.py:_w_expansions_blk)
+template <int S>
+__device__ void w_expansions(const Params& p, int form, int rayleigh,
+                             float cosb_og, float ftc, float ftr, float fdm_in,
+                             float w[S]) {
+#pragma unroll
+  for (int l = 0; l < S; ++l) w[l] = 1.0f;
+  if (form == 1) {  // OTHG
+#pragma unroll
+    for (int l = 1; l < S; ++l) {
+      const float wl = (float)(2 * l + 1) * ipow(cosb_og, l);
+      w[l] = (wl - (float)(2 * l + 1) * fdm_in) / (1.0f - fdm_in);
+    }
+  } else if (form == 0) {  // TTHG
+    const float gf = p.constant_forward * cosb_og;
+    const float gb = p.constant_back * cosb_og;
+    const float f = p.frac_a + p.frac_b * pow_noint(gb, p.frac_c);
+    const float fdm = fdm_in * (f * p.cf_pow + (1.0f - f) * p.cb_pow);
+#pragma unroll
+    for (int l = 1; l < S; ++l) {
+      const float wl = (float)(2 * l + 1)
+                       * (f * ipow(gf, l) + (1.0f - f) * ipow(gb, l));
+      w[l] = (wl - (float)(2 * l + 1) * fdm) / (1.0f - fdm);
+    }
+  }
+  if (rayleigh == 1) {
+#pragma unroll
+    for (int l = 1; l < S; ++l) w[l] = w[l] * ftc;
+    if (S == 4) w[2] = w[2] + 0.5f * ftr;
+  }
+}
+
+// ---------------------------------------------------------------------
+// SH coefficients of one layer (pallas_sh.py:_sh2_coeffs/_sh4_coeffs)
+// ---------------------------------------------------------------------
+// The boundary functionals at the layer top (T) and bottom (Fm): row
+// r < H, mode m has the pair (x, y) with T = (x, y e_m), Fm = (x e_m, y)
+// in columns (2m, 2m + 1); row r + H has the pair swapped.
+template <int S>
+struct Coef {
+  static constexpr int H = S / 2;
+  float a[S];
+  float lam[H], ex[H];
+  float x[H][H], y[H][H];
+  float beta, gama, R[2], Q[2], Sg[2];  // SH4
+  float q;                              // SH2
+  __device__ float T(int i, int j) const {
+    const int m = j / 2, r = i % H;
+    const float xx = i < H ? x[r][m] : y[r][m];
+    const float yy = i < H ? y[r][m] : x[r][m];
+    return (j & 1) ? yy * ex[m] : xx;
+  }
+  __device__ float F(int i, int j) const {
+    const int m = j / 2, r = i % H;
+    const float xx = i < H ? x[r][m] : y[r][m];
+    const float yy = i < H ? y[r][m] : x[r][m];
+    return (j & 1) ? yy : xx * ex[m];
+  }
+  // eigenvector matrix A4[j][mode] of the SH4 source technique
+  __device__ float A4(int j, int m) const {
+    if (j == 0) return 1.0f;
+    const float v = j == 1 ? R[m / 2] : j == 2 ? Q[m / 2] : Sg[m / 2];
+    return (j != 2 && (m & 1)) ? -v : v;
+  }
+};
+
+__device__ void coeffs(Coef<2>& c, float w0, float dtau, const float wm[2]) {
+  c.a[0] = 1.0f - w0 * wm[0];
+  c.a[1] = 3.0f - w0 * wm[1];
+  c.lam[0] = sqrtf(c.a[0] * c.a[1]);
+  c.ex[0] = expf(-fminf(fmaxf(c.lam[0] * dtau, 0.0f), kClip));
+  c.q = c.lam[0] / c.a[1];
+  c.x[0][0] = (0.5f + c.q) * 2.0f * kPi;  // Q1
+  c.y[0][0] = (0.5f - c.q) * 2.0f * kPi;  // Q2
+}
+
+__device__ void coeffs(Coef<4>& c, float w0, float dtau, const float wm[4]) {
+#pragma unroll
+  for (int l = 0; l < 4; ++l) c.a[l] = (float)(2 * l + 1) - w0 * wm[l];
+  const float a0 = c.a[0], a1 = c.a[1], a2 = c.a[2], a3 = c.a[3];
+  c.beta = a0 * a1 + 4.0f * a0 * a3 / 9.0f + a2 * a3 / 9.0f;
+  c.gama = a0 * a1 * a2 * a3 / 9.0f;
+  const float root = sqrtf(c.beta * c.beta - 4.0f * c.gama);
+  c.lam[0] = sqrtf((c.beta + root) / 2.0f);
+  c.lam[1] = sqrtf((c.beta - root) / 2.0f);
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const float lam = c.lam[m];
+    c.ex[m] = expf(-fminf(fmaxf(lam * dtau, 0.0f), kClip));
+    const float R = -a0 / lam;
+    const float Q = 0.5f * (a0 * a1 / (lam * lam) - 1.0f);
+    const float Sg = -3.0f / (2.0f * a3) * (a0 * a1 / lam - lam);
+    c.R[m] = R;
+    c.Q[m] = Q;
+    c.Sg[m] = Sg;
+    c.y[0][m] = (0.5f + R + 5.0f * Q / 8.0f) * 2.0f * kPi;      // p_pl
+    c.y[1][m] = (-0.125f + 5.0f * Q / 8.0f + Sg) * 2.0f * kPi;  // q_pl
+    c.x[0][m] = (0.5f - R + 5.0f * Q / 8.0f) * 2.0f * kPi;      // p_mn
+    c.x[1][m] = (-0.125f + 5.0f * Q / 8.0f - Sg) * 2.0f * kPi;  // q_mn
+  }
+}
+
+// beam particular solution of one angle (pallas_sh.py:_eta2_sources and
+// _eta_sources): eta, the z rows in block-row order, the dithered angle
+template <int S>
+struct Beam {
+  float eta[S], z[S], u0b;
+};
+
+__device__ Beam<2> beam(const Coef<2>& c, float u0, float w0, const float ws[2],
+                        float f0pi) {
+  Beam<2> r;
+  r.u0b = dither_u0(c.lam[0], u0);
+  const float t = 1.0f / r.u0b;
+  const float Del = t * t - c.a[0] * c.a[1];
+  const float b0 = (f0pi * (w0 * ws[0])) / k4Pi;
+  const float b1 = (f0pi * (w0 * ws[1])) * -u0 / k4Pi;
+  r.eta[0] = (b1 / r.u0b - c.a[1] * b0) / Del;
+  r.eta[1] = (b0 / r.u0b - c.a[0] * b1) / Del;
+  r.z[0] = (0.5f * r.eta[0] - r.eta[1]) * 2.0f * kPi;
+  r.z[1] = (0.5f * r.eta[0] + r.eta[1]) * 2.0f * kPi;
+  return r;
+}
+
+__device__ Beam<4> beam(const Coef<4>& c, float u0, float w0, const float ws[4],
+                        float f0pi) {
+  Beam<4> r;
+  r.u0b = dither_u0(c.lam[1], dither_u0(c.lam[0], u0));
+  const float u0i = 1.0f / r.u0b;
+  const float u0i2 = u0i * u0i;
+  const float Del = 9.0f * (u0i2 * u0i2 - c.beta * u0i2 + c.gama);
+  float P[4];
+  legp(-u0, P);
+  float b[4];
+  b[0] = (f0pi * (w0 * ws[0])) / k4Pi;
+#pragma unroll
+  for (int l = 1; l < 4; ++l) b[l] = (f0pi * (w0 * ws[l])) * P[l] / k4Pi;
+  const float a0 = c.a[0], a1 = c.a[1], a2 = c.a[2], a3 = c.a[3];
+  const float d0 = (a1 * b[0] - b[1] * u0i) * (a2 * a3 - 9.0f * u0i2)
+                   + 2.0f * (a3 * b[2] - 2.0f * a3 * b[0] - 3.0f * b[3] * u0i)
+                         * u0i2;
+  const float d1 = (a0 * b[1] - b[0] * u0i) * (a2 * a3 - 9.0f * u0i2)
+                   - 2.0f * a0 * (a3 * b[2] - 3.0f * b[3] * u0i) * u0i;
+  const float d2 = (a3 * b[2] - 3.0f * b[3] * u0i) * (a0 * a1 - u0i2)
+                   - 2.0f * a3 * (a0 * b[1] - b[0] * u0i) * u0i;
+  const float d3 = (a2 * b[3] - 3.0f * b[2] * u0i) * (a0 * a1 - u0i2)
+                   + 2.0f * (3.0f * a0 * b[1] - 2.0f * a0 * b[3]
+                             - 3.0f * b[0] * u0i) * u0i2;
+  r.eta[0] = d0 / Del;
+  r.eta[1] = d1 / Del;
+  r.eta[2] = d2 / Del;
+  r.eta[3] = d3 / Del;
+  const float* e = r.eta;
+  r.z[0] = (e[0] / 2.0f - e[1] + 5.0f * e[2] / 8.0f) * 2.0f * kPi;
+  r.z[1] = (-e[0] / 8.0f + 5.0f * e[2] / 8.0f - e[3]) * 2.0f * kPi;
+  r.z[2] = (e[0] / 2.0f + e[1] + 5.0f * e[2] / 8.0f) * 2.0f * kPi;
+  r.z[3] = (-e[0] / 8.0f + 5.0f * e[2] / 8.0f + e[3]) * 2.0f * kPi;
+  return r;
+}
+
+// the SH4 homogeneous-mode terms of the source integral
+__device__ float homogeneous4(const Coef<4>& c, const float wm[4],
+                              const float P1[4], const float X[4], float u1,
+                              float dtau, float trans) {
+  float e[4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const float alpha = 1.0f / u1 + c.lam[m];
+    const float beta = 1.0f / u1 - c.lam[m];
+    e[2 * m] = -expm1_(-clip35(alpha * dtau)) / alpha * X[2 * m];
+    e[2 * m + 1] = scaled_bet(c.ex[m], trans, beta, dtau) * X[2 * m + 1];
+  }
+  float ms = 0.0f;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    float coeff = wm[0];
+#pragma unroll
+    for (int j = 1; j < 4; ++j) coeff = coeff + wm[j] * P1[j] * c.A4(j, m);
+    const float t = coeff * e[m];
+    ms = m == 0 ? t : ms + t;
+  }
+  return ms;
+}
+
+// ---------------------------------------------------------------------
+// block system: staging, elimination, back-substitution
+// ---------------------------------------------------------------------
+
+// Source rows of layer k for right-hand side r (pallas_sh.py:
+// _stage_system, D rows) from z_down/z_up of layer k.  Each row first
+// holds the z_up value it needs as a placeholder, replaced by the final
+// difference once layer k + 1 (or the boundary) is known.
+template <int S>
+__device__ void stage(const Col& c, int d0, int nrhs, int k, int r,
+                      const float zd[S], const float zu[S], const float btv[],
+                      const float bsv[], float sr) {
+  constexpr int H = S / 2;
+  const int L = c.p.nlayer;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    float& d = c.s(d0 + nrhs * i + r, k);
+    d = k == 0 ? btv[i] - zd[i] : zd[i] - d;
+    if (k + 1 < L) c.s(d0 + nrhs * i + r, k + 1) = zu[i];
+  }
+#pragma unroll
+  for (int i = H; i < S; ++i) {
+    if (k >= 1) {
+      float& d = c.s(d0 + nrhs * i + r, k - 1);
+      d = zd[i] - d;
+    }
+    c.s(d0 + nrhs * i + r, k) =
+        k == L - 1 ? bsv[i - H] - zu[i] + sr * zu[i - H] : zu[i];
+  }
+}
+
+// Block-Thomas elimination (pallas_sh.py:_solve_sh_staged); `layer(j)`
+// gives the coefficients of layer j.  Writes Cp[k] to slots cp0.. and
+// turns D[k] into Dp[k] in place.
+template <int S, class Layer>
+__device__ void eliminate(const Col& c, const Layer& layer, int cp0, int d0,
+                          int nrhs, float sr) {
+  constexpr int H = S / 2;
+  const int L = c.p.nlayer;
+  Coef<S> prev{}, cur = layer(0), next{};
+  float cp[S][S];
+  for (int k = 0; k < L; ++k) {
+    const bool last = k == L - 1;
+    if (!last) next = layer(k + 1);
+    float M[S][2 * S];
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        float acc = k == 0 ? cur.T(i, j) : -cur.T(i, j);
+        if (k > 0) {
+#pragma unroll
+          for (int kk = 0; kk < S; ++kk) acc = acc - prev.F(i, kk) * cp[kk][j];
+        }
+        M[i][j] = acc;
+        M[i][S + j] = 0.0f;
+      }
+    }
+#pragma unroll
+    for (int i = H; i < S; ++i) {
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        M[i][j] = last ? cur.F(i, j) - sr * cur.F(i - H, j) : cur.F(i, j);
+        M[i][S + j] = last ? 0.0f : -next.T(i, j);
+      }
+    }
+    // pivoted Gauss-Jordan on [B | C], recorded for the replays
+    bool sw[S][S];
+    float inv[S], fac[S][S];
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+#pragma unroll
+      for (int r = i + 1; r < S; ++r) {
+        sw[i][r] = fabsf(M[r][i]) > fabsf(M[i][i]);
+#pragma unroll
+        for (int col = i; col < 2 * S; ++col) {
+          const float top = M[i][col], bot = M[r][col];
+          M[i][col] = sw[i][r] ? bot : top;
+          M[r][col] = sw[i][r] ? top : bot;
+        }
+      }
+      inv[i] = 1.0f / M[i][i];
+#pragma unroll
+      for (int col = i + 1; col < 2 * S; ++col) M[i][col] = M[i][col] * inv[i];
+#pragma unroll
+      for (int r = 0; r < S; ++r) {
+        if (r == i) continue;
+        fac[i][r] = M[r][i];
+#pragma unroll
+        for (int col = i + 1; col < 2 * S; ++col)
+          M[r][col] = M[r][col] - fac[i][r] * M[i][col];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        cp[i][j] = M[i][S + j];
+        c.s(cp0 + S * i + j, k) = cp[i][j];
+      }
+    }
+    // each right-hand side: Schur update of the top rows, then the replay
+    for (int r = 0; r < nrhs; ++r) {
+      float d[S];
+#pragma unroll
+      for (int i = 0; i < S; ++i) d[i] = c.s(d0 + nrhs * i + r, k);
+      if (k > 0) {
+#pragma unroll
+        for (int i = 0; i < H; ++i) {
+#pragma unroll
+          for (int kk = 0; kk < S; ++kk)
+            d[i] = d[i] - prev.F(i, kk) * c.s(d0 + nrhs * kk + r, k - 1);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < S; ++i) {
+#pragma unroll
+        for (int rr = i + 1; rr < S; ++rr) {
+          const float top = d[i], bot = d[rr];
+          d[i] = sw[i][rr] ? bot : top;
+          d[rr] = sw[i][rr] ? top : bot;
+        }
+        d[i] = d[i] * inv[i];
+#pragma unroll
+        for (int rr = 0; rr < S; ++rr) {
+          if (rr == i) continue;
+          d[rr] = d[rr] - fac[i][rr] * d[i];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < S; ++i) c.s(d0 + nrhs * i + r, k) = d[i];
+    }
+    prev = cur;
+    cur = next;
+  }
+}
+
+// y[k] = Dp[k] - Cp[k] y[k+1], bottom up; X replaces Dp in place
+template <int S>
+__device__ void back_substitute(const Col& c, int cp0, int d0, int nrhs) {
+  const int L = c.p.nlayer;
+  for (int r = 0; r < nrhs; ++r) {
+    float y[S];
+#pragma unroll
+    for (int i = 0; i < S; ++i) y[i] = c.s(d0 + nrhs * i + r, L - 1);
+    for (int k = L - 2; k >= 0; --k) {
+      float yn[S];
+#pragma unroll
+      for (int i = 0; i < S; ++i) {
+        float acc = c.s(d0 + nrhs * i + r, k);
+#pragma unroll
+        for (int j = 0; j < S; ++j) acc = acc - c.s(cp0 + S * i + j, k) * y[j];
+        yn[i] = acc;
+      }
+#pragma unroll
+      for (int i = 0; i < S; ++i) {
+        y[i] = yn[i];
+        c.s(d0 + nrhs * i + r, k) = y[i];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// reflected (pallas_sh.py:_sh{4,2}_reflected_core)
+// ---------------------------------------------------------------------
+template <int S>
+struct ReflLayer {
+  const Col& c;
+  __device__ Coef<S> operator()(int j) const {
+    const Params& p = c.p;
+    const float cosb_og = c.s(R_COSB_OG, j);
+    const float fdm = p.dedd ? ipow(cosb_og, S) : 0.0f;
+    float wm[S];
+    w_expansions<S>(p, p.w_multi_form, p.w_multi_rayleigh, cosb_og,
+                    c.s(R_FTC, j), c.s(R_FTR, j), fdm, wm);
+    Coef<S> cf;
+    coeffs(cf, c.s(R_W0, j), c.s(R_DTAU, j), wm);
+    return cf;
+  }
+};
+
+template <int S>
+__device__ float p_single(const Params& p, float cosb_og, float ftc, float ftr,
+                          float ct, const float ws[S], const float P0[4],
+                          const float P1[4]) {
+  if (p.single_form != 0) {  // legendre form
+    float ps = 0.0f;
+#pragma unroll
+    for (int l = 0; l < S; ++l) ps = ps + ws[l] * P0[l] * P1[l];
+    return ps;
+  }
+  float ps = 0.0f;
+  if (p.psingle_form == 1) {  // OTHG
+    ps = (1.0f - cosb_og * cosb_og)
+         / cube(sqrtf(1.0f + cosb_og * cosb_og + 2.0f * cosb_og * ct));
+  } else if (p.psingle_form == 0) {  // TTHG
+    const float gf = p.constant_forward * cosb_og;
+    const float gb = p.constant_back * cosb_og;
+    const float f = p.frac_a + p.frac_b * pow_noint(gb, p.frac_c);
+    ps = f * (1.0f - gf * gf) / sqrtf(cube(1.0f + gf * gf + 2.0f * gf * ct))
+         + (1.0f - f) * (1.0f - gb * gb)
+               / sqrtf(cube(1.0f + gb * gb + 2.0f * gb * ct));
+  }
+  if (p.psingle_rayleigh == 1)
+    ps = ftc * ps + ftr * (0.75f * (1.0f + ct * ct));
+  return ps;
+}
+
+template <int S>
+__global__ void __launch_bounds__(kThreads) sh_reflected_kernel(const Params p) {
+  constexpr int H = S / 2;
+  const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= p.nwno) return;
+  const Col c{p, w};
+  const int L = p.nlayer, nang = p.nang;
+  const int cp0 = kReflSlots, d0 = kReflSlots + S * S;
+  const float sr = p.sr[w], f0pi = p.f0pi[w], ct = p.cos_theta[0];
+  const float bt = p.b_top;
+  const float btv[2] = {bt, -bt / 4.0f};
+
+  // optics top down, beam sources into the D rows
+  float tau = 0.0f, tau_og = 0.0f;
+  for (int j = 0; j < L; ++j) {
+    const Optics o = optics(c, j, S);
+    c.s(R_DTAU, j) = o.dtau;
+    c.s(R_TAU, j) = tau;
+    c.s(R_W0, j) = o.w0;
+    c.s(R_W0_OG, j) = o.w0_og;
+    c.s(R_DTAU_OG, j) = o.dtau_og;
+    c.s(R_TAU_OG, j) = tau_og;
+    c.s(R_COSB_OG, j) = o.cosb_og;
+    c.s(R_FTC, j) = o.ftc;
+    c.s(R_FTR, j) = o.ftr;
+    const float tau_lo = tau + o.dtau;
+    const Coef<S> cf = ReflLayer<S>{c}(j);
+    const float fdm = p.dedd ? ipow(o.cosb_og, S) : 0.0f;
+    float ws[S];
+    w_expansions<S>(p, p.w_single_form, p.w_single_rayleigh, o.cosb_og, o.ftc,
+                    o.ftr, fdm, ws);
+    for (int a = 0; a < nang; ++a) {
+      const float u0 = p.u0[a];
+      const Beam<S> bm = beam(cf, u0, o.w0, ws, f0pi);
+      const float ex_dn = expf(-clip35(tau / bm.u0b));
+      const float ex_up = expf(-clip35(tau_lo / bm.u0b));
+      float zd[S], zu[S];
+#pragma unroll
+      for (int i = 0; i < S; ++i) {
+        zd[i] = bm.z[i] * ex_dn;
+        zu[i] = bm.z[i] * ex_up;
+      }
+      const float bs = sr * u0 * f0pi * expf(-clip35(tau_lo / u0));
+      const float bsv[2] = {bs, -bs / 4.0f};
+      stage<S>(c, d0, nang, j, a, zd, zu, btv, bsv, sr);
+    }
+    tau = tau_lo;
+    tau_og = tau_og + o.dtau_og;
+  }
+  c.s(R_TAU, L) = tau;
+  c.s(R_TAU_OG, L) = tau_og;
+
+  eliminate<S>(c, ReflLayer<S>{c}, cp0, d0, nang, sr);
+  back_substitute<S>(c, cp0, d0, nang);
+
+  // per-angle TOA intensity, bottom up
+  for (int a = 0; a < nang; ++a) {
+    const float u0 = p.u0[a], u1 = p.u1[a];
+    float P0[4], P1[4];
+    legp(-u0, P0);
+    legp(u1, P1);
+    float x = 0.0f;
+    for (int k = L - 1; k >= 0; --k) {
+      const float dtau = c.s(R_DTAU, k), tau_k = c.s(R_TAU, k);
+      const float w0 = c.s(R_W0, k), cosb_og = c.s(R_COSB_OG, k);
+      const float ftc = c.s(R_FTC, k), ftr = c.s(R_FTR, k);
+      const float fdm = p.dedd ? ipow(cosb_og, S) : 0.0f;
+      float ws[S], wm[S], X[S];
+      w_expansions<S>(p, p.w_single_form, p.w_single_rayleigh, cosb_og, ftc,
+                      ftr, fdm, ws);
+      w_expansions<S>(p, p.w_multi_form, p.w_multi_rayleigh, cosb_og, ftc,
+                      ftr, fdm, wm);
+      Coef<S> cf;
+      coeffs(cf, w0, dtau, wm);
+      const Beam<S> bm = beam(cf, u0, w0, ws, f0pi);
+#pragma unroll
+      for (int i = 0; i < S; ++i) X[i] = c.s(d0 + nang * i + a, k);
+      if (k == L - 1) {
+        float flux_bot = cf.F(H, 0) * X[0];
+#pragma unroll
+        for (int m = 1; m < S; ++m) flux_bot = flux_bot + cf.F(H, m) * X[m];
+        flux_bot = flux_bot + bm.z[H] * expf(-clip35(c.s(R_TAU, L) / bm.u0b));
+        x = flux_bot / kPi;
+      }
+      const float u0b = bm.u0b;
+      const float mus = (u1 + u0b) / (u1 * u0b);
+      const float exptrm_mus = -expm1_(-clip35(mus * dtau)) / mus;
+      const float expon1 = exptrm_mus * expf(-clip35(tau_k / u0b));
+      const float trans = expf(-clip35(dtau / u1));
+      float ms;
+      if constexpr (S == 4) {
+        ms = homogeneous4(cf, wm, P1, X, u1, dtau, trans);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ms = ms + wm[j] * P1[j] * bm.eta[j] * expon1;
+      } else {
+        const float lam = cf.lam[0], q = cf.q;
+        const float alpha = 1.0f / u1 + lam, beta = 1.0f / u1 - lam;
+        const float alp = -expm1_(-clip35(alpha * dtau)) / alpha;
+        const float bet = scaled_bet(cf.ex[0], trans, beta, dtau);
+        ms = X[0] * (wm[0] - wm[1] * u1 * q) * alp
+             + X[1] * (wm[0] + wm[1] * u1 * q) * bet
+             + wm[0] * (bm.eta[0] * expon1) + wm[1] * u1 * (bm.eta[1] * expon1);
+      }
+      const float ps = p_single<S>(p, cosb_og, ftc, ftr, ct, ws, P0, P1);
+      const float em_mus1 = -expm1_(-clip35(mus * c.s(R_DTAU_OG, k)));
+      const float intgrl =
+          w0 * ms
+          + c.s(R_W0_OG, k) * f0pi / k4Pi * ps * em_mus1
+                * expf(-clip35(c.s(R_TAU_OG, k) / u0)) / mus;
+      x = x * trans + intgrl / u1;
+    }
+    p.out[(long long)a * p.nwno + w] = x;
+  }
+}
+
+// ---------------------------------------------------------------------
+// thermal (pallas_sh.py:_sh{4,2}_thermal_core), delta-scaled dtau/w0
+// ---------------------------------------------------------------------
+template <int S>
+__device__ void thermal_w(const Params& p, float cosb_og, float wm[S]) {
+  const float ff = p.dedd ? ipow(cosb_og, S) : 0.0f;
+#pragma unroll
+  for (int l = 0; l < S; ++l)
+    wm[l] = (float)(2 * l + 1) * (ipow(cosb_og, l) - ff) / (1.0f - ff);
+}
+
+template <int S>
+struct ThermLayer {
+  const Col& c;
+  __device__ Coef<S> operator()(int j) const {
+    float wm[S];
+    thermal_w<S>(c.p, c.s(T_COSB_OG, j), wm);
+    Coef<S> cf;
+    coeffs(cf, c.s(T_W0, j), c.s(T_DTAU, j), wm);
+    return cf;
+  }
+};
+
+template <int S>
+__global__ void __launch_bounds__(kThreads) sh_thermal_kernel(const Params p) {
+  const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= p.nwno) return;
+  const Col c{p, w};
+  const int L = p.nlayer;
+  const int cp0 = kThermSlots, d0 = kThermSlots + S * S;
+  const float sr = p.sr[w];
+  const float ab_last = c.in(p.all_b, L);
+
+  float btv[2] = {0.0f, 0.0f};
+  for (int j = 0; j < L; ++j) {
+    const Optics o = optics(c, j, S);
+    c.s(T_DTAU, j) = o.dtau;
+    c.s(T_W0, j) = o.w0;
+    c.s(T_COSB_OG, j) = o.cosb_og;
+    const Coef<S> cf = ThermLayer<S>{c}(j);
+    const float dtau = o.dtau, w0 = o.w0;
+    const float b0 = c.in(p.all_b, j);
+    const float b1 = (c.in(p.all_b, j + 1) - b0) / dtau;
+    if (j == 0) {
+      const float tau_top = dtau * p.ptfac[0];
+      btv[0] = kPi * (1.0f - expf(-tau_top / 0.5f)) * b0;
+      btv[1] = -btv[0] / 4.0f;
+    }
+    const float a0 = cf.a[0], a1 = cf.a[1];
+    const float pref = (1.0f - w0) / a0 * 2.0f * kPi;
+    float zd[S], zu[S];
+    zd[0] = pref * (b0 / 2.0f - b1 / a1);
+    zu[0] = pref * (b0 / 2.0f - b1 / a1 + b1 * dtau / 2.0f);
+    zd[S / 2] = pref * (b0 / 2.0f + b1 / a1);
+    zu[S / 2] = pref * (b0 / 2.0f + b1 / a1 + b1 * dtau / 2.0f);
+    if constexpr (S == 4) {
+      const float pref2 = -0.5f * (1.0f - w0) / (4.0f * a0) * 2.0f * kPi;
+      zd[1] = zd[3] = pref2 * b0;
+      zu[1] = zu[3] = pref2 * (b0 + b1 * dtau);
+    }
+    const float bsv[2] = {
+        p.hard_surface ? kPi * ab_last : kPi * (ab_last + b1 * 0.5f),
+        -kPi * ab_last / 4.0f};
+    stage<S>(c, d0, 1, j, 0, zd, zu, btv, bsv, sr);
+  }
+
+  eliminate<S>(c, ThermLayer<S>{c}, cp0, d0, 1, sr);
+  back_substitute<S>(c, cp0, d0, 1);
+
+  const float b1_last =
+      (ab_last - c.in(p.all_b, L - 1)) / c.s(T_DTAU, L - 1);
+  for (int a = 0; a < p.nang; ++a) {
+    const float u1 = p.u1[a];
+    float P1[4];
+    legp(u1, P1);
+    float x = p.hard_surface ? ab_last * 2.0f * kPi
+                             : (ab_last + b1_last * u1) * 2.0f * kPi;
+    for (int k = L - 1; k >= 0; --k) {
+      const float dtau = c.s(T_DTAU, k), w0 = c.s(T_W0, k);
+      float wm[S], X[S];
+      thermal_w<S>(p, c.s(T_COSB_OG, k), wm);
+      Coef<S> cf;
+      coeffs(cf, w0, dtau, wm);
+#pragma unroll
+      for (int i = 0; i < S; ++i) X[i] = c.s(d0 + i, k);
+      const float b0 = c.in(p.all_b, k);
+      const float b1 = (c.in(p.all_b, k + 1) - b0) / dtau;
+      const float em = -expm1_(-clip35(dtau / u1));
+      const float expdtau = 1.0f - em;
+      const float a0 = cf.a[0], a1 = cf.a[1];
+      const float planck = b0 * em + b1 * (u1 - (dtau + u1) * expdtau);
+      float ms;
+      if constexpr (S == 4) {
+        ms = homogeneous4(cf, wm, P1, X, u1, dtau, expdtau);
+        const float nint0 = wm[0] * ((1.0f - w0) * u1 / a0 * planck);
+        const float nint1 =
+            wm[1] * u1 * ((1.0f - w0) * u1 / a0 * (b1 * em / a1));
+        ms = ms + nint0 + nint1;
+      } else {
+        const float lam = cf.lam[0], q = cf.q;
+        const float alpha = 1.0f / u1 + lam, beta = 1.0f / u1 - lam;
+        const float alp = -expm1_(-clip35(alpha * dtau)) / alpha;
+        const float bet = scaled_bet(cf.ex[0], expdtau, beta, dtau);
+        ms = X[0] * (wm[0] - wm[1] * u1 * q) * alp
+             + X[1] * (wm[0] + wm[1] * u1 * q) * bet
+             + wm[0] * ((1.0f - w0) * u1 / a0 * planck)
+             + wm[1] * u1 * ((1.0f - w0) * u1 / a0 * (b1 * em / a1));
+      }
+      const float intgrl =
+          w0 * ms * 2.0f * kPi + k2Pi * (1.0f - w0) * u1 * planck;
+      x = x * expdtau + intgrl / u1;
+    }
+    p.out[(long long)a * p.nwno + w] = x;
+  }
+}
+
+template <class K>
+int launch(K kernel, const Params& p, void* cuda_stream) {
+  const int blocks = (p.nwno + kThreads - 1) / kThreads;
+  kernel<<<blocks, kThreads, 0, (cudaStream_t)cuda_stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int sh_reflected_scratch_slots(int stream, int nang) {
+  return kReflSlots + stream * stream + stream * nang;
+}
+
+extern "C" int sh_thermal_scratch_slots(int stream) {
+  return kThermSlots + stream * stream + stream;
+}
+
+extern "C" int sh_reflected_launch(
+    int stream, const void* taugas, const void* tauray, const void* cld_opd,
+    const void* cld_w0, const void* cld_g0, const void* rf,
+    const void* surf_reflect, const void* F0PI, const void* ubar0,
+    const void* ubar1, const void* cos_theta, void* out, void* scratch,
+    int nlayer, int nwno, int nang, int delta_eddington, int w_single_form,
+    int w_multi_form, int psingle_form, int w_single_rayleigh,
+    int w_multi_rayleigh, int psingle_rayleigh, int single_form,
+    float frac_a, float frac_b, float frac_c, float constant_back,
+    float constant_forward, float b_top, float cf_pow, float cb_pow,
+    void* cuda_stream) {
+  Params p = {};
+  p.taugas = (const float*)taugas;
+  p.tauray = (const float*)tauray;
+  p.cld_opd = (const float*)cld_opd;
+  p.cld_w0 = (const float*)cld_w0;
+  p.cld_g0 = (const float*)cld_g0;
+  p.rf = (const float*)rf;
+  p.sr = (const float*)surf_reflect;
+  p.f0pi = (const float*)F0PI;
+  p.u0 = (const float*)ubar0;
+  p.u1 = (const float*)ubar1;
+  p.cos_theta = (const float*)cos_theta;
+  p.out = (float*)out;
+  p.scr = (float*)scratch;
+  p.nlayer = nlayer;
+  p.nwno = nwno;
+  p.nang = nang;
+  p.dedd = delta_eddington;
+  p.w_single_form = w_single_form;
+  p.w_multi_form = w_multi_form;
+  p.psingle_form = psingle_form;
+  p.w_single_rayleigh = w_single_rayleigh;
+  p.w_multi_rayleigh = w_multi_rayleigh;
+  p.psingle_rayleigh = psingle_rayleigh;
+  p.single_form = single_form;
+  p.frac_a = frac_a;
+  p.frac_b = frac_b;
+  p.frac_c = frac_c;
+  p.constant_back = constant_back;
+  p.constant_forward = constant_forward;
+  p.b_top = b_top;
+  p.cf_pow = cf_pow;
+  p.cb_pow = cb_pow;
+  if (stream == 4) return launch(sh_reflected_kernel<4>, p, cuda_stream);
+  if (stream == 2) return launch(sh_reflected_kernel<2>, p, cuda_stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int sh_thermal_launch(
+    int stream, const void* all_b, const void* taugas, const void* tauray,
+    const void* cld_opd, const void* cld_w0, const void* cld_g0,
+    const void* rf, const void* surf_reflect, const void* ubar1,
+    const void* ptfac, void* out, void* scratch, int nlayer, int nwno,
+    int nang, int delta_eddington, int hard_surface, void* cuda_stream) {
+  Params p = {};
+  p.all_b = (const float*)all_b;
+  p.taugas = (const float*)taugas;
+  p.tauray = (const float*)tauray;
+  p.cld_opd = (const float*)cld_opd;
+  p.cld_w0 = (const float*)cld_w0;
+  p.cld_g0 = (const float*)cld_g0;
+  p.rf = (const float*)rf;
+  p.sr = (const float*)surf_reflect;
+  p.u1 = (const float*)ubar1;
+  p.ptfac = (const float*)ptfac;
+  p.out = (float*)out;
+  p.scr = (float*)scratch;
+  p.nlayer = nlayer;
+  p.nwno = nwno;
+  p.nang = nang;
+  p.dedd = delta_eddington;
+  p.hard_surface = hard_surface;
+  if (stream == 4) return launch(sh_thermal_kernel<4>, p, cuda_stream);
+  if (stream == 2) return launch(sh_thermal_kernel<2>, p, cuda_stream);
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,19 +1,23 @@
 """The spectrum pipeline: opacities -> optics -> RT -> disk integration.
 
-Port of ``picaso_tpu/pipeline.py`` for the Toon two-stream solver with
-reflected and thermal spectra (and transmission when the star radius is
-finite), Raman off (``raman=2``), no ``test_mode``.  With ``use_kernels``
-(the default) the two hot stages go through the hand-written kernels:
+Port of ``picaso_tpu/pipeline.py`` for the Toon two-stream solver
+(``rt_method=0``, reflected + thermal together) and the spherical-harmonics
+solver (``rt_method=1``, stream 2 or 4, reflected and/or thermal), with
+transmission when the star radius is finite, Raman off (``raman=2``), no
+``test_mode``.  With ``use_kernels`` (the default) the hot stages go
+through the hand-written kernels:
 
 * ``opacities.cuda_interp.interp_tau`` -- the molecular opacity gather;
-* ``rt.cuda_toon.spectrum_toon`` -- optics + reflected + thermal solves.
+* ``rt.cuda_toon.spectrum_toon`` -- Toon optics + reflected + thermal;
+* ``rt.cuda_sh.reflected_sh{4,2}`` / ``thermal_sh{4,2}`` -- SH optics and
+  solves, one kernel each for the reflected and the thermal spectrum.
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 twin for CPU tensors.  ``use_kernels=False`` runs the plain reference
 path instead (``interp_molecular`` + ``molecular_tau``, ``combine_optics``
-+ ``reflected_1d``/``thermal_1d``), the counterpart of the JAX scan path.
-Everything between the two kernels (continuum, Rayleigh, Planck, disk
-compression, transit) is plain PyTorch.
++ ``reflected_1d``/``thermal_1d`` or ``sh.reflected_sh``/``thermal_sh``),
+the counterpart of the JAX scan path.  Everything between the kernels
+(continuum, Rayleigh, Planck, disk compression, transit) is plain PyTorch.
 
 Every other configuration raises ``NotImplementedError`` naming the
 ROADMAP item that will bring it.
@@ -35,12 +39,12 @@ from .opacities.cuda_interp import interp_tau
 from .opacities.db import (OpacityGrid, _find_indices, interp_molecular,
                            nearest_continuum)
 from .optics import combine_optics
-from .rt import toon
+from .rt import cuda_sh, sh, toon
 from .rt.cuda_toon import spectrum_toon
 from .rt.transit import transit_depth
 
 __all__ = ['SceneTensors', 'SpectrumConfig', 'forward', 'gather_args',
-           'gather_taugas', 'rt_sources', 'spectrum_args',
+           'gather_taugas', 'rt_sources', 'spectrum_args', 'sh_args',
            'scene_from_arrays', 'build_problem', 'MOLECULES_16', 'MIX_16']
 
 
@@ -89,6 +93,17 @@ class SpectrumConfig:
     delta_eddington: bool = True
     stream: int = 2
     rt_method: int = 0                    # 0 Toon89, 1 spherical harmonics
+    # SH options (config.json approx.rt_params.SH), the JAX defaults
+    sh_w_single_form: int = 0
+    sh_w_multi_form: int = 0
+    sh_psingle_form: int = 0
+    sh_w_single_rayleigh: int = 1
+    sh_w_multi_rayleigh: int = 1
+    sh_psingle_rayleigh: int = 1
+    sh_single_form: int = 0
+    # SH working precision of the plain path ('auto': f64 for float64
+    # inputs, else the f32 incoming grouping; rt/sh.py precision note)
+    sh_precision: str = 'auto'
     test_mode: Optional[str] = None
     hard_surface: bool = False
     reflected: bool = True
@@ -100,10 +115,10 @@ class SpectrumConfig:
 
 
 def _check_config(config: SpectrumConfig):
-    if config.rt_method != 0:
-        raise NotImplementedError(
-            'spherical-harmonics RT (rt_method=1) is not ported yet: '
-            'ROADMAP Queue 1 item 9')
+    if config.rt_method not in (0, 1):
+        raise ValueError(f'unknown rt_method {config.rt_method}')
+    if config.rt_method == 1 and config.stream not in (2, 4):
+        raise ValueError(f'SH RT takes stream 2 or 4, got {config.stream}')
     if config.raman != 2:
         raise NotImplementedError(
             f'Raman mode {config.raman} is not ported yet: ROADMAP Queue 1 '
@@ -112,10 +127,10 @@ def _check_config(config: SpectrumConfig):
         raise NotImplementedError(
             f'test_mode={config.test_mode!r} is not ported yet: ROADMAP '
             'Queue 1 item 14')
-    if not (config.reflected and config.thermal):
+    if config.rt_method == 0 and not (config.reflected and config.thermal):
         raise NotImplementedError(
-            'reflected-only and thermal-only spectra are not ported yet: '
-            'ROADMAP Queue 2 items 3-4')
+            'reflected-only and thermal-only Toon spectra are not ported '
+            'yet: ROADMAP Queue 2 items 3-4')
 
 
 def gather_args(scene: SceneTensors, grid: OpacityGrid,
@@ -183,13 +198,20 @@ def rt_sources(scene: SceneTensors, grid: OpacityGrid,
     return taugas.to(dtype).contiguous(), tauray.to(dtype).contiguous(), rf
 
 
+def _planck_args(scene: SceneTensors, grid: OpacityGrid):
+    """Level Planck function all_b [nlevel, nwno] and the top-boundary
+    factor ptfac = p0 / (p1 - p0) the thermal kernels take."""
+    all_b = toon.blackbody(scene.tlevel, 1.0 / grid.wno).to(
+        scene.cld_opd.dtype)
+    ptfac = scene.plevel[0] / (scene.plevel[1] - scene.plevel[0])
+    return all_b, ptfac
+
+
 def spectrum_args(scene: SceneTensors, grid: OpacityGrid, config, tg, tr,
                   rf):
-    """The spectrum kernel's arguments and options, as ``forward`` passes
-    them: (args, kwargs) for ``spectrum_toon``."""
-    dtype = scene.cld_opd.dtype
-    all_b = toon.blackbody(scene.tlevel, 1.0 / grid.wno).to(dtype)
-    ptfac = scene.plevel[0] / (scene.plevel[1] - scene.plevel[0])
+    """The Toon spectrum kernel's arguments and options, as ``forward``
+    passes them: (args, kwargs) for ``spectrum_toon``."""
+    all_b, ptfac = _planck_args(scene, grid)
     args = (all_b, tg, tr, scene.cld_opd, scene.cld_w0, scene.cld_g0, rf,
             ptfac, scene.surf_reflect, scene.ubar0, scene.ubar1,
             scene.cos_theta, scene.F0PI)
@@ -199,13 +221,80 @@ def spectrum_args(scene: SceneTensors, grid: OpacityGrid, config, tg, tr,
     return args, kwargs
 
 
+def sh_args(scene: SceneTensors, grid: OpacityGrid, config, tg, tr, rf):
+    """The SH kernels' arguments and options, as ``forward`` passes them:
+    ((args, kwargs) of ``reflected_sh{4,2}``, (args, kwargs) of
+    ``thermal_sh{4,2}``)."""
+    strips = (tg, tr, scene.cld_opd, scene.cld_w0, scene.cld_g0, rf)
+    refl = (strips + (scene.surf_reflect, scene.ubar0, scene.ubar1,
+                      scene.cos_theta, scene.F0PI),
+            dict(controls=config.controls,
+                 delta_eddington=config.delta_eddington,
+                 w_single_form=config.sh_w_single_form,
+                 w_multi_form=config.sh_w_multi_form,
+                 psingle_form=config.sh_psingle_form,
+                 w_single_rayleigh=config.sh_w_single_rayleigh,
+                 w_multi_rayleigh=config.sh_w_multi_rayleigh,
+                 psingle_rayleigh=config.sh_psingle_rayleigh,
+                 single_form=config.sh_single_form))
+    all_b, ptfac = _planck_args(scene, grid)
+    therm = ((all_b,) + strips + (ptfac, scene.surf_reflect, scene.ubar1),
+             dict(hard_surface=config.hard_surface,
+                  delta_eddington=config.delta_eddington))
+    return refl, therm
+
+
+def _sh_rt(scene: SceneTensors, grid: OpacityGrid, config, tg, tr, rf):
+    """SH branch (picaso_tpu/pipeline.py:276-365): (xint or None, thermal
+    flux or None, total extinction for transit)."""
+    xint = flux_top = None
+    if config.use_kernels:
+        (r_args, r_kw), (t_args, t_kw) = sh_args(scene, grid, config, tg,
+                                                 tr, rf)
+        if config.stream == 4:
+            refl_k, therm_k = cuda_sh.reflected_sh4, cuda_sh.thermal_sh4
+        else:
+            refl_k, therm_k = cuda_sh.reflected_sh2, cuda_sh.thermal_sh2
+        if config.reflected:
+            xint = refl_k(*r_args, **r_kw)
+        if config.thermal:
+            flux_top = therm_k(*t_args, **t_kw)
+        return xint, flux_top, tg + tr + scene.cld_opd
+    props = combine_optics(tg, tr, scene.cld_opd, scene.cld_w0,
+                           scene.cld_g0, rf,
+                           delta_eddington=config.delta_eddington,
+                           stream=config.stream)
+    if config.reflected:
+        xint = sh.reflected_sh(
+            props, scene.surf_reflect, scene.ubar0, scene.ubar1,
+            scene.cos_theta, scene.F0PI, stream=config.stream,
+            controls=config.controls,
+            w_single_form=config.sh_w_single_form,
+            w_multi_form=config.sh_w_multi_form,
+            psingle_form=config.sh_psingle_form,
+            w_single_rayleigh=config.sh_w_single_rayleigh,
+            w_multi_rayleigh=config.sh_w_multi_rayleigh,
+            psingle_rayleigh=config.sh_psingle_rayleigh,
+            single_form=config.sh_single_form,
+            precision=config.sh_precision)
+    if config.thermal:
+        flux_top = sh.thermal_sh(
+            scene.tlevel, props, scene.plevel, scene.ubar1,
+            scene.surf_reflect, grid.wno, stream=config.stream,
+            hard_surface=config.hard_surface,
+            precision=config.sh_precision)
+    return xint, flux_top, props.dtau_og
+
+
 def forward(scene: SceneTensors, grid: OpacityGrid, config: SpectrumConfig):
-    """Full 1D spectrum: a dict of tensors albedo [nwno], thermal [nwno]
-    and, with ``config.transmission``, transit_depth [nwno]."""
+    """Full 1D spectrum: a dict of tensors albedo [nwno] (when
+    ``config.reflected``), thermal [nwno] (when ``config.thermal``) and,
+    with ``config.transmission``, transit_depth [nwno]."""
     _check_config(config)
     tg, tr, rf = rt_sources(scene, grid, config)
-    out = {}
-    if config.use_kernels:
+    if config.rt_method == 1:
+        xint, flux_top, dtau_total = _sh_rt(scene, grid, config, tg, tr, rf)
+    elif config.use_kernels:
         args, kwargs = spectrum_args(scene, grid, config, tg, tr, rf)
         xint, flux_top = spectrum_toon(*args, **kwargs)
         dtau_total = tg + tr + scene.cld_opd
@@ -225,10 +314,13 @@ def forward(scene: SceneTensors, grid: OpacityGrid, config: SpectrumConfig):
             scene.plevel, scene.ubar1, scene.surf_reflect, grid.wno,
             hard_surface=config.hard_surface)
         dtau_total = props.dtau_og
-    out['albedo'] = disco_mod.compress_disco(
-        xint, scene.gweight, scene.tweight, scene.cos_theta, scene.F0PI)
-    out['thermal'] = disco_mod.compress_thermal(
-        flux_top, scene.gweight, scene.tweight)
+    out = {}
+    if xint is not None:
+        out['albedo'] = disco_mod.compress_disco(
+            xint, scene.gweight, scene.tweight, scene.cos_theta, scene.F0PI)
+    if flux_top is not None:
+        out['thermal'] = disco_mod.compress_thermal(
+            flux_top, scene.gweight, scene.tweight)
     if config.transmission:
         out['transit_depth'] = transit_depth(
             scene.z, scene.dz, scene.rstar, scene.mmw_layer, scene.plevel,

@@ -9,9 +9,9 @@ every test worker collects the same tests).  Run on a GPU machine with
 port need not have).
 
 Tolerances, float32 on both sides with the same arithmetic order (the
-kernels are built with -fmad=false): the gather to rtol 1e-5; the spectrum
-kernel to max rel 1e-3 and median rel 1e-5 (the recursions amplify the
-few-ulp differences of expf/cumsum between the two).
+kernels are built with -fmad=false): the gather to rtol 1e-5; the Toon and
+SH spectrum kernels to max rel 1e-3 and median rel 1e-5 (the recursions
+amplify the few-ulp differences of expf/cumsum between the two).
 """
 
 import dataclasses
@@ -25,6 +25,7 @@ from picaso_tpu_torch.opacities.cuda_interp import (interp_tau,
                                                     interp_tau_plain)
 from picaso_tpu_torch.opacities.db import _find_indices
 from picaso_tpu_torch.opacities.factory import synthetic_opacity_grid
+from picaso_tpu_torch.rt import cuda_sh
 from picaso_tpu_torch.rt.cuda_toon import spectrum_toon, spectrum_toon_plain
 from picaso_tpu_torch.rt.toon import ScatteringControls, blackbody
 
@@ -158,3 +159,92 @@ def test_forward_kernels_match_plain_path(dev):
         assert torch.isfinite(out[key]).all()
         rel = _rel(out[key], ref[key])
         assert rel.max().item() <= 5e-3 and rel.median().item() <= 2e-4, key
+
+
+def _sh_inputs(dev, kind, nwno, nang, nlayer=30, seed=17):
+    """Arguments of the SH kernels: ragged nwno, nang angles as [nang, 1]
+    (or a 4 x 3 grid for 12)."""
+    args = _toon_inputs(dev, nwno, nlayer=nlayer, nang=nang, seed=seed)
+    (all_b, tg, tr, copd, cw0, cg0, rf, ptfac, surf, u0, u1, ct, f0pi) = args
+    if nang == 12:
+        u0, u1 = u0.reshape(4, 3), u1.reshape(4, 3)
+    strips = [tg, tr, copd, cw0, cg0, rf]
+    if kind == 'reflected':
+        return strips + [surf, u0, u1, ct, f0pi]
+    return [all_b] + strips + [ptfac, surf, u1]
+
+
+_SH_CASES = {
+    'reflected': [dict(), dict(delta_eddington=False, b_top=0.1),
+                  dict(w_multi_form=1, psingle_form=1, single_form=1),
+                  dict(controls=ScatteringControls(frac_c=1.5))],
+    'thermal': [dict(), dict(hard_surface=True, delta_eddington=False)],
+}
+
+
+@pytest.mark.parametrize('nang', [1, 5, 12])
+@pytest.mark.parametrize('nwno', [300, 1000])
+@pytest.mark.parametrize('stream', [2, 4])
+@pytest.mark.parametrize('kind', ['reflected', 'thermal'])
+def test_sh_kernels_match_twins(dev, kind, stream, nwno, nang):
+    wrapper = getattr(cuda_sh, f'{kind}_sh{stream}')
+    twin = getattr(cuda_sh, f'{kind}_sh{stream}_plain')
+    args = _sh_inputs(dev, kind, nwno, nang)
+    for kw in _SH_CASES[kind]:
+        before = wrapper.launches
+        out = wrapper(*args, **kw)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        ref = twin(*args, **kw)
+        assert out.shape == ref.shape and out.shape[-1] == nwno
+        assert out.shape[0] * out.shape[1] == nang
+        assert torch.isfinite(out).all(), kw
+        rel = _rel(out, ref)
+        assert rel.max().item() <= 1e-3, kw
+        assert rel.median().item() <= 1e-5, kw
+
+
+@pytest.mark.parametrize('kind', ['reflected', 'thermal'])
+def test_sh_wrappers_reject_bad_inputs(dev, kind):
+    wrapper = getattr(cuda_sh, f'{kind}_sh4')
+    args = _sh_inputs(dev, kind, 300, 5)
+    i = 1 if kind == 'reflected' else 2
+    bad = list(args)
+    bad[i] = args[i].double()
+    with pytest.raises(TypeError):
+        wrapper(*bad)
+    bad = list(args)
+    bad[i] = args[i].t().contiguous().t()
+    with pytest.raises(ValueError):
+        wrapper(*bad)
+    bad = list(args)
+    bad[i] = args[i].cpu()
+    with pytest.raises(ValueError):
+        wrapper(*bad)
+    bad = list(args)
+    bad[i] = args[i][:, :200].contiguous()
+    with pytest.raises(ValueError):
+        wrapper(*bad)
+    if kind == 'reflected':
+        with pytest.raises(ValueError):
+            wrapper(*args, single_form=3)
+
+
+@pytest.mark.parametrize('stream', [2, 4])
+def test_sh_forward_kernels_match_plain_path(dev, stream):
+    scene, grid, config = pipeline.build_problem(2000, production=False,
+                                                 device=dev)
+    config = dataclasses.replace(config, rt_method=1, stream=stream)
+    r = getattr(cuda_sh, f'reflected_sh{stream}')
+    t = getattr(cuda_sh, f'thermal_sh{stream}')
+    before = (r.launches, t.launches, spectrum_toon.launches)
+    out = pipeline.forward(scene, grid, config)
+    torch.cuda.synchronize()
+    assert (r.launches, t.launches, spectrum_toon.launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    ref = pipeline.forward(scene, grid,
+                           dataclasses.replace(config, use_kernels=False))
+    for key in ('albedo', 'thermal', 'transit_depth'):
+        assert torch.isfinite(out[key]).all()
+        rel = _rel(out[key], ref[key])
+        assert rel.max().item() <= 8e-3 and rel.median().item() <= 1e-3, key

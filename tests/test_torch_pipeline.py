@@ -5,9 +5,11 @@ A 16-molecule ragged production-layout grid at nwno = 256 and a cloudy
 carried across with picaso_tpu_torch.convert, and run through both
 forwards on the CPU in float64.  The JAX side takes its plain reference
 (use_pallas=False); the port runs both its kernel path (the kernels'
-twins on CPU tensors) and its plain path.  Albedo and thermal agree to
-rtol 2e-5 (the kernel-vs-scan tolerance of tests/test_pallas_toon.py),
-transit to 1e-8 (same arithmetic).
+twins on CPU tensors) and its plain path, for the Toon solver and for the
+SH solver at stream 2 and 4.  Toon albedo and thermal agree to rtol 2e-5
+(the kernel-vs-scan tolerance of tests/test_pallas_toon.py), SH to 1e-7
+(reason at test_sh_forward_matches_jax), transit to 1e-8 (same
+arithmetic).
 """
 
 import dataclasses
@@ -23,6 +25,7 @@ from picaso_tpu_torch import pipeline as tpipeline
 from picaso_tpu_torch.convert import grid_from_numpy, scene_from_numpy
 from picaso_tpu_torch.opacities.assemble import ContinuumSpec
 from picaso_tpu_torch.opacities.cuda_interp import interp_tau
+from picaso_tpu_torch.rt import cuda_sh
 from picaso_tpu_torch.rt.cuda_toon import spectrum_toon
 from picaso_tpu_torch.rt.toon import ScatteringControls
 
@@ -121,16 +124,92 @@ def test_scene_from_arrays_matches_jax(jax_problem):
     assert config.transmission == jconfig.transmission
 
 
+@pytest.fixture(scope='module')
+def jax_sh(jax_problem):
+    """The JAX SH forwards (plain path, f64) at stream 2 and 4."""
+    jgrid, jscene, jconfig, _ = jax_problem
+    out = {}
+    for stream in (2, 4):
+        cfg = dataclasses.replace(jconfig, rt_method=1, stream=stream)
+        out[stream] = {k: np.asarray(v) for k, v in
+                       jpipeline.forward(jscene, jgrid, cfg).items()}
+    return out
+
+
+def _sh_launches():
+    return tuple(getattr(cuda_sh, f'{k}_sh{s}').launches
+                 for k in ('reflected', 'thermal') for s in (2, 4))
+
+
+@pytest.mark.parametrize('use_kernels', [True, False])
+@pytest.mark.parametrize('stream', [2, 4])
+def test_sh_forward_matches_jax(jax_problem, jax_sh, stream, use_kernels):
+    """rtol 1e-7 for albedo and thermal (measured 1.5e-8 / 4.9e-10 for the
+    plain SH4 path, 2.7e-8 / 2.7e-9 for the twins): the f64 JAX path takes
+    the classic grouping, whose pivot blocks are nearly singular in the
+    thin top layers of this profile (p down to 1e-6 bar), so the ~1e-14
+    differences of the opacity stage come out ~1e6 times larger; the
+    twins add the TPU kernels' Taylor expm1 and the incoming grouping.
+    SH2 agrees to 5e-12 (plain) and 3.3e-9 (twins)."""
+    jgrid, jscene, jconfig, _ = jax_problem
+    ref = jax_sh[stream]
+    grid, scene, config = _port_problem(jgrid, jscene, jconfig)
+    config = dataclasses.replace(config, rt_method=1, stream=stream,
+                                 use_kernels=use_kernels)
+    launches = (interp_tau.launches, spectrum_toon.launches, _sh_launches())
+    out = tpipeline.forward(scene, grid, config)
+    assert (interp_tau.launches, spectrum_toon.launches,
+            _sh_launches()) == launches
+    assert set(out) == {'albedo', 'thermal', 'transit_depth'}
+    for key in out:
+        assert out[key].shape == (NWNO,) and out[key].dtype == torch.float64
+        assert torch.isfinite(out[key]).all()
+    np.testing.assert_allclose(out['albedo'].numpy(), ref['albedo'],
+                               rtol=1e-7)
+    np.testing.assert_allclose(out['thermal'].numpy(), ref['thermal'],
+                               rtol=1e-7)
+    np.testing.assert_allclose(out['transit_depth'].numpy(),
+                               ref['transit_depth'], rtol=1e-8)
+
+
+@pytest.mark.parametrize('part', ['reflected', 'thermal'])
+@pytest.mark.parametrize('stream', [2, 4])
+def test_sh_forward_one_part(jax_problem, jax_sh, stream, part):
+    """Reflected-only and thermal-only SH spectra (the JAX SH branch runs
+    its two kernels separately): the part asked for, equal to the full
+    forward's, and no key for the other."""
+    jgrid, jscene, jconfig, _ = jax_problem
+    grid, scene, config = _port_problem(jgrid, jscene, jconfig)
+    config = dataclasses.replace(config, rt_method=1, stream=stream,
+                                 reflected=part == 'reflected',
+                                 thermal=part == 'thermal')
+    out = tpipeline.forward(scene, grid, config)
+    key = 'albedo' if part == 'reflected' else 'thermal'
+    assert set(out) == {key, 'transit_depth'}
+    np.testing.assert_allclose(out[key].numpy(), jax_sh[stream][key],
+                               rtol=1e-7)
+
+
 @pytest.mark.parametrize('change, item', [
-    (dict(rt_method=1), 'item 9'),
+    (dict(rt_method=1, raman=1), 'item 8'),
     (dict(raman=0), 'item 8'),
     (dict(test_mode='rayleigh'), 'item 14'),
     (dict(thermal=False), 'Queue 2 items 3-4'),
+    (dict(rt_method=1, test_mode='constant_tau'), 'item 14'),
 ])
 def test_unported_configurations_raise(jax_problem, change, item):
     jgrid, jscene, jconfig, _ = jax_problem
     grid, scene, config = _port_problem(jgrid, jscene, jconfig)
     with pytest.raises(NotImplementedError, match=item):
+        tpipeline.forward(scene, grid, dataclasses.replace(config, **change))
+
+
+@pytest.mark.parametrize('change', [dict(rt_method=1, stream=3),
+                                    dict(rt_method=2)])
+def test_bad_rt_options_raise(jax_problem, change):
+    jgrid, jscene, jconfig, _ = jax_problem
+    grid, scene, config = _port_problem(jgrid, jscene, jconfig)
+    with pytest.raises(ValueError):
         tpipeline.forward(scene, grid, dataclasses.replace(config, **change))
 
 
