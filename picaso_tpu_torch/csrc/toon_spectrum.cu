@@ -1,14 +1,22 @@
-// Toon89 reflected + thermal spectrum for every wavenumber column.
+// Toon89 reflected and thermal spectra for every wavenumber column.
 //
-// Replaces the TPU kernel spectrum_pallas_fused (_spectrum_kernel_fused ->
-// _optics_block, _reflected_core, _thermal_core, _solve_two_stream_scratch)
-// of picaso_tpu/rt/pallas_toon.py.  Per wavenumber column it builds the
-// delta-Eddington and OG optics from the six source strips, solves the
-// Toon89 eqn-44 tridiagonal system for the reflected beam (factorisation
-// shared by all disk angles, one right-hand side per angle), runs the TOA
-// intensity recursion with the single-scattering phase function, solves
-// the thermal two-stream system and runs the per-angle source-function
-// up-sweep.  Outputs xint and thermal, each [nang, nwno].
+// Replaces five TPU kernels of picaso_tpu/rt/pallas_toon.py, one
+// __global__ kernel each, all built from the same column routines:
+//   toon_spectrum_kernel       <- spectrum_pallas_fused (reflected + thermal)
+//   toon_reflected_kernel<0>   <- reflected_pallas_fused
+//   toon_thermal_kernel<0>     <- thermal_pallas_fused
+//   toon_reflected_kernel<1>   <- reflected_pallas (precomputed RTProps)
+//   toon_thermal_kernel<1>     <- thermal_pallas (precomputed OG optics)
+// (_optics_block, _reflected_core, _thermal_core, _solve_two_stream_scratch).
+// Per wavenumber column the reflected pass takes the delta-Eddington and OG
+// optics of each layer (built from the six source strips, or read from the
+// given props: one small interface, Optics), solves the Toon89 eqn-44
+// tridiagonal system for the reflected beam (factorisation shared by all
+// disk angles, one right-hand side per angle) and runs the TOA intensity
+// recursion with the single-scattering phase function.  The thermal pass
+// takes the OG optics with the no-Raman albedo (from the strips, or given),
+// solves the thermal two-stream system and runs the per-angle
+// source-function up-sweep.  Outputs xint and thermal, each [nang, nwno].
 //
 // What bounds it on this card: fp32 expf and division, and the chain of
 // dependent layer steps.  Each column is a sequential recursion over the
@@ -20,7 +28,8 @@
 // thread.  Per-layer intermediates go to global scratch laid out
 // [slot, row, nwno], so the 32 threads of a warp touch 128 contiguous
 // bytes per access; the wrapper allocates it (the kernel allocates
-// nothing).  The arithmetic follows the TPU kernel, not the JAX scan path:
+// nothing): kReflSlots for the reflected pass, kThermSlots for the thermal
+// one.  The arithmetic follows the TPU kernel, not the JAX scan path:
 // stable gama = g2/(g1+lamda), exptrm_minus = 1/exptrm_positive, the
 // e_u0dt/e_u1 products in place of extra exps, product-form resonant
 // limits, exp clip 10, beam dither 1e-3, resonance switch 1e-4 with the
@@ -43,20 +52,30 @@ constexpr float kUbar2Fac = (float)(3.0 * 0.767 * 0.767);
 constexpr float kDitherDelta = 1e-3f;
 constexpr float kOnePlusDelta = (float)(1.0 + 1e-3);
 
-// scratch slots, each [nlayer + 1, nwno]
-enum Slot {
+// reflected scratch slots, each [nlayer + 1, nwno]
+enum ReflSlot {
   S_DTAU, S_TAU, S_W0, S_COSB, S_FTC, S_GCOS2, S_DTAU_OG, S_TAU_OG, S_W0_OG,
   S_LAM, S_GAMA, S_EP, S_G1, S_G2, S_PSINGLE,
   S_ASE, S_ASO, S_XE, S_XO,              // reflected factorisation
   S_DSE, S_DSO, S_CPU, S_CMU, S_EU0DT,   // reflected, one angle at a time
-  T_LAM, T_GAMA, T_EP, T_EPM, T_B1, T_GPG, T_ASE, T_ASO, T_DSE, T_DSO,
-  kSlots
+  kReflSlots
+};
+
+// thermal scratch slots, each [nlayer + 1, nwno]
+enum ThermSlot {
+  T_DTAU, T_LAM, T_GAMA, T_EP, T_EPM, T_B1, T_GPG, T_ASE, T_ASO, T_DSE,
+  T_DSO, kThermSlots
 };
 
 struct Params {
+  // the six source strips [nlayer, nwno] and the level Planck function
   const float *all_b, *taugas, *tauray, *cld_opd, *cld_w0, *cld_g0, *rf;
+  // precomputed optics: the reflected_pallas fields (tau, tau_og
+  // [nlevel, nwno]), or dtau/w0/cosb/tau_top [nwno] of thermal_pallas
+  const float *dtau, *tau, *w0, *cosb, *gcos2, *ftau_cld, *ftau_ray;
+  const float *dtau_og, *tau_og, *w0_og, *cosb_og, *tau_top;
   const float *sr, *f0pi, *u0, *u1, *cos_theta, *ptfac;
-  float *xint, *therm, *scr;
+  float *xint, *therm, *scr, *tscr;  // tscr: the thermal slots
   int nlayer, nwno, nang;
   int single_phase, multi_phase, toon_coef;
   float frac_a, frac_b, frac_c, constant_back, constant_forward, b_top;
@@ -69,6 +88,9 @@ struct Col {
   long long w;
   __device__ float& s(int slot, int row) const {
     return p.scr[((long long)slot * (p.nlayer + 1) + row) * p.nwno + w];
+  }
+  __device__ float& t(int slot, int row) const {
+    return p.tscr[((long long)slot * (p.nlayer + 1) + row) * p.nwno + w];
   }
   __device__ float in(const float* a, int row) const {
     return a[(long long)row * p.nwno + w];
@@ -185,49 +207,82 @@ __device__ CRow refl_c(const Col& c, int j, float u0, float f0pi) {
 }
 
 __device__ ERow therm_e(const Col& c, int j) {
-  return erow(c.s(T_GAMA, j), c.s(T_EP, j));
+  return erow(c.t(T_GAMA, j), c.t(T_EP, j));
 }
 
 __device__ CRow therm_c(const Col& c, int j) {
   const float twopimu = kPi;  // 2 * pi * mu1 with mu1 = 0.5
-  const float b0 = c.in(c.p.all_b, j), b1 = c.s(T_B1, j);
-  const float dtau = c.s(S_DTAU_OG, j), gpg = c.s(T_GPG, j);
+  const float b0 = c.in(c.p.all_b, j), b1 = c.t(T_B1, j);
+  const float dtau = c.t(T_DTAU, j), gpg = c.t(T_GPG, j);
   return {twopimu * (b0 + b1 * gpg), twopimu * (b0 - b1 * gpg),
           twopimu * (b0 + b1 * dtau + b1 * gpg),
           twopimu * (b0 + b1 * dtau - b1 * gpg)};
 }
 
 // ---------------------------------------------------------------------
-// optics (pallas_toon.py:_optics_block) and the per-layer reflected
-// two-stream quantities, top down
+// per-layer optics of the reflected pass: built from the six strips
+// (pallas_toon.py:_optics_block, combine_optics' default branch) or read
+// from a precomputed RTProps (reflected_pallas; test_mode lands here)
 // ---------------------------------------------------------------------
+struct Optics {
+  float dtau, w0, cosb, ftau_cld, ftau_ray, gcos2, dtau_og, w0_og, cosb_og;
+};
+
+__device__ Optics strip_optics(const Col& c, int j) {
+  const Params& p = c.p;
+  const float tg = c.in(p.taugas, j), tr = c.in(p.tauray, j);
+  const float copd = c.in(p.cld_opd, j), cw0 = c.in(p.cld_w0, j);
+  const float cg0 = c.in(p.cld_g0, j), rf = c.in(p.rf, j);
+  Optics o;
+  o.dtau_og = tg + tr + copd;
+  const float cldw = cw0 * copd;
+  o.ftau_cld = cldw / (cldw + tr);
+  o.ftau_ray = tr / (tr + cldw);
+  o.gcos2 = 0.5f * o.ftau_ray;
+  o.w0_og = (tr * rf + cldw) / o.dtau_og;
+  o.cosb_og = cg0;
+  o.dtau = o.dtau_og;
+  o.w0 = o.w0_og;
+  o.cosb = o.cosb_og;
+  if (p.dedd) {
+    const float f = ipow(o.cosb_og, p.stream);
+    o.w0 = o.w0_og * (1.0f - f) / (1.0f - o.w0_og * f);
+    o.cosb = (o.cosb_og - f) / (1.0f - f);
+    o.dtau = o.dtau_og * (1.0f - o.w0_og * f);
+  }
+  return o;
+}
+
+__device__ Optics prop_optics(const Col& c, int j) {
+  const Params& p = c.p;
+  return {c.in(p.dtau, j),     c.in(p.w0, j),       c.in(p.cosb, j),
+          c.in(p.ftau_cld, j), c.in(p.ftau_ray, j), c.in(p.gcos2, j),
+          c.in(p.dtau_og, j),  c.in(p.w0_og, j),    c.in(p.cosb_og, j)};
+}
+
+// the per-layer reflected two-stream quantities, top down; level taus
+// are running sums of the built optics, or the given tau/tau_og
+template <bool kProps>
 __device__ void reflected_layers(const Col& c, float ct) {
   const Params& p = c.p;
   const int L = p.nlayer;
   float tau = 0.0f, tau_og = 0.0f;
   for (int j = 0; j < L; ++j) {
-    const float tg = c.in(p.taugas, j), tr = c.in(p.tauray, j);
-    const float copd = c.in(p.cld_opd, j), cw0 = c.in(p.cld_w0, j);
-    const float cg0 = c.in(p.cld_g0, j), rf = c.in(p.rf, j);
-    const float dtau_og = tg + tr + copd;
-    const float cldw = cw0 * copd;
-    const float ftau_cld = cldw / (cldw + tr);
-    const float ftau_ray = tr / (tr + cldw);
-    const float gcos2 = 0.5f * ftau_ray;
-    const float w0_og = (tr * rf + cldw) / dtau_og;
-    const float cosb_og = cg0;
-    float dtau = dtau_og, w0 = w0_og, cosb = cosb_og;
-    if (p.dedd) {
-      const float f = ipow(cosb_og, p.stream);
-      w0 = w0_og * (1.0f - f) / (1.0f - w0_og * f);
-      cosb = (cosb_og - f) / (1.0f - f);
-      dtau = dtau_og * (1.0f - w0_og * f);
+    Optics o;
+    if constexpr (kProps) {
+      o = prop_optics(c, j);
+      tau = c.in(p.tau, j);
+      tau_og = c.in(p.tau_og, j);
+    } else {
+      o = strip_optics(c, j);
     }
     c.s(S_TAU, j) = tau;
     c.s(S_TAU_OG, j) = tau_og;
-    tau = tau + dtau;
-    tau_og = tau_og + dtau_og;
+    tau = tau + o.dtau;
+    tau_og = tau_og + o.dtau_og;
 
+    const float w0 = o.w0, cosb = o.cosb, ftau_cld = o.ftau_cld;
+    const float cosb_og = o.cosb_og;
     float g1, g2;
     if (p.toon_coef == 1) {
       g1 = (7.0f - w0 * (4.0f + 3.0f * ftau_cld * cosb)) / 4.0f;
@@ -238,7 +293,7 @@ __device__ void reflected_layers(const Col& c, float ct) {
     }
     const float lam = sqrtf(g1 * g1 - g2 * g2);
     const float gama = g2 / (g1 + lam);
-    const float ep = expf(fminf(lam * dtau, kClip));
+    const float ep = expf(fminf(lam * o.dtau, kClip));
 
     float p_single;
     if (p.single_phase == 1) {  // OTHG
@@ -257,27 +312,31 @@ __device__ void reflected_layers(const Col& c, float ct) {
       const float hg_back = (1.0f - g_back * g_back)
                             / sqrtf(cube(1.0f + g_back * g_back + 2.0f * g_back * ct));
       if (p.single_phase == 0) {         // cahoy
-        p_single = f * hg_fwd + (1.0f - f) * hg_back + gcos2;
+        p_single = f * hg_fwd + (1.0f - f) * hg_back + o.gcos2;
       } else if (p.single_phase == 2) {  // TTHG
         p_single = f * hg_fwd + (1.0f - f) * hg_back;
       } else {                           // TTHG_ray
         p_single = ftau_cld * (f * hg_fwd + (1.0f - f) * hg_back)
-                   + ftau_ray * (0.75f * (1.0f + ct * ct));
+                   + o.ftau_ray * (0.75f * (1.0f + ct * ct));
       }
     }
-    c.s(S_DTAU, j) = dtau;
+    c.s(S_DTAU, j) = o.dtau;
     c.s(S_W0, j) = w0;
     c.s(S_COSB, j) = cosb;
     c.s(S_FTC, j) = ftau_cld;
-    c.s(S_GCOS2, j) = gcos2;
-    c.s(S_DTAU_OG, j) = dtau_og;
-    c.s(S_W0_OG, j) = w0_og;
+    c.s(S_GCOS2, j) = o.gcos2;
+    c.s(S_DTAU_OG, j) = o.dtau_og;
+    c.s(S_W0_OG, j) = o.w0_og;
     c.s(S_LAM, j) = lam;
     c.s(S_GAMA, j) = gama;
     c.s(S_EP, j) = ep;
     c.s(S_G1, j) = g1;
     c.s(S_G2, j) = g2;
     c.s(S_PSINGLE, j) = p_single;
+  }
+  if constexpr (kProps) {
+    tau = c.in(p.tau, L);
+    tau_og = c.in(p.tau_og, L);
   }
   c.s(S_TAU, L) = tau;
   c.s(S_TAU_OG, L) = tau_og;
@@ -409,41 +468,51 @@ __device__ float reflected_angle(const Col& c, float u0, float u1, float sr,
 }
 
 // ---------------------------------------------------------------------
-// thermal (pallas_toon.py:_thermal_core on the OG optics)
+// thermal (pallas_toon.py:_thermal_core) on the OG optics with the no-Raman
+// albedo: built from the strips (_thermal_kernel_fused) or given
+// (thermal_pallas)
 // ---------------------------------------------------------------------
+template <bool kProps>
 __device__ void thermal_layers(const Col& c) {
   const Params& p = c.p;
   for (int j = 0; j < p.nlayer; ++j) {
-    const float dtau = c.s(S_DTAU_OG, j);
-    const float w0 = (c.in(p.tauray, j) * 0.99999f
-                      + c.in(p.cld_w0, j) * c.in(p.cld_opd, j)) / dtau;
-    const float cosb = c.in(p.cld_g0, j);
+    float dtau, w0, cosb;
+    if constexpr (kProps) {
+      dtau = c.in(p.dtau, j);
+      w0 = c.in(p.w0, j);
+      cosb = c.in(p.cosb, j);
+    } else {
+      dtau = c.in(p.taugas, j) + c.in(p.tauray, j) + c.in(p.cld_opd, j);
+      w0 = (c.in(p.tauray, j) * 0.99999f
+            + c.in(p.cld_w0, j) * c.in(p.cld_opd, j)) / dtau;
+      cosb = c.in(p.cld_g0, j);
+    }
     const float b0 = c.in(p.all_b, j);
     const float b1 = (c.in(p.all_b, j + 1) - b0) / dtau;
     const float g1 = 2.0f - w0 * (1.0f + cosb);
     const float g2 = w0 * (1.0f - cosb);
     const float lam = sqrtf(g1 * g1 - g2 * g2);
     const float exptrm = fminf(lam * dtau, kClip);
-    c.s(T_LAM, j) = lam;
-    c.s(T_GAMA, j) = g2 / (g1 + lam);
-    c.s(T_GPG, j) = 1.0f / (g1 + g2);
-    c.s(T_B1, j) = b1;
-    c.s(T_EP, j) = expf(exptrm);
-    c.s(T_EPM, j) = expf(0.5f * exptrm);
+    c.t(T_DTAU, j) = dtau;
+    c.t(T_LAM, j) = lam;
+    c.t(T_GAMA, j) = g2 / (g1 + lam);
+    c.t(T_GPG, j) = 1.0f / (g1 + g2);
+    c.t(T_B1, j) = b1;
+    c.t(T_EP, j) = expf(exptrm);
+    c.t(T_EPM, j) = expf(0.5f * exptrm);
   }
 }
 
 // thermal tridiagonal solve (_solve_two_stream_scratch); leaves
 // positive/negative in T_DSO/T_DSE
-__device__ void thermal_solve(const Col& c, float sr) {
+__device__ void thermal_solve(const Col& c, float sr, float tau_top) {
   const Params& p = c.p;
   const int L = p.nlayer;
-  const float tau_top = c.s(S_DTAU_OG, 0) * p.ptfac[0];
   const float b_top =
       (1.0f - expf(-tau_top / 0.5f)) * c.in(p.all_b, 0) * kPi;
   const float b_surface =
       p.hard_surface ? (1.0f - sr) * c.in(p.all_b, L) * kPi
-                     : (c.in(p.all_b, L) + c.s(T_B1, L - 1) * 0.5f) * kPi;
+                     : (c.in(p.all_b, L) + c.t(T_B1, L - 1) * 0.5f) * kPi;
   ERow ep1 = therm_e(c, L - 1), e = ep1, em1 = therm_e(c, L - 2);
   CRow cp1 = therm_c(c, L - 1), cc = cp1, cm1 = therm_c(c, L - 2);
   Coef k = coef(L - 1, L, em1, e, ep1, cm1, cc, cp1, b_top, b_surface, sr);
@@ -452,10 +521,10 @@ __device__ void thermal_solve(const Col& c, float sr) {
   const float xo_l = 1.0f / (k.bo - k.co * as_last);
   float as_n = k.ao * xo_l;
   float ds_n = (k.d_o - k.co * ds_last) * xo_l;
-  c.s(T_ASE, L - 1) = as_last;
-  c.s(T_DSE, L - 1) = ds_last;
-  c.s(T_ASO, L - 1) = as_n;
-  c.s(T_DSO, L - 1) = ds_n;
+  c.t(T_ASE, L - 1) = as_last;
+  c.t(T_DSE, L - 1) = ds_last;
+  c.t(T_ASO, L - 1) = as_n;
+  c.t(T_DSO, L - 1) = ds_n;
   for (int n = L - 2; n >= 0; --n) {
     ep1 = e;
     e = em1;
@@ -472,20 +541,20 @@ __device__ void thermal_solve(const Col& c, float sr) {
     const float xo = 1.0f / (k.bo - k.co * as_e);
     as_n = k.ao * xo;
     ds_n = (k.d_o - k.co * ds_e) * xo;
-    c.s(T_ASE, n) = as_e;
-    c.s(T_DSE, n) = ds_e;
-    c.s(T_ASO, n) = as_n;
-    c.s(T_DSO, n) = ds_n;
+    c.t(T_ASE, n) = as_e;
+    c.t(T_DSE, n) = ds_e;
+    c.t(T_ASO, n) = as_n;
+    c.t(T_DSO, n) = ds_n;
   }
-  float x_o = c.s(T_DSO, 0);
-  float x_e = c.s(T_DSE, 0) - c.s(T_ASE, 0) * x_o;
-  c.s(T_DSO, 0) = x_o + x_e;
-  c.s(T_DSE, 0) = x_o - x_e;
+  float x_o = c.t(T_DSO, 0);
+  float x_e = c.t(T_DSE, 0) - c.t(T_ASE, 0) * x_o;
+  c.t(T_DSO, 0) = x_o + x_e;
+  c.t(T_DSE, 0) = x_o - x_e;
   for (int n = 1; n < L; ++n) {
-    x_o = c.s(T_DSO, n) - c.s(T_ASO, n) * x_e;
-    x_e = c.s(T_DSE, n) - c.s(T_ASE, n) * x_o;
-    c.s(T_DSO, n) = x_o + x_e;
-    c.s(T_DSE, n) = x_o - x_e;
+    x_o = c.t(T_DSO, n) - c.t(T_ASO, n) * x_e;
+    x_e = c.t(T_DSE, n) - c.t(T_ASE, n) * x_o;
+    c.t(T_DSO, n) = x_o + x_e;
+    c.t(T_DSE, n) = x_o - x_e;
   }
 }
 
@@ -495,17 +564,17 @@ __device__ float thermal_angle(const Col& c, float iubar, float sr) {
   const int L = p.nlayer;
   float fp = p.hard_surface
                  ? (1.0f - sr) * c.in(p.all_b, L) * 2.0f * kPi
-                 : (c.in(p.all_b, L) + c.s(T_B1, L - 1) * iubar) * 2.0f * kPi;
+                 : (c.in(p.all_b, L) + c.t(T_B1, L - 1) * iubar) * 2.0f * kPi;
   float fp_mid = fp;
   for (int j = L - 1; j >= 0; --j) {
-    const float dtau = c.s(S_DTAU_OG, j);
-    const float lam = c.s(T_LAM, j), gama = c.s(T_GAMA, j);
-    const float ep = c.s(T_EP, j), epm = c.s(T_EPM, j);
+    const float dtau = c.t(T_DTAU, j);
+    const float lam = c.t(T_LAM, j), gama = c.t(T_GAMA, j);
+    const float ep = c.t(T_EP, j), epm = c.t(T_EPM, j);
     const float em = 1.0f / ep, emm = 1.0f / epm;
-    const float b0 = c.in(p.all_b, j), b1 = c.s(T_B1, j);
-    const float G = (2.0f - lam) * c.s(T_DSO, j);
-    const float H = gama * (lam + 2.0f) * c.s(T_DSE, j);
-    const float alpha1 = kTwoPi * (b0 + b1 * (c.s(T_GPG, j) - 0.5f));
+    const float b0 = c.in(p.all_b, j), b1 = c.t(T_B1, j);
+    const float G = (2.0f - lam) * c.t(T_DSO, j);
+    const float H = gama * (lam + 2.0f) * c.t(T_DSE, j);
+    const float alpha1 = kTwoPi * (b0 + b1 * (c.t(T_GPG, j) - 0.5f));
     const float alpha2 = kTwoPi * b1;
     const float eam = expf(-0.5f * dtau / iubar);
     const float ea = eam * eam;
@@ -531,27 +600,107 @@ __device__ float thermal_angle(const Col& c, float iubar, float sr) {
   return fp_mid;
 }
 
+template <bool kProps>
+__device__ void reflected_column(const Col& c) {
+  const Params& p = c.p;
+  const float sr = p.sr[c.w], f0pi = p.f0pi[c.w];
+  reflected_layers<kProps>(c, p.cos_theta[0]);
+  reflected_factor(c, sr);
+  for (int a = 0; a < p.nang; ++a)
+    p.xint[(long long)a * p.nwno + c.w] =
+        reflected_angle(c, p.u0[a], p.u1[a], sr, f0pi);
+}
+
+template <bool kProps>
+__device__ void thermal_column(const Col& c) {
+  const Params& p = c.p;
+  const float sr = p.sr[c.w];
+  thermal_layers<kProps>(c);
+  // fake isothermal layer above the model top (fluxes.py:1797-1800)
+  const float tau_top =
+      kProps ? p.tau_top[c.w] : c.t(T_DTAU, 0) * p.ptfac[0];
+  thermal_solve(c, sr, tau_top);
+  for (int a = 0; a < p.nang; ++a)
+    p.therm[(long long)a * p.nwno + c.w] = thermal_angle(c, p.u1[a], sr);
+}
+
 __global__ void __launch_bounds__(kThreads)
     toon_spectrum_kernel(const Params p) {
   const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (w >= p.nwno) return;
   const Col c{p, w};
-  const float sr = p.sr[w], f0pi = p.f0pi[w];
-  reflected_layers(c, p.cos_theta[0]);
-  reflected_factor(c, sr);
-  for (int a = 0; a < p.nang; ++a)
-    p.xint[(long long)a * p.nwno + w] =
-        reflected_angle(c, p.u0[a], p.u1[a], sr, f0pi);
-  thermal_layers(c);
-  thermal_solve(c, sr);
-  for (int a = 0; a < p.nang; ++a)
-    p.therm[(long long)a * p.nwno + w] = thermal_angle(c, p.u1[a], sr);
+  reflected_column<false>(c);
+  thermal_column<false>(c);
 }
+
+template <bool kProps>
+__global__ void __launch_bounds__(kThreads)
+    toon_reflected_kernel(const Params p) {
+  const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= p.nwno) return;
+  reflected_column<kProps>(Col{p, w});
+}
+
+template <bool kProps>
+__global__ void __launch_bounds__(kThreads)
+    toon_thermal_kernel(const Params p) {
+  const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= p.nwno) return;
+  thermal_column<kProps>(Col{p, w});
+}
+
+Params column_params(const void* surf_reflect, const void* ubar0,
+                     const void* ubar1, void* scratch, int nlayer, int nwno,
+                     int nang) {
+  Params p{};
+  p.sr = (const float*)surf_reflect;
+  p.u0 = (const float*)ubar0;
+  p.u1 = (const float*)ubar1;
+  p.scr = (float*)scratch;
+  p.nlayer = nlayer;
+  p.nwno = nwno;
+  p.nang = nang;
+  return p;
+}
+
+void set_controls(Params& p, int single_phase, int multi_phase,
+                  int toon_coefficients, float frac_a, float frac_b,
+                  float frac_c, float constant_back, float constant_forward,
+                  float b_top) {
+  p.single_phase = single_phase;
+  p.multi_phase = multi_phase;
+  p.toon_coef = toon_coefficients;
+  p.frac_a = frac_a;
+  p.frac_b = frac_b;
+  p.frac_c = frac_c;
+  p.constant_back = constant_back;
+  p.constant_forward = constant_forward;
+  p.b_top = b_top;
+}
+
+void set_strips(Params& p, const void* taugas, const void* tauray,
+                const void* cld_opd, const void* cld_w0, const void* cld_g0,
+                const void* rf) {
+  p.taugas = (const float*)taugas;
+  p.tauray = (const float*)tauray;
+  p.cld_opd = (const float*)cld_opd;
+  p.cld_w0 = (const float*)cld_w0;
+  p.cld_g0 = (const float*)cld_g0;
+  p.rf = (const float*)rf;
+}
+
+int blocks(int nwno) { return (nwno + kThreads - 1) / kThreads; }
 
 }  // namespace
 
-extern "C" int toon_spectrum_scratch_slots() { return kSlots; }
+extern "C" int toon_spectrum_scratch_slots() {
+  return kReflSlots + kThermSlots;
+}
+extern "C" int toon_reflected_scratch_slots() { return kReflSlots; }
+extern "C" int toon_thermal_scratch_slots() { return kThermSlots; }
 
+// spectrum_pallas_fused: scratch holds the reflected slots, then the
+// thermal ones
 extern "C" int toon_spectrum_launch(
     const void* all_b, const void* taugas, const void* tauray,
     const void* cld_opd, const void* cld_w0, const void* cld_g0,
@@ -562,39 +711,122 @@ extern "C" int toon_spectrum_launch(
     int toon_coefficients, float frac_a, float frac_b, float frac_c,
     float constant_back, float constant_forward, float b_top, int stream,
     int delta_eddington, int hard_surface, void* cuda_stream) {
-  Params p;
+  Params p = column_params(surf_reflect, ubar0, ubar1, scratch, nlayer, nwno,
+                             nang);
+  p.tscr = p.scr + (long long)kReflSlots * (nlayer + 1) * nwno;
+  set_strips(p, taugas, tauray, cld_opd, cld_w0, cld_g0, rf);
+  set_controls(p, single_phase, multi_phase, toon_coefficients, frac_a,
+               frac_b, frac_c, constant_back, constant_forward, b_top);
   p.all_b = (const float*)all_b;
-  p.taugas = (const float*)taugas;
-  p.tauray = (const float*)tauray;
-  p.cld_opd = (const float*)cld_opd;
-  p.cld_w0 = (const float*)cld_w0;
-  p.cld_g0 = (const float*)cld_g0;
-  p.rf = (const float*)rf;
-  p.sr = (const float*)surf_reflect;
   p.f0pi = (const float*)F0PI;
-  p.u0 = (const float*)ubar0;
-  p.u1 = (const float*)ubar1;
   p.cos_theta = (const float*)cos_theta;
   p.ptfac = (const float*)ptfac;
   p.xint = (float*)xint;
   p.therm = (float*)therm;
-  p.scr = (float*)scratch;
-  p.nlayer = nlayer;
-  p.nwno = nwno;
-  p.nang = nang;
-  p.single_phase = single_phase;
-  p.multi_phase = multi_phase;
-  p.toon_coef = toon_coefficients;
-  p.frac_a = frac_a;
-  p.frac_b = frac_b;
-  p.frac_c = frac_c;
-  p.constant_back = constant_back;
-  p.constant_forward = constant_forward;
-  p.b_top = b_top;
   p.stream = stream;
   p.dedd = delta_eddington;
   p.hard_surface = hard_surface;
-  const int blocks = (nwno + kThreads - 1) / kThreads;
-  toon_spectrum_kernel<<<blocks, kThreads, 0, (cudaStream_t)cuda_stream>>>(p);
+  toon_spectrum_kernel<<<blocks(nwno), kThreads, 0,
+                         (cudaStream_t)cuda_stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// reflected_pallas_fused
+extern "C" int toon_reflected_launch(
+    const void* taugas, const void* tauray, const void* cld_opd,
+    const void* cld_w0, const void* cld_g0, const void* rf,
+    const void* surf_reflect, const void* F0PI, const void* ubar0,
+    const void* ubar1, const void* cos_theta, void* xint, void* scratch,
+    int nlayer, int nwno, int nang, int single_phase, int multi_phase,
+    int toon_coefficients, float frac_a, float frac_b, float frac_c,
+    float constant_back, float constant_forward, float b_top, int stream,
+    int delta_eddington, void* cuda_stream) {
+  Params p = column_params(surf_reflect, ubar0, ubar1, scratch, nlayer, nwno,
+                             nang);
+  set_strips(p, taugas, tauray, cld_opd, cld_w0, cld_g0, rf);
+  set_controls(p, single_phase, multi_phase, toon_coefficients, frac_a,
+               frac_b, frac_c, constant_back, constant_forward, b_top);
+  p.f0pi = (const float*)F0PI;
+  p.cos_theta = (const float*)cos_theta;
+  p.xint = (float*)xint;
+  p.stream = stream;
+  p.dedd = delta_eddington;
+  toon_reflected_kernel<false><<<blocks(nwno), kThreads, 0,
+                                 (cudaStream_t)cuda_stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// thermal_pallas_fused: scratch holds the thermal slots
+extern "C" int toon_thermal_launch(
+    const void* all_b, const void* taugas, const void* tauray,
+    const void* cld_opd, const void* cld_w0, const void* cld_g0,
+    const void* ptfac, const void* surf_reflect, const void* ubar1,
+    void* therm, void* scratch, int nlayer, int nwno, int nang,
+    int hard_surface, void* cuda_stream) {
+  Params p = column_params(surf_reflect, nullptr, ubar1, nullptr, nlayer, nwno,
+                             nang);
+  p.tscr = (float*)scratch;
+  set_strips(p, taugas, tauray, cld_opd, cld_w0, cld_g0, nullptr);
+  p.all_b = (const float*)all_b;
+  p.ptfac = (const float*)ptfac;
+  p.therm = (float*)therm;
+  p.hard_surface = hard_surface;
+  toon_thermal_kernel<false><<<blocks(nwno), kThreads, 0,
+                               (cudaStream_t)cuda_stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// reflected_pallas: the optics come as the 11 RTProps fields it reads
+extern "C" int toon_reflected_props_launch(
+    const void* dtau, const void* tau, const void* w0, const void* cosb,
+    const void* gcos2, const void* ftau_cld, const void* ftau_ray,
+    const void* dtau_og, const void* tau_og, const void* w0_og,
+    const void* cosb_og, const void* surf_reflect, const void* F0PI,
+    const void* ubar0, const void* ubar1, const void* cos_theta, void* xint,
+    void* scratch, int nlayer, int nwno, int nang, int single_phase,
+    int multi_phase, int toon_coefficients, float frac_a, float frac_b,
+    float frac_c, float constant_back, float constant_forward, float b_top,
+    void* cuda_stream) {
+  Params p = column_params(surf_reflect, ubar0, ubar1, scratch, nlayer, nwno,
+                             nang);
+  p.dtau = (const float*)dtau;
+  p.tau = (const float*)tau;
+  p.w0 = (const float*)w0;
+  p.cosb = (const float*)cosb;
+  p.gcos2 = (const float*)gcos2;
+  p.ftau_cld = (const float*)ftau_cld;
+  p.ftau_ray = (const float*)ftau_ray;
+  p.dtau_og = (const float*)dtau_og;
+  p.tau_og = (const float*)tau_og;
+  p.w0_og = (const float*)w0_og;
+  p.cosb_og = (const float*)cosb_og;
+  set_controls(p, single_phase, multi_phase, toon_coefficients, frac_a,
+               frac_b, frac_c, constant_back, constant_forward, b_top);
+  p.f0pi = (const float*)F0PI;
+  p.cos_theta = (const float*)cos_theta;
+  p.xint = (float*)xint;
+  toon_reflected_kernel<true><<<blocks(nwno), kThreads, 0,
+                                (cudaStream_t)cuda_stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// thermal_pallas: dtau, w0, cosb [nlayer, nwno] and tau_top [nwno] given
+extern "C" int toon_thermal_props_launch(
+    const void* all_b, const void* dtau, const void* w0, const void* cosb,
+    const void* tau_top, const void* surf_reflect, const void* ubar1,
+    void* therm, void* scratch, int nlayer, int nwno, int nang,
+    int hard_surface, void* cuda_stream) {
+  Params p = column_params(surf_reflect, nullptr, ubar1, nullptr, nlayer, nwno,
+                             nang);
+  p.tscr = (float*)scratch;
+  p.all_b = (const float*)all_b;
+  p.dtau = (const float*)dtau;
+  p.w0 = (const float*)w0;
+  p.cosb = (const float*)cosb;
+  p.tau_top = (const float*)tau_top;
+  p.therm = (float*)therm;
+  p.hard_surface = hard_surface;
+  toon_thermal_kernel<true><<<blocks(nwno), kThreads, 0,
+                              (cudaStream_t)cuda_stream>>>(p);
   return (int)cudaGetLastError();
 }

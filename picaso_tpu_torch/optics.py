@@ -46,11 +46,8 @@ def combine_optics(taugas, tauray, taucld, w0_cld, g0_cld, raman_factor,
                    test_mode: Optional[str] = None,
                    delta_eddington: bool = True, stream: int = 2) -> RTProps:
     """Fuse per-source optical depths into the RT property bundle
-    (optics.py:327-431), delta-Eddington on or off."""
-    if test_mode is not None:
-        raise NotImplementedError(
-            f'combine_optics test_mode={test_mode!r} is not ported yet: '
-            'ROADMAP Queue 1 item 14')
+    (optics.py:327-431), delta-Eddington on or off, with the 'rayleigh'
+    and 'constant_tau' (any other string) test modes."""
     DTAU = taugas + tauray + taucld
     ftau_cld = (w0_cld * taucld) / (w0_cld * taucld + tauray)
     COSB = g0_cld
@@ -58,6 +55,27 @@ def combine_optics(taugas, tauray, taucld, w0_cld, g0_cld, raman_factor,
     GCOS2 = 0.5 * ftau_ray  # Hansen & Travis 1974
     W0 = (tauray * raman_factor + taucld * w0_cld) / DTAU
     W0_no_raman = (tauray * 0.99999 + taucld * w0_cld) / DTAU
+
+    if test_mode is not None:
+        # literature-table hooks (optics.py:372-399): analytic opacities in
+        # place of the physical ones, for validation against Dlugach &
+        # Yanovitskij / Madhu & Burrows
+        if test_mode == 'rayleigh':
+            DTAU = tauray
+            GCOS2 = torch.full_like(DTAU, 0.5)
+            ftau_ray = torch.ones_like(DTAU)
+            ftau_cld = torch.zeros_like(DTAU)
+        else:  # 'constant_tau' and anything else: the cloud opd alone
+            DTAU = taucld
+            GCOS2 = torch.zeros_like(DTAU)
+            ftau_ray = torch.zeros_like(DTAU)
+            ftau_cld = torch.ones_like(DTAU)
+        w0_test = torch.where(w0_cld <= 0, 1e-10, w0_cld)
+        DTAU = torch.where(DTAU <= 0, 1e-10, DTAU)
+        COSB = g0_cld
+        W0 = w0_test
+        W0_no_raman = w0_test
+
     TAU = _cumtau(DTAU)
     if delta_eddington:
         # Joseph, Wiscombe & Weinman 1976 forward-peak rescaling

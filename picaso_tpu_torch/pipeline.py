@@ -1,26 +1,36 @@
 """The spectrum pipeline: opacities -> optics -> RT -> disk integration.
 
 Port of ``picaso_tpu/pipeline.py`` for the Toon two-stream solver
-(``rt_method=0``, reflected + thermal together) and the spherical-harmonics
-solver (``rt_method=1``, stream 2 or 4, reflected and/or thermal), with
-transmission when the star radius is finite, Raman off (``raman=2``), no
-``test_mode``.  With ``use_kernels`` (the default) the hot stages go
-through the hand-written kernels:
+(``rt_method=0``) and the spherical-harmonics solver (``rt_method=1``,
+stream 2 or 4): reflected and/or thermal, with transmission when the star
+radius is finite, Raman modes 0 (Oklopcic), 1 (Pollack) and 2 (none),
+fused or unfused optics and the ``test_mode`` optics.  With
+``use_kernels`` (the default) the hot stages go through the hand-written
+kernels:
 
 * ``opacities.cuda_interp.interp_tau`` -- the molecular opacity gather;
-* ``rt.cuda_toon.spectrum_toon`` -- Toon optics + reflected + thermal;
+* ``rt.cuda_toon.spectrum_toon`` -- Toon optics + reflected + thermal, when
+  both are asked for (fused optics, no test mode);
+* ``rt.cuda_toon.reflected_toon`` / ``thermal_toon`` -- one of the two
+  alone;
+* ``rt.cuda_toon.reflected_toon_props`` / ``thermal_toon_props`` -- the
+  Toon solves from ``combine_optics``' RTProps, when ``fuse_optics`` is
+  off or a ``test_mode`` is set;
 * ``rt.cuda_sh.reflected_sh{4,2}`` / ``thermal_sh{4,2}`` -- SH optics and
-  solves, one kernel each for the reflected and the thermal spectrum.
+  solves (fused optics, no test mode; otherwise the plain SH path, as in
+  the JAX package).
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 twin for CPU tensors.  ``use_kernels=False`` runs the plain reference
 path instead (``interp_molecular`` + ``molecular_tau``, ``combine_optics``
 + ``reflected_1d``/``thermal_1d`` or ``sh.reflected_sh``/``thermal_sh``),
 the counterpart of the JAX scan path.  Everything between the kernels
-(continuum, Rayleigh, Planck, disk compression, transit) is plain PyTorch.
+(continuum, Rayleigh, Raman, Planck, disk compression, transit) is plain
+PyTorch.  :func:`forward_batch` runs a stacked batch of scenes
+(:func:`stack_scenes`) one scene after another.
 
-Every other configuration raises ``NotImplementedError`` naming the
-ROADMAP item that will bring it.
+``multi_phase=2`` with the Toon reflected solve raises
+``NotImplementedError`` naming the ROADMAP item that will bring it.
 """
 
 from __future__ import annotations
@@ -33,19 +43,23 @@ import torch
 
 from . import default_dtype
 from . import disco as disco_mod
+from . import raman as raman_mod
 from .constants import PCONV
 from .opacities import assemble
 from .opacities.cuda_interp import interp_tau
 from .opacities.db import (OpacityGrid, _find_indices, interp_molecular,
                            nearest_continuum)
 from .optics import combine_optics
-from .rt import cuda_sh, sh, toon
-from .rt.cuda_toon import spectrum_toon
+from .rt import cuda_sh, cuda_toon, sh, toon
+from .rt.cuda_toon import REFLECTED_FIELDS, spectrum_toon
 from .rt.transit import transit_depth
 
-__all__ = ['SceneTensors', 'SpectrumConfig', 'forward', 'gather_args',
-           'gather_taugas', 'rt_sources', 'spectrum_args', 'sh_args',
-           'scene_from_arrays', 'build_problem', 'MOLECULES_16', 'MIX_16']
+__all__ = ['SceneTensors', 'SpectrumConfig', 'forward', 'forward_batch',
+           'stack_scenes', 'with_geometry', 'with_raman',
+           'stellar_shifts_5700k', 'gather_args', 'gather_taugas',
+           'rt_sources', 'spectrum_args', 'reflected_args', 'thermal_args',
+           'sh_args', 'scene_from_arrays', 'build_problem', 'MOLECULES_16',
+           'MIX_16']
 
 
 class SceneTensors(NamedTuple):
@@ -73,8 +87,8 @@ class SceneTensors(NamedTuple):
     surf_reflect: torch.Tensor    # [nwno]
     rstar: torch.Tensor           # scalar (cm)
     cos_theta: torch.Tensor       # scalar cos(phase angle)
-    # Raman inputs, empty/neutral while Raman is off:
-    raman_shifts: torch.Tensor    # [nrow, nwno]
+    # Raman inputs (empty/neutral when the scene was built without them):
+    raman_shifts: torch.Tensor    # [nrow, nwno] stellar shift ratios
     raman_c: torch.Tensor         # [nrow]
     raman_ji: torch.Tensor        # [nrow] int32
     raman_dnu: torch.Tensor       # [nrow]
@@ -112,6 +126,9 @@ class SpectrumConfig:
     # the hand-written kernels (CUDA tensors) or their twins (CPU tensors);
     # False runs the plain reference path
     use_kernels: bool = True
+    # build the optics inside the RT kernels; False runs combine_optics and
+    # the kernels that read its RTProps (as does any test_mode)
+    fuse_optics: bool = True
 
 
 def _check_config(config: SpectrumConfig):
@@ -119,18 +136,10 @@ def _check_config(config: SpectrumConfig):
         raise ValueError(f'unknown rt_method {config.rt_method}')
     if config.rt_method == 1 and config.stream not in (2, 4):
         raise ValueError(f'SH RT takes stream 2 or 4, got {config.stream}')
-    if config.raman != 2:
-        raise NotImplementedError(
-            f'Raman mode {config.raman} is not ported yet: ROADMAP Queue 1 '
-            'item 8')
-    if config.test_mode is not None:
-        raise NotImplementedError(
-            f'test_mode={config.test_mode!r} is not ported yet: ROADMAP '
-            'Queue 1 item 14')
-    if config.rt_method == 0 and not (config.reflected and config.thermal):
-        raise NotImplementedError(
-            'reflected-only and thermal-only Toon spectra are not ported '
-            'yet: ROADMAP Queue 2 items 3-4')
+    if config.raman not in (0, 1, 2):
+        raise ValueError(f'unknown raman mode {config.raman}')
+    if config.rt_method == 0 and config.reflected:
+        cuda_toon._check_controls(config.controls, config.stream)
 
 
 def gather_args(scene: SceneTensors, grid: OpacityGrid,
@@ -167,7 +176,6 @@ def rt_sources(scene: SceneTensors, grid: OpacityGrid,
                config: SpectrumConfig):
     """Per-source optical depths (taugas with continua, tauray) and the
     Raman factor, each [nlayer, nwno] and contiguous."""
-    nwno = grid.wno.shape[0]
     nlayer = scene.tlayer.shape[0]
     dtype = scene.cld_opd.dtype
     dev = scene.cld_opd.device
@@ -194,8 +202,29 @@ def rt_sources(scene: SceneTensors, grid: OpacityGrid,
             scene.mmw_layer)
     tauray = assemble.rayleigh_tau(scene.sigma_ray, scene.mix_ray,
                                    scene.colden, scene.mmw_layer)
-    rf = torch.full((nlayer, nwno), 0.99999, dtype=dtype, device=dev)
-    return taugas.to(dtype).contiguous(), tauray.to(dtype).contiguous(), rf
+    rf = _raman_factor(config, scene, grid.wno)
+    return (taugas.to(dtype).contiguous(), tauray.to(dtype).contiguous(),
+            rf.contiguous())
+
+
+def _raman_factor(config, scene: SceneTensors, wno):
+    """Raman single-scattering factor [nlayer, nwno]
+    (picaso_tpu/pipeline.py:119-135): 0 = Oklopcic, from the scene's
+    stellar shift ratios; 1 = Pollack, the scene's precomputed row;
+    2 = none.  Capped at 0.99999."""
+    nlayer = scene.tlayer.shape[0]
+    nwno = wno.shape[0]
+    dtype = scene.cld_opd.dtype
+    if config.raman == 0:
+        rf = raman_mod.raman_factor_oklopcic(
+            wno, scene.raman_shifts.T, scene.tlayer, scene.raman_c,
+            scene.raman_ji, scene.raman_dnu)
+        return torch.clamp(rf, max=0.99999).to(dtype)
+    if config.raman == 1:
+        row = torch.clamp(scene.raman_pollack_row, max=0.99999).to(dtype)
+        return row[None, :].expand(nlayer, nwno)
+    return torch.full((nlayer, nwno), 0.99999, dtype=dtype,
+                      device=scene.cld_opd.device)
 
 
 def _planck_args(scene: SceneTensors, grid: OpacityGrid):
@@ -219,6 +248,78 @@ def spectrum_args(scene: SceneTensors, grid: OpacityGrid, config, tg, tr,
                   delta_eddington=config.delta_eddington,
                   hard_surface=config.hard_surface)
     return args, kwargs
+
+
+def reflected_args(scene: SceneTensors, config, tg, tr, rf, props=None):
+    """The Toon reflected kernel's arguments and options, as ``forward``
+    passes them: (args, kwargs) for ``reflected_toon`` (K3), or, given the
+    RTProps ``props``, for ``reflected_toon_props`` (K5) and the plain
+    ``toon.reflected_1d``."""
+    geom = (scene.surf_reflect, scene.ubar0, scene.ubar1, scene.cos_theta,
+            scene.F0PI)
+    if props is not None:
+        return (tuple(getattr(props, f) for f in REFLECTED_FIELDS) + geom,
+                dict(controls=config.controls))
+    return ((tg, tr, scene.cld_opd, scene.cld_w0, scene.cld_g0, rf) + geom,
+            dict(controls=config.controls, stream=config.stream,
+                 delta_eddington=config.delta_eddington))
+
+
+def thermal_args(scene: SceneTensors, grid: OpacityGrid, config, tg, tr,
+                 props=None):
+    """The Toon thermal kernel's arguments and options, as ``forward``
+    passes them: (args, kwargs) for ``thermal_toon`` (K4), or, given the
+    RTProps ``props``, for ``thermal_toon_props`` (K6) with the above-model
+    tau_top of ``pipeline.py:390-391``."""
+    all_b, ptfac = _planck_args(scene, grid)
+    kwargs = dict(hard_surface=config.hard_surface)
+    if props is not None:
+        tau_top = (props.dtau_og[0] * scene.plevel[0]
+                   / (scene.plevel[1] - scene.plevel[0]))
+        return ((all_b, props.dtau_og, props.w0_no_raman, props.cosb_og,
+                 tau_top, scene.surf_reflect, scene.ubar1), kwargs)
+    return ((all_b, tg, tr, scene.cld_opd, scene.cld_w0, scene.cld_g0,
+             ptfac, scene.surf_reflect, scene.ubar1), kwargs)
+
+
+def _props(scene: SceneTensors, config, tg, tr, rf):
+    return combine_optics(tg, tr, scene.cld_opd, scene.cld_w0, scene.cld_g0,
+                          rf, test_mode=config.test_mode,
+                          delta_eddington=config.delta_eddington,
+                          stream=config.stream)
+
+
+def _toon_rt(scene: SceneTensors, grid: OpacityGrid, config, tg, tr, rf):
+    """Toon branch (picaso_tpu/pipeline.py:214-274, 328-408): (xint or
+    None, thermal flux or None, total extinction for transit)."""
+    xint = flux_top = None
+    fused = config.fuse_optics and config.test_mode is None
+    if config.use_kernels and fused:
+        if config.reflected and config.thermal:
+            args, kwargs = spectrum_args(scene, grid, config, tg, tr, rf)
+            xint, flux_top = spectrum_toon(*args, **kwargs)
+        elif config.reflected:
+            args, kwargs = reflected_args(scene, config, tg, tr, rf)
+            xint = cuda_toon.reflected_toon(*args, **kwargs)
+        elif config.thermal:
+            args, kwargs = thermal_args(scene, grid, config, tg, tr)
+            flux_top = cuda_toon.thermal_toon(*args, **kwargs)
+        return xint, flux_top, tg + tr + scene.cld_opd
+    props = _props(scene, config, tg, tr, rf)
+    if config.reflected:
+        args, kwargs = reflected_args(scene, config, tg, tr, rf, props)
+        xint = (cuda_toon.reflected_toon_props(*args, **kwargs)
+                if config.use_kernels else toon.reflected_1d(*args, **kwargs))
+    if config.thermal:
+        if config.use_kernels:
+            args, kwargs = thermal_args(scene, grid, config, tg, tr, props)
+            flux_top = cuda_toon.thermal_toon_props(*args, **kwargs)
+        else:
+            flux_top = toon.thermal_1d(
+                scene.tlevel, props.dtau_og, props.w0_no_raman,
+                props.cosb_og, scene.plevel, scene.ubar1, scene.surf_reflect,
+                grid.wno, hard_surface=config.hard_surface)
+    return xint, flux_top, props.dtau_og
 
 
 def sh_args(scene: SceneTensors, grid: OpacityGrid, config, tg, tr, rf):
@@ -248,7 +349,7 @@ def _sh_rt(scene: SceneTensors, grid: OpacityGrid, config, tg, tr, rf):
     """SH branch (picaso_tpu/pipeline.py:276-365): (xint or None, thermal
     flux or None, total extinction for transit)."""
     xint = flux_top = None
-    if config.use_kernels:
+    if config.use_kernels and config.fuse_optics and config.test_mode is None:
         (r_args, r_kw), (t_args, t_kw) = sh_args(scene, grid, config, tg,
                                                  tr, rf)
         if config.stream == 4:
@@ -260,10 +361,9 @@ def _sh_rt(scene: SceneTensors, grid: OpacityGrid, config, tg, tr, rf):
         if config.thermal:
             flux_top = therm_k(*t_args, **t_kw)
         return xint, flux_top, tg + tr + scene.cld_opd
-    props = combine_optics(tg, tr, scene.cld_opd, scene.cld_w0,
-                           scene.cld_g0, rf,
-                           delta_eddington=config.delta_eddington,
-                           stream=config.stream)
+    # SH kernels build the default-branch optics themselves; test modes
+    # and unfused optics take the plain SH path (pipeline.py:276-277)
+    props = _props(scene, config, tg, tr, rf)
     if config.reflected:
         xint = sh.reflected_sh(
             props, scene.surf_reflect, scene.ubar0, scene.ubar1,
@@ -292,28 +392,8 @@ def forward(scene: SceneTensors, grid: OpacityGrid, config: SpectrumConfig):
     with ``config.transmission``, transit_depth [nwno]."""
     _check_config(config)
     tg, tr, rf = rt_sources(scene, grid, config)
-    if config.rt_method == 1:
-        xint, flux_top, dtau_total = _sh_rt(scene, grid, config, tg, tr, rf)
-    elif config.use_kernels:
-        args, kwargs = spectrum_args(scene, grid, config, tg, tr, rf)
-        xint, flux_top = spectrum_toon(*args, **kwargs)
-        dtau_total = tg + tr + scene.cld_opd
-    else:
-        props = combine_optics(tg, tr, scene.cld_opd, scene.cld_w0,
-                               scene.cld_g0, rf,
-                               delta_eddington=config.delta_eddington,
-                               stream=config.stream)
-        xint = toon.reflected_1d(
-            props.dtau, props.tau, props.w0, props.cosb, props.gcos2,
-            props.ftau_cld, props.ftau_ray, props.dtau_og, props.tau_og,
-            props.w0_og, props.cosb_og, scene.surf_reflect, scene.ubar0,
-            scene.ubar1, scene.cos_theta, scene.F0PI,
-            controls=config.controls)
-        flux_top = toon.thermal_1d(
-            scene.tlevel, props.dtau_og, props.w0_no_raman, props.cosb_og,
-            scene.plevel, scene.ubar1, scene.surf_reflect, grid.wno,
-            hard_surface=config.hard_surface)
-        dtau_total = props.dtau_og
+    rt = _sh_rt if config.rt_method == 1 else _toon_rt
+    xint, flux_top, dtau_total = rt(scene, grid, config, tg, tr, rf)
     out = {}
     if xint is not None:
         out['albedo'] = disco_mod.compress_disco(
@@ -328,13 +408,77 @@ def forward(scene: SceneTensors, grid: OpacityGrid, config: SpectrumConfig):
     return out
 
 
+# small per-scene geometry fields, each with its UNBATCHED rank
+# (picaso_tpu/pipeline.py:450-451): stack_scenes leaves a batch-constant
+# one at this rank, and forward_batch reads only the rank to tell a shared
+# field from a batched one
+_SCALARISH_RANK = {'ubar0': 2, 'ubar1': 2, 'gweight': 1, 'tweight': 1,
+                   'cos_theta': 0, 'F0PI': 1, 'surf_reflect': 1}
+
+
+def stack_scenes(scenes):
+    """Stack same-shaped SceneTensors along a new leading batch axis
+    (picaso_tpu/pipeline.py:411-441): phase-curve points, retrieval live
+    points, grid members.  A geometry-like field (``_SCALARISH_RANK``) that
+    is the same in every scene -- the retrieval case -- stays unbatched;
+    one that varies -- phase curves -- gains the axis like every other
+    field."""
+    fields = {}
+    for name in SceneTensors._fields:
+        leaves = [getattr(s, name) for s in scenes]
+        first = leaves[0]
+        if name in _SCALARISH_RANK and all(
+                leaf is first or torch.equal(leaf, first)
+                for leaf in leaves[1:]):
+            fields[name] = first
+        else:
+            fields[name] = torch.stack(leaves)
+    return SceneTensors(**fields)
+
+
+def forward_batch(scenes: SceneTensors, grid: OpacityGrid,
+                  config: SpectrumConfig):
+    """``forward`` over a batch from :func:`stack_scenes`: every field has a
+    leading batch axis except the batch-constant geometry fields, which sit
+    at their unbatched rank (picaso_tpu/pipeline.py:454-475).  Outputs gain
+    the batch axis.  The scenes run one after another through ``forward``
+    (each launching its kernels); a batch axis inside the kernels is a
+    later ROADMAP item."""
+    nbatch = scenes.tlevel.shape[0]
+    outs = []
+    for b in range(nbatch):
+        one = {}
+        for name, val in scenes._asdict().items():
+            shared = _SCALARISH_RANK.get(name) == val.dim()
+            one[name] = val if shared else val[b]
+        outs.append(forward(SceneTensors(**one), grid, config))
+    return {key: torch.stack([o[key] for o in outs]) for key in outs[0]}
+
+
+def with_geometry(scene: SceneTensors, geom):
+    """``scene`` with the disk geometry ``geom`` (a ``disco.Geometry``), as
+    the JAX package's bench builds phase-curve scenes
+    (bench.py:627-636)."""
+    def t(x):
+        return torch.as_tensor(np.asarray(x), dtype=scene.ubar0.dtype,
+                               device=scene.ubar0.device)
+    return scene._replace(ubar0=t(geom.ubar0), ubar1=t(geom.ubar1),
+                          gweight=t(geom.gweight), tweight=t(geom.tweight),
+                          cos_theta=t(geom.cos_theta))
+
+
 def scene_from_arrays(profile_bar, t_level, mix_named, grid: OpacityGrid,
                       gravity, radius=np.nan, mass=np.nan, p_reference=1.0,
                       num_gangle=10, cld=None, F0PI=None, rstar=np.nan,
                       rayleigh_species=None, dtype=None, geom=None,
-                      surf_reflect=None, device=None):
+                      surf_reflect=None, raman_shifts=None, raman_db=None,
+                      raman_pollack_row=None, device=None):
     """Build (SceneTensors, SpectrumConfig) from plain arrays on the host
-    (numpy), then move the scene to ``device`` (default: the grid's)."""
+    (numpy), then move the scene to ``device`` (default: the grid's).
+
+    Raman inputs as in the JAX package: ``raman_shifts`` [nwno, nrow] from
+    ``raman.compute_stellar_shifts``, ``raman_db`` the dict of
+    ``raman.load_raman_db``, ``raman_pollack_row`` [nwno]."""
     from .atmosphere import build_atmosphere
     from .rayleigh import RAYLEIGH_MOLECULES, rayleigh_sigma_table
 
@@ -391,9 +535,15 @@ def scene_from_arrays(profile_bar, t_level, mix_named, grid: OpacityGrid,
         surf_reflect=t(np.zeros(nwno) if surf_reflect is None
                        else np.broadcast_to(surf_reflect, (nwno,))),
         rstar=t(rstar), cos_theta=t(getattr(geom, 'cos_theta', 1.0)),
-        raman_shifts=t(np.zeros((0, nwno))), raman_c=t(np.zeros(0)),
-        raman_ji=t(np.zeros(0), torch.int32), raman_dnu=t(np.zeros(0)),
-        raman_pollack_row=t(np.ones(nwno)))
+        raman_shifts=t(np.zeros((0, nwno)) if raman_shifts is None
+                       else np.asarray(raman_shifts).T),
+        raman_c=t(np.zeros(0) if raman_db is None else raman_db['c']),
+        raman_ji=t(np.zeros(0) if raman_db is None else raman_db['ji'],
+                   torch.int32),
+        raman_dnu=t(np.zeros(0) if raman_db is None
+                    else raman_db['deltanu']),
+        raman_pollack_row=t(np.ones(nwno) if raman_pollack_row is None
+                            else raman_pollack_row))
     config = SpectrumConfig(mol_indices=mol_indices, continuum_specs=specs,
                             cont_indices=cont_indices, mix_index=mix_index,
                             transmission=bool(np.isfinite(rstar)))
@@ -409,8 +559,28 @@ MIX_16 = {'H2O': 1e-3, 'CH4': 5e-4, 'CO': 3e-4, 'NH3': 1e-4, 'CO2': 1e-5,
           'SO2': 1e-8, 'CrH': 1e-9}
 
 
+def stellar_shifts_5700k(wno, raman_db):
+    """Oklopcic stellar shift ratios [nwno, nrow] of a 5700 K blackbody
+    star, on the fine grid and with the binning the JAX package's
+    ``inputs.star`` uses (justdoit.py:337-358): no stellar grid files."""
+    from .constants import PLANCK_C1, PLANCK_C2
+    wno = np.asarray(wno, dtype=float)
+    wno_star = np.linspace(max(np.min(wno) - 2500, 10.0),
+                           np.max(wno) + 7000, len(wno) * 5 + 1000)
+    lam = 1.0 / wno_star
+    flux_star = (np.pi * PLANCK_C1 / lam ** 5
+                 / (np.exp(PLANCK_C2 / (lam * 5700.0)) - 1.0))
+    fine_wno = np.linspace(np.min(wno) - 2000, np.max(wno) + 6000,
+                           len(wno) * 5)
+    fine_flux = np.interp(fine_wno, wno_star, flux_star)
+    shifts, _ = raman_mod.compute_stellar_shifts(wno, raman_db, fine_wno,
+                                                 fine_flux)
+    return shifts
+
+
 def build_problem(nwno, nlevel=91, production=True, device='cpu',
-                  dtype=None):
+                  dtype=None, raman=2, reflected=True, thermal=True,
+                  test_mode=None):
     """Scene + grid + config at the requested size, as ``bench.py``'s
     ``build_problem`` builds them for the JAX package.
 
@@ -418,6 +588,11 @@ def build_problem(nwno, nlevel=91, production=True, device='cpu',
     (the real table shape; 3.4 GB in float32 at nwno = 50 000), 2 CIA
     continua, Rayleigh, a cloud deck, 5 disk angles, transmission on.
     production=False: a small regular 15 x 10 grid with 6 molecules.
+
+    raman: 2 none (the default here, as in bench.py); 1 Pollack (the row
+    from ``raman_fortran.txt``); 0 Oklopcic (shift ratios of a 5700 K
+    blackbody star, :func:`stellar_shifts_5700k`).  reflected, thermal and
+    test_mode go into the config as given.
     """
     from .opacities import factory
 
@@ -446,4 +621,29 @@ def build_problem(nwno, nlevel=91, production=True, device='cpu',
         pressure, temperature, mix, grid, gravity=2500.0,
         radius=7.1492e9, mass=1.898e30, cld=cld, rstar=6.96e10,
         dtype=dtype, device=device)
-    return scene, grid, config
+    config = dataclasses.replace(config, reflected=reflected,
+                                 thermal=thermal, test_mode=test_mode)
+    return with_raman(scene, grid, config, raman)
+
+
+def with_raman(scene: SceneTensors, grid: OpacityGrid, config, raman):
+    """(scene, grid, config) for Raman mode ``raman``, with the scene's
+    Raman inputs made as :func:`build_problem` makes them: 1 Pollack (the
+    row of ``raman_fortran.txt``), 0 Oklopcic (the table and the shift
+    ratios of a 5700 K blackbody star, :func:`stellar_shifts_5700k`),
+    2 none (the inputs left as they are)."""
+    wno = grid.wno.detach().cpu().numpy().astype(float)
+
+    def t(x, dt=scene.cld_opd.dtype):
+        return torch.tensor(np.asarray(x), dtype=dt,
+                            device=scene.cld_opd.device)
+    if raman == 1:
+        scene = scene._replace(raman_pollack_row=t(
+            raman_mod.raman_factor_pollack(1, 1e4 / wno)[0]))
+    elif raman == 0:
+        db = raman_mod.load_raman_db()
+        scene = scene._replace(
+            raman_shifts=t(stellar_shifts_5700k(wno, db).T),
+            raman_c=t(db['c']), raman_ji=t(db['ji'], torch.int32),
+            raman_dnu=t(db['deltanu']))
+    return scene, grid, dataclasses.replace(config, raman=raman)

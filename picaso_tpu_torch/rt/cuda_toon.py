@@ -1,21 +1,31 @@
-"""Toon89 reflected + thermal spectrum in one kernel, with its plain twin.
+"""Toon89 reflected and thermal spectra as CUDA kernels, with plain twins.
 
-Counterpart of ``picaso_tpu/rt/pallas_toon.py``: ``csrc/toon_spectrum.cu``
-replaces the dual-pass TPU kernel ``spectrum_pallas_fused``
-(``_spectrum_kernel_fused`` -> ``_optics_block``, ``_reflected_core``,
-``_thermal_core``, ``_solve_two_stream_scratch``).  From the six per-source
-strips it builds the delta-Eddington and OG optics, solves the Toon89
-eqn-44 system (one factorisation shared by every disk angle, one
-right-hand side per angle), runs the reflected TOA intensity recursion,
-solves the thermal two-stream system and runs the per-angle thermal
+Counterpart of ``picaso_tpu/rt/pallas_toon.py``.  ``csrc/toon_spectrum.cu``
+replaces its five TPU kernels, one wrapper each here:
+
+* :func:`spectrum_toon` <- ``spectrum_pallas_fused`` (K2): reflected and
+  thermal from the six per-source strips, one pass;
+* :func:`reflected_toon` <- ``reflected_pallas_fused`` (K3): the reflected
+  half alone;
+* :func:`thermal_toon` <- ``thermal_pallas_fused`` (K4): the thermal half
+  alone (OG optics with the no-Raman albedo);
+* :func:`reflected_toon_props` <- ``reflected_pallas`` (K5): the reflected
+  solve from a precomputed ``RTProps`` (``fuse_optics=False``, test modes);
+* :func:`thermal_toon_props` <- ``thermal_pallas`` (K6): the thermal solve
+  from precomputed OG ``dtau``, ``w0``, ``cosb`` and ``tau_top``.
+
+Each builds (or reads) the per-layer optics, solves the Toon89 eqn-44
+system (one factorisation shared by every disk angle, one right-hand side
+per angle) and runs the TOA intensity recursion or the per-angle thermal
 source-function up-sweep.
 
-:func:`spectrum_toon_plain` is the plain PyTorch twin with the TPU
+Each ``*_plain`` function is the kernel's plain PyTorch twin with the TPU
 kernel's arithmetic (stable ``gama = g2/(g1+lamda)``, ``exptrm_minus =
 1/exptrm_positive``, the ``e_u0dt``/``e_u1`` products in place of extra
-exps, product-form resonant limits, exp clip 10 in f32, beam dither
-1e-3 in f32).  :func:`spectrum_toon` runs the twin for CPU tensors and
-launches the kernel for CUDA tensors, or raises.
+exps, product-form resonant limits, exp clip 10 in f32, beam dither 1e-3
+in f32).  Each wrapper runs its twin for CPU tensors and launches its
+kernel for CUDA tensors, or raises; ``wrapper.launches`` counts the
+launches.
 """
 
 from __future__ import annotations
@@ -29,7 +39,10 @@ from ..optics import combine_optics
 from .toon import (ScatteringControls, _dither_u0, _resonant_ratio,
                    thermal_toa)
 
-__all__ = ['spectrum_toon', 'spectrum_toon_plain']
+__all__ = ['REFLECTED_FIELDS', 'spectrum_toon', 'spectrum_toon_plain', 'reflected_toon',
+           'reflected_toon_plain', 'thermal_toon', 'thermal_toon_plain',
+           'reflected_toon_props', 'reflected_toon_props_plain',
+           'thermal_toon_props', 'thermal_toon_props_plain']
 
 PI = math.pi
 
@@ -220,7 +233,7 @@ def _reflected_plain(u0, u1, cos_theta, dtau, tau, w0, cosb, gcos2,
     return xint
 
 
-def _check_controls(controls, stream):
+def _check_controls(controls, stream=2):
     if controls.single_phase not in (0, 1, 2, 3):
         raise ValueError(f'unknown single_phase {controls.single_phase}')
     if controls.multi_phase not in (0, 1):
@@ -234,37 +247,170 @@ def _check_controls(controls, stream):
         raise ValueError(f'stream must be a positive integer, got {stream}')
 
 
+# RTProps fields in reflected_pallas' argument order
+REFLECTED_FIELDS = ('dtau', 'tau', 'w0', 'cosb', 'gcos2', 'ftau_cld', 'ftau_ray',
+               'dtau_og', 'tau_og', 'w0_og', 'cosb_og')
+
+
+def reflected_toon_props_plain(dtau, tau, w0, cosb, gcos2, ftau_cld,
+                               ftau_ray, dtau_og, tau_og, w0_og, cosb_og,
+                               surf_reflect, ubar0, ubar1, cos_theta, F0PI,
+                               controls: ScatteringControls =
+                               ScatteringControls(),
+                               b_top: float = 0.0):
+    """Plain twin of K5 (``reflected_pallas``): reflected TOA intensity
+    [ng, nt, nwno] from the 11 RTProps fields it reads."""
+    _check_controls(controls)
+    dtype = dtau.dtype
+    ng, nt = ubar0.shape
+    u0 = ubar0.reshape(-1, 1).to(dtype)
+    u1 = ubar1.reshape(-1, 1).to(dtype)
+    ct = torch.as_tensor(cos_theta, dtype=dtype, device=dtau.device)
+    xint = _reflected_plain(u0, u1, ct, dtau, tau, w0, cosb, gcos2,
+                            ftau_cld, ftau_ray, dtau_og, tau_og, w0_og,
+                            cosb_og, surf_reflect, F0PI, controls, b_top)
+    return xint.reshape(ng, nt, dtau.shape[1])
+
+
+def reflected_toon_plain(taugas, tauray, cld_opd, cld_w0, cld_g0, rf,
+                         surf_reflect, ubar0, ubar1, cos_theta, F0PI,
+                         controls: ScatteringControls = ScatteringControls(),
+                         b_top: float = 0.0, stream: int = 2,
+                         delta_eddington: bool = True):
+    """Plain twin of K3 (``reflected_pallas_fused``): the TPU kernel's
+    ``_optics_block`` is ``combine_optics``' default branch (cumulative tau
+    by ``torch.cumsum`` instead of the triangular matmul), then K5's
+    twin."""
+    _check_controls(controls, stream)
+    props = combine_optics(taugas, tauray, cld_opd, cld_w0, cld_g0, rf,
+                           delta_eddington=delta_eddington, stream=stream)
+    return reflected_toon_props_plain(
+        *(getattr(props, f) for f in REFLECTED_FIELDS), surf_reflect, ubar0,
+        ubar1, cos_theta, F0PI, controls=controls, b_top=b_top)
+
+
+def thermal_toon_props_plain(all_b, dtau, w0, cosb, tau_top, surf_reflect,
+                             ubar1, hard_surface: bool = False):
+    """Plain twin of K6 (``thermal_pallas``): thermal TOA flux
+    [ng, nt, nwno] from the OG dtau, the no-Raman w0, cosb and the
+    above-model optical depth tau_top [nwno]."""
+    return thermal_toa(all_b, dtau, w0, cosb, tau_top, surf_reflect, ubar1,
+                       hard_surface)
+
+
+def thermal_toon_plain(all_b, taugas, tauray, cld_opd, cld_w0, cld_g0,
+                       ptfac, surf_reflect, ubar1,
+                       hard_surface: bool = False):
+    """Plain twin of K4 (``thermal_pallas_fused``): the OG fields with the
+    fixed 0.99999 no-Raman albedo (justdoit.py:330-342), tau_top from the
+    first layer and ptfac = p0/(p1-p0), then K6's twin."""
+    dtau = taugas + tauray + cld_opd
+    w0 = (tauray * 0.99999 + cld_opd * cld_w0) / dtau
+    pt = torch.as_tensor(ptfac, dtype=dtau.dtype, device=dtau.device)
+    return thermal_toon_props_plain(all_b, dtau, w0, cld_g0, dtau[0] * pt,
+                                    surf_reflect, ubar1, hard_surface)
+
+
 def spectrum_toon_plain(all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, rf,
                         ptfac, surf_reflect, ubar0, ubar1, cos_theta, F0PI,
                         controls: ScatteringControls = ScatteringControls(),
                         b_top: float = 0.0, stream: int = 2,
                         delta_eddington: bool = True,
                         hard_surface: bool = False):
-    """Plain PyTorch twin of the spectrum kernel (same arithmetic as
-    ``spectrum_pallas_fused``; cumulative tau by ``torch.cumsum`` instead
-    of the TPU's triangular matmul).  Returns (xint, thermal), each
-    [ng, nt, nwno]."""
-    _check_controls(controls, stream)
-    dtype = taugas.dtype
-    ng, nt = ubar0.shape
-    nwno = taugas.shape[1]
-    u0 = ubar0.reshape(-1, 1).to(dtype)
-    u1 = ubar1.reshape(-1, 1).to(dtype)
-    ct = torch.as_tensor(cos_theta, dtype=dtype, device=taugas.device)
-    pt = torch.as_tensor(ptfac, dtype=dtype, device=taugas.device)
-    # the TPU kernel's _optics_block is combine_optics' default branch
-    props = combine_optics(taugas, tauray, cld_opd, cld_w0, cld_g0, rf,
-                           delta_eddington=delta_eddington, stream=stream)
-    xint = _reflected_plain(u0, u1, ct, props.dtau, props.tau, props.w0,
-                            props.cosb, props.gcos2, props.ftau_cld,
-                            props.ftau_ray, props.dtau_og, props.tau_og,
-                            props.w0_og, props.cosb_og, surf_reflect, F0PI,
-                            controls, b_top)
-    # thermal: OG fields with the fixed no-raman albedo
-    therm = thermal_toa(all_b, props.dtau_og, props.w0_no_raman,
-                        props.cosb_og, props.dtau_og[0] * pt, surf_reflect,
-                        ubar1, hard_surface)
-    return xint.reshape(ng, nt, nwno), therm.reshape(ng, nt, nwno)
+    """Plain twin of K2 (``spectrum_pallas_fused``): K3's and K4's twins on
+    the same strips.  Returns (xint, thermal), each [ng, nt, nwno]."""
+    xint = reflected_toon_plain(taugas, tauray, cld_opd, cld_w0, cld_g0, rf,
+                                surf_reflect, ubar0, ubar1, cos_theta, F0PI,
+                                controls=controls, b_top=b_top,
+                                stream=stream,
+                                delta_eddington=delta_eddington)
+    therm = thermal_toon_plain(all_b, taugas, tauray, cld_opd, cld_w0,
+                               cld_g0, ptfac, surf_reflect, ubar1,
+                               hard_surface)
+    return xint, therm
+
+
+# ---------------------------------------------------------------------------
+# the CUDA wrappers
+# ---------------------------------------------------------------------------
+
+def _on_cpu(fn, t):
+    """True for a CPU tensor (the twin runs); raises for a device that is
+    neither CPU nor CUDA."""
+    if t.device.type == 'cpu':
+        return True
+    if t.device.type != 'cuda':
+        raise ValueError(f'{fn}: unsupported device {t.device}')
+    return False
+
+
+def _check_cuda(fn, tensors, shapes, scalars=()):
+    """Check a kernel's inputs: every tensor on the first one's device,
+    float32, contiguous, of the shape ``shapes`` names; each of ``scalars``
+    (name, value) one value.  Returns the device and the scalars as
+    one-element float32 tensors on it."""
+    dev = next(iter(tensors.values())).device
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f'{fn}: {name} on {t.device}, expected {dev}')
+        if t.dtype != torch.float32:
+            raise TypeError(f'{fn}: {name} must be float32, got {t.dtype}')
+        if not t.is_contiguous():
+            raise ValueError(f'{fn}: {name} must be contiguous')
+        if name in shapes and tuple(t.shape) != shapes[name]:
+            raise ValueError(f'{fn}: {name} {tuple(t.shape)} != '
+                             f'{shapes[name]}')
+    out = []
+    for name, v in scalars:
+        if isinstance(v, torch.Tensor) and (v.device != dev or v.numel() != 1):
+            raise ValueError(f'{fn}: {name} must be one value on {dev}')
+        out.append(torch.as_tensor(v, dtype=torch.float32,
+                                   device=dev).reshape(1))
+    return dev, out
+
+
+def _geometry_shapes(fn, nlayer, nwno, ubar0, ubar1, layer_names,
+                     level_names=()):
+    """Expected shapes by argument name."""
+    if ubar0 is not None and ubar1.shape != ubar0.shape:
+        raise ValueError(f'{fn}: ubar0 and ubar1 differ in shape')
+    shapes = {n: (nlayer, nwno) for n in layer_names}
+    shapes.update({n: (nlayer + 1, nwno) for n in level_names})
+    shapes.update(surf_reflect=(nwno,), F0PI=(nwno,), tau_top=(nwno,))
+    return shapes
+
+
+def _controls_args(c, b_top):
+    return (c.single_phase, c.multi_phase, c.toon_coefficients, c.frac_a,
+            c.frac_b, c.frac_c, c.constant_back, c.constant_forward,
+            float(b_top))
+
+
+def _launch(fn, entry, dev, slots_entry, nlayer, nwno, nouts, nang, args):
+    """Allocate the outputs ([nang, nwno] each) and the scratch, launch
+    ``entry`` on the current stream with ``args(outs, scratch)`` and check
+    the launch."""
+    from .._build import check, library
+    lib = library()
+    f32 = torch.float32
+    outs = [torch.empty((nang, nwno), dtype=f32, device=dev)
+            for _ in range(nouts)]
+    scratch = torch.empty((getattr(lib, slots_entry)(), nlayer + 1, nwno),
+                          dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        stream_handle = torch.cuda.current_stream(dev).cuda_stream
+        code = getattr(lib, entry)(*args(outs, scratch), stream_handle)
+    check(code, fn)
+    return outs
+
+
+def _ptrs(*tensors):
+    return [t.data_ptr() for t in tensors]
+
+
+def _min_layers(fn, nlayer):
+    if nlayer < 2:
+        raise ValueError(f'{fn}: needs at least 2 layers')
 
 
 _STRIPS = ('taugas', 'tauray', 'cld_opd', 'cld_w0', 'cld_g0', 'rf')
@@ -275,13 +421,15 @@ def spectrum_toon(all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, rf, ptfac,
                   controls: ScatteringControls = ScatteringControls(),
                   b_top: float = 0.0, stream: int = 2,
                   delta_eddington: bool = True, hard_surface: bool = False):
-    """Reflected TOA intensity and thermal TOA flux, each [ng, nt, nwno].
+    """Reflected TOA intensity and thermal TOA flux, each [ng, nt, nwno]
+    (K2).
 
     Same contract as ``spectrum_pallas_fused``.  CPU tensors take the plain
     twin; CUDA tensors launch ``csrc/toon_spectrum.cu`` (float32,
     contiguous) and raise on anything the kernel does not take.
 
-    Left out of the TPU kernel, with the reason:
+    Left out of the TPU kernels (this one and the four below), with the
+    reason:
     - the wavelength blocks and VMEM scratch: one thread owns one
       wavelength column and keeps its intermediates in global scratch laid
       out [slot, row, nwno], so a warp's accesses coalesce;
@@ -292,78 +440,172 @@ def spectrum_toon(all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, rf, ptfac,
     - the angle-stacked RHS buffers: each thread solves its angles one
       after another against the shared factorisation.
     """
-    if taugas.device.type == 'cpu':
+    fn = 'spectrum_toon'
+    if _on_cpu(fn, taugas):
         return spectrum_toon_plain(
             all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, rf, ptfac,
             surf_reflect, ubar0, ubar1, cos_theta, F0PI, controls=controls,
             b_top=b_top, stream=stream, delta_eddington=delta_eddington,
             hard_surface=hard_surface)
-    if taugas.device.type != 'cuda':
-        raise ValueError(f'spectrum_toon: unsupported device {taugas.device}')
     _check_controls(controls, stream)
-    dev = taugas.device
     nlayer, nwno = taugas.shape
-    if nlayer < 2:
-        raise ValueError('spectrum_toon: needs at least 2 layers')
-    ng, nt = ubar0.shape
-    nang = ng * nt
-    f32 = torch.float32
-    strips = dict(zip(_STRIPS, (taugas, tauray, cld_opd, cld_w0, cld_g0, rf)))
-    named = dict(strips, all_b=all_b, surf_reflect=surf_reflect, F0PI=F0PI,
+    _min_layers(fn, nlayer)
+    named = dict(zip(_STRIPS, (taugas, tauray, cld_opd, cld_w0, cld_g0, rf)),
+                 all_b=all_b, surf_reflect=surf_reflect, F0PI=F0PI,
                  ubar0=ubar0, ubar1=ubar1)
-    for name, t in named.items():
-        if t.device != dev:
-            raise ValueError(f'spectrum_toon: {name} on {t.device}, taugas '
-                             f'on {dev}')
-        if t.dtype != f32:
-            raise TypeError(f'spectrum_toon: {name} must be float32, got '
-                            f'{t.dtype}')
-        if not t.is_contiguous():
-            raise ValueError(f'spectrum_toon: {name} must be contiguous')
-    for name, t in strips.items():
-        if t.shape != (nlayer, nwno):
-            raise ValueError(f'spectrum_toon: {name} {tuple(t.shape)} != '
-                             f'{(nlayer, nwno)}')
-    if all_b.shape != (nlayer + 1, nwno):
-        raise ValueError(f'spectrum_toon: all_b {tuple(all_b.shape)} != '
-                         f'{(nlayer + 1, nwno)}')
-    if surf_reflect.shape != (nwno,) or F0PI.shape != (nwno,):
-        raise ValueError('spectrum_toon: surf_reflect and F0PI must be '
-                         f'[{nwno}]')
-    if ubar1.shape != ubar0.shape:
-        raise ValueError('spectrum_toon: ubar0 and ubar1 differ in shape')
-    scalars = {}
-    for name, v in (('cos_theta', cos_theta), ('ptfac', ptfac)):
-        if isinstance(v, torch.Tensor) and (v.device != dev or v.numel() != 1):
-            raise ValueError(f'spectrum_toon: {name} must be one value on '
-                             f'{dev}')
-        scalars[name] = torch.as_tensor(v, dtype=f32, device=dev).reshape(1)
-
-    from .._build import check, library
-    lib = library()
-    u0 = ubar0.reshape(-1).contiguous()
-    u1 = ubar1.reshape(-1).contiguous()
-    xint = torch.empty((nang, nwno), dtype=f32, device=dev)
-    therm = torch.empty((nang, nwno), dtype=f32, device=dev)
-    scratch = torch.empty((lib.toon_spectrum_scratch_slots(), nlayer + 1,
-                           nwno), dtype=f32, device=dev)
-    c = controls
-    with torch.cuda.device(dev):
-        stream_handle = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.toon_spectrum_launch(
-            all_b.data_ptr(), taugas.data_ptr(), tauray.data_ptr(),
-            cld_opd.data_ptr(), cld_w0.data_ptr(), cld_g0.data_ptr(),
-            rf.data_ptr(), surf_reflect.data_ptr(), F0PI.data_ptr(),
-            u0.data_ptr(), u1.data_ptr(), scalars['cos_theta'].data_ptr(),
-            scalars['ptfac'].data_ptr(), xint.data_ptr(), therm.data_ptr(),
-            scratch.data_ptr(), nlayer, nwno, nang, c.single_phase,
-            c.multi_phase, c.toon_coefficients, c.frac_a, c.frac_b,
-            c.frac_c, c.constant_back, c.constant_forward, b_top,
-            int(stream), int(bool(delta_eddington)), int(bool(hard_surface)),
-            stream_handle)
-    check(code, 'spectrum_toon')
+    shapes = _geometry_shapes(fn, nlayer, nwno, ubar0, ubar1, _STRIPS,
+                              ('all_b',))
+    dev, (ct, pt) = _check_cuda(fn, named, shapes,
+                                (('cos_theta', cos_theta), ('ptfac', ptfac)))
+    ng, nt = ubar0.shape
+    u0, u1 = ubar0.reshape(-1), ubar1.reshape(-1)
+    xint, therm = _launch(
+        fn, 'toon_spectrum_launch', dev, 'toon_spectrum_scratch_slots',
+        nlayer, nwno, 2, ng * nt, lambda o, scr: (
+            *_ptrs(all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, rf,
+                   surf_reflect, F0PI, u0, u1, ct, pt, o[0], o[1], scr),
+            nlayer, nwno, ng * nt, *_controls_args(controls, b_top),
+            int(stream), int(bool(delta_eddington)),
+            int(bool(hard_surface))))
     spectrum_toon.launches += 1
     return xint.reshape(ng, nt, nwno), therm.reshape(ng, nt, nwno)
 
 
-spectrum_toon.launches = 0
+def reflected_toon(taugas, tauray, cld_opd, cld_w0, cld_g0, rf,
+                   surf_reflect, ubar0, ubar1, cos_theta, F0PI,
+                   controls: ScatteringControls = ScatteringControls(),
+                   b_top: float = 0.0, stream: int = 2,
+                   delta_eddington: bool = True):
+    """Reflected TOA intensity [ng, nt, nwno] from the six strips (K3).
+    Same contract as ``reflected_pallas_fused``; CPU tensors take the twin,
+    CUDA tensors launch the kernel or raise."""
+    fn = 'reflected_toon'
+    if _on_cpu(fn, taugas):
+        return reflected_toon_plain(
+            taugas, tauray, cld_opd, cld_w0, cld_g0, rf, surf_reflect,
+            ubar0, ubar1, cos_theta, F0PI, controls=controls, b_top=b_top,
+            stream=stream, delta_eddington=delta_eddington)
+    _check_controls(controls, stream)
+    nlayer, nwno = taugas.shape
+    _min_layers(fn, nlayer)
+    named = dict(zip(_STRIPS, (taugas, tauray, cld_opd, cld_w0, cld_g0, rf)),
+                 surf_reflect=surf_reflect, F0PI=F0PI, ubar0=ubar0,
+                 ubar1=ubar1)
+    shapes = _geometry_shapes(fn, nlayer, nwno, ubar0, ubar1, _STRIPS)
+    dev, (ct,) = _check_cuda(fn, named, shapes, (('cos_theta', cos_theta),))
+    ng, nt = ubar0.shape
+    u0, u1 = ubar0.reshape(-1), ubar1.reshape(-1)
+    (xint,) = _launch(
+        fn, 'toon_reflected_launch', dev, 'toon_reflected_scratch_slots',
+        nlayer, nwno, 1, ng * nt, lambda o, scr: (
+            *_ptrs(taugas, tauray, cld_opd, cld_w0, cld_g0, rf,
+                   surf_reflect, F0PI, u0, u1, ct, o[0], scr),
+            nlayer, nwno, ng * nt, *_controls_args(controls, b_top),
+            int(stream), int(bool(delta_eddington))))
+    reflected_toon.launches += 1
+    return xint.reshape(ng, nt, nwno)
+
+
+_THERM_STRIPS = ('taugas', 'tauray', 'cld_opd', 'cld_w0', 'cld_g0')
+
+
+def thermal_toon(all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, ptfac,
+                 surf_reflect, ubar1, hard_surface: bool = False):
+    """Thermal TOA flux [ng, nt, nwno] from the strips (K4).  Same contract
+    as ``thermal_pallas_fused``; CPU tensors take the twin, CUDA tensors
+    launch the kernel or raise."""
+    fn = 'thermal_toon'
+    if _on_cpu(fn, taugas):
+        return thermal_toon_plain(all_b, taugas, tauray, cld_opd, cld_w0,
+                                  cld_g0, ptfac, surf_reflect, ubar1,
+                                  hard_surface)
+    nlayer, nwno = taugas.shape
+    _min_layers(fn, nlayer)
+    named = dict(zip(_THERM_STRIPS, (taugas, tauray, cld_opd, cld_w0,
+                                     cld_g0)),
+                 all_b=all_b, surf_reflect=surf_reflect, ubar1=ubar1)
+    shapes = _geometry_shapes(fn, nlayer, nwno, None, ubar1, _THERM_STRIPS,
+                              ('all_b',))
+    dev, (pt,) = _check_cuda(fn, named, shapes, (('ptfac', ptfac),))
+    ng, nt = ubar1.shape
+    u1 = ubar1.reshape(-1)
+    (therm,) = _launch(
+        fn, 'toon_thermal_launch', dev, 'toon_thermal_scratch_slots',
+        nlayer, nwno, 1, ng * nt, lambda o, scr: (
+            *_ptrs(all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, pt,
+                   surf_reflect, u1, o[0], scr),
+            nlayer, nwno, ng * nt, int(bool(hard_surface))))
+    thermal_toon.launches += 1
+    return therm.reshape(ng, nt, nwno)
+
+
+def reflected_toon_props(dtau, tau, w0, cosb, gcos2, ftau_cld, ftau_ray,
+                         dtau_og, tau_og, w0_og, cosb_og, surf_reflect,
+                         ubar0, ubar1, cos_theta, F0PI,
+                         controls: ScatteringControls = ScatteringControls(),
+                         b_top: float = 0.0):
+    """Reflected TOA intensity [ng, nt, nwno] from a precomputed RTProps
+    (K5).  Same contract as ``reflected_pallas``: tau and tau_og are taken
+    as given (under ``test_mode`` they come from the overridden optical
+    depths), as are ftau_cld, ftau_ray and gcos2.  CPU tensors take the
+    twin, CUDA tensors launch the kernel or raise."""
+    fn = 'reflected_toon_props'
+    fields = (dtau, tau, w0, cosb, gcos2, ftau_cld, ftau_ray, dtau_og,
+              tau_og, w0_og, cosb_og)
+    if _on_cpu(fn, dtau):
+        return reflected_toon_props_plain(
+            *fields, surf_reflect, ubar0, ubar1, cos_theta, F0PI,
+            controls=controls, b_top=b_top)
+    _check_controls(controls)
+    nlayer, nwno = dtau.shape
+    _min_layers(fn, nlayer)
+    named = dict(zip(REFLECTED_FIELDS, fields), surf_reflect=surf_reflect,
+                 F0PI=F0PI, ubar0=ubar0, ubar1=ubar1)
+    layer = tuple(f for f in REFLECTED_FIELDS if f not in ('tau', 'tau_og'))
+    shapes = _geometry_shapes(fn, nlayer, nwno, ubar0, ubar1, layer,
+                              ('tau', 'tau_og'))
+    dev, (ct,) = _check_cuda(fn, named, shapes, (('cos_theta', cos_theta),))
+    ng, nt = ubar0.shape
+    u0, u1 = ubar0.reshape(-1), ubar1.reshape(-1)
+    (xint,) = _launch(
+        fn, 'toon_reflected_props_launch', dev,
+        'toon_reflected_scratch_slots', nlayer, nwno, 1, ng * nt,
+        lambda o, scr: (
+            *_ptrs(*fields, surf_reflect, F0PI, u0, u1, ct, o[0], scr),
+            nlayer, nwno, ng * nt, *_controls_args(controls, b_top)))
+    reflected_toon_props.launches += 1
+    return xint.reshape(ng, nt, nwno)
+
+
+def thermal_toon_props(all_b, dtau, w0, cosb, tau_top, surf_reflect, ubar1,
+                       hard_surface: bool = False):
+    """Thermal TOA flux [ng, nt, nwno] from the precomputed OG dtau, the
+    no-Raman w0, cosb and tau_top [nwno] (K6).  Same contract as
+    ``thermal_pallas``; CPU tensors take the twin, CUDA tensors launch the
+    kernel or raise."""
+    fn = 'thermal_toon_props'
+    if _on_cpu(fn, dtau):
+        return thermal_toon_props_plain(all_b, dtau, w0, cosb, tau_top,
+                                        surf_reflect, ubar1, hard_surface)
+    nlayer, nwno = dtau.shape
+    _min_layers(fn, nlayer)
+    named = dict(all_b=all_b, dtau=dtau, w0=w0, cosb=cosb, tau_top=tau_top,
+                 surf_reflect=surf_reflect, ubar1=ubar1)
+    shapes = _geometry_shapes(fn, nlayer, nwno, None, ubar1,
+                              ('dtau', 'w0', 'cosb'), ('all_b',))
+    dev, _ = _check_cuda(fn, named, shapes)
+    ng, nt = ubar1.shape
+    u1 = ubar1.reshape(-1)
+    (therm,) = _launch(
+        fn, 'toon_thermal_props_launch', dev, 'toon_thermal_scratch_slots',
+        nlayer, nwno, 1, ng * nt, lambda o, scr: (
+            *_ptrs(all_b, dtau, w0, cosb, tau_top, surf_reflect, u1, o[0],
+                   scr),
+            nlayer, nwno, ng * nt, int(bool(hard_surface))))
+    thermal_toon_props.launches += 1
+    return therm.reshape(ng, nt, nwno)
+
+
+for _wrapper in (spectrum_toon, reflected_toon, thermal_toon,
+                 reflected_toon_props, thermal_toon_props):
+    _wrapper.launches = 0

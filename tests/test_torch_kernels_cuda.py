@@ -9,9 +9,10 @@ every test worker collects the same tests).  Run on a GPU machine with
 port need not have).
 
 Tolerances, float32 on both sides with the same arithmetic order (the
-kernels are built with -fmad=false): the gather to rtol 1e-5; the Toon and
-SH spectrum kernels to max rel 1e-3 and median rel 1e-5 (the recursions
-amplify the few-ulp differences of expf/cumsum between the two).
+kernels are built with -fmad=false): the gather to rtol 1e-5; the Toon
+(K2-K6) and SH spectrum kernels to max rel 1e-3 and median rel 1e-5 (the
+recursions amplify the few-ulp differences of expf/cumsum between the
+two).
 """
 
 import dataclasses
@@ -25,7 +26,8 @@ from picaso_tpu_torch.opacities.cuda_interp import (interp_tau,
                                                     interp_tau_plain)
 from picaso_tpu_torch.opacities.db import _find_indices
 from picaso_tpu_torch.opacities.factory import synthetic_opacity_grid
-from picaso_tpu_torch.rt import cuda_sh
+from picaso_tpu_torch.optics import combine_optics
+from picaso_tpu_torch.rt import cuda_sh, cuda_toon
 from picaso_tpu_torch.rt.cuda_toon import spectrum_toon, spectrum_toon_plain
 from picaso_tpu_torch.rt.toon import ScatteringControls, blackbody
 
@@ -248,3 +250,117 @@ def test_sh_forward_kernels_match_plain_path(dev, stream):
         assert torch.isfinite(out[key]).all()
         rel = _rel(out[key], ref[key])
         assert rel.max().item() <= 8e-3 and rel.median().item() <= 1e-3, key
+
+
+def _split_inputs(dev, name, nwno, nang, test_mode=None):
+    """Arguments of the split Toon kernels (K3-K6): ragged nwno, nang
+    angles as [nang, 1] (or a 4 x 3 grid for 12); K5/K6 read the props of
+    combine_optics with ``test_mode``."""
+    (all_b, tg, tr, copd, cw0, cg0, rf, ptfac, surf, u0, u1, ct,
+     f0pi) = _toon_inputs(dev, nwno, nang=nang)
+    if nang == 12:
+        u0, u1 = u0.reshape(4, 3), u1.reshape(4, 3)
+    geom = [surf, u0, u1, ct, f0pi]
+    if name == 'reflected_toon':
+        return [tg, tr, copd, cw0, cg0, rf] + geom
+    if name == 'thermal_toon':
+        return [all_b, tg, tr, copd, cw0, cg0, ptfac, surf, u1]
+    props = combine_optics(tg, tr, copd, cw0, cg0, rf, test_mode=test_mode)
+    if name == 'reflected_toon_props':
+        return [getattr(props, f) for f in cuda_toon.REFLECTED_FIELDS] + geom
+    return [all_b, props.dtau_og, props.w0_no_raman, props.cosb_og,
+            (props.dtau_og[0] * ptfac).contiguous(), surf, u1]
+
+
+_SPLIT_CASES = {
+    'reflected_toon': [
+        dict(), dict(delta_eddington=False, b_top=0.1),
+        dict(controls=ScatteringControls(single_phase=0,
+                                         toon_coefficients=1)),
+        dict(controls=ScatteringControls(single_phase=1, multi_phase=1)),
+        dict(controls=ScatteringControls(single_phase=2, frac_c=1.5))],
+    'thermal_toon': [dict(), dict(hard_surface=True)],
+    'reflected_toon_props': [
+        dict(), dict(controls=ScatteringControls(single_phase=0))],
+    'thermal_toon_props': [dict(), dict(hard_surface=True)],
+}
+_SPLIT = list(_SPLIT_CASES)
+
+
+def _assert_matches_twin(out, ref, nwno, nang):
+    assert out.shape == ref.shape and out.shape[-1] == nwno
+    assert out.shape[0] * out.shape[1] == nang
+    assert torch.isfinite(out).all()
+    rel = _rel(out, ref)
+    assert rel.max().item() <= 1e-3
+    assert rel.median().item() <= 1e-5
+
+
+@pytest.mark.parametrize('nang', [1, 5, 12])
+@pytest.mark.parametrize('nwno', [300, 1000])
+@pytest.mark.parametrize('name', _SPLIT)
+def test_toon_split_kernels_match_twins(dev, name, nwno, nang):
+    wrapper = getattr(cuda_toon, name)
+    twin = getattr(cuda_toon, f'{name}_plain')
+    modes = [None, 'rayleigh', 'constant_tau'] if 'props' in name else [None]
+    for mode in modes:
+        args = _split_inputs(dev, name, nwno, nang, mode)
+        for kw in _SPLIT_CASES[name]:
+            before = wrapper.launches
+            out = wrapper(*args, **kw)
+            torch.cuda.synchronize()
+            assert wrapper.launches == before + 1
+            _assert_matches_twin(out, twin(*args, **kw), nwno, nang)
+
+
+@pytest.mark.parametrize('name', _SPLIT)
+def test_toon_split_wrappers_reject_bad_inputs(dev, name):
+    wrapper = getattr(cuda_toon, name)
+    args = _split_inputs(dev, name, 300, 5)
+    i = 2  # a [nlayer, nwno] input other than the one that picks the device
+    for bad_value, error in ((args[i].double(), TypeError),
+                             (args[i].t().contiguous().t(), ValueError),
+                             (args[i].cpu(), ValueError),
+                             (args[i][:, :200].contiguous(), ValueError)):
+        bad = list(args)
+        bad[i] = bad_value
+        with pytest.raises(error):
+            wrapper(*bad)
+    if name.startswith('reflected'):
+        with pytest.raises(NotImplementedError):
+            wrapper(*args, controls=ScatteringControls(multi_phase=2))
+
+
+_SPLIT_FORWARDS = {
+    'reflected': (dict(thermal=False, raman=1), ('reflected_toon',)),
+    'thermal': (dict(reflected=False), ('thermal_toon',)),
+    'unfused': (dict(fuse_optics=False),
+                ('reflected_toon_props', 'thermal_toon_props')),
+    # reflected-only, as the literature-validation runs use the test modes
+    # (scripts/run_dlugach.py): build_problem's clear top layer is floored
+    # to dtau 1e-10 there, which leaves the f32 thermal solve
+    # ill-conditioned
+    'constant_tau': (dict(test_mode='constant_tau', thermal=False),
+                     ('reflected_toon_props',)),
+}
+
+
+@pytest.mark.parametrize('case', list(_SPLIT_FORWARDS))
+def test_toon_split_forwards_match_plain_path(dev, case):
+    change, kernels = _SPLIT_FORWARDS[case]
+    scene, grid, config = pipeline.build_problem(
+        2000, production=False, device=dev, raman=change.get('raman', 2))
+    config = dataclasses.replace(config, **change)
+    names = ('spectrum_toon',) + tuple(_SPLIT)
+    before = {n: getattr(cuda_toon, n).launches for n in names}
+    out = pipeline.forward(scene, grid, config)
+    torch.cuda.synchronize()
+    for n in names:
+        assert getattr(cuda_toon, n).launches == before[n] + (n in kernels), n
+    ref = pipeline.forward(scene, grid,
+                           dataclasses.replace(config, use_kernels=False))
+    assert set(out) == set(ref)
+    for key in out:
+        assert torch.isfinite(out[key]).all()
+        rel = _rel(out[key], ref[key])
+        assert rel.max().item() <= 5e-3 and rel.median().item() <= 2e-4, key
