@@ -8,7 +8,10 @@ imports torch and numpy only: never jax, picaso_tpu or pandas.
 Device and dtype policy: float64 on the CPU (used by the tests, against the
 JAX package in x64 mode) and float32 on CUDA (the production path, where
 the hand-written kernels in ``csrc/`` run).  Every function takes its
-device from its tensor arguments or an explicit ``device=``.
+device from its tensor arguments or an explicit ``device=``; the functions
+that build data from nothing (``pipeline.build_problem``, the grid
+factories, the loader, ``convert``) default to ``'cuda'`` and raise where
+there is no card.
 """
 
 import torch
@@ -31,8 +34,19 @@ def default_dtype(device):
             else torch.float32)
 
 
+def checked_device(device):
+    """``torch.device(device)``; raises for a CUDA device on a machine
+    without one.  The data-building entry points default to ``'cuda'`` and
+    never fall back to the CPU: the caller asks for ``device='cpu'``."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(f'{device} requested but no CUDA device is '
+                           f'available; pass device="cpu" to run on the CPU')
+    return device
+
+
 def _exp_clip(dtype):
     return _EXP_CLIP32 if dtype == torch.float32 else _EXP_CLIP
 
 
-__all__ = ['default_dtype', '__version__']
+__all__ = ['default_dtype', 'checked_device', '__version__']

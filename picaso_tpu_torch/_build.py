@@ -43,6 +43,15 @@ _SIGNATURES = {
     # log_kappa, idx, w4, mixcol, out, nmol, npt, nwno, nlayer, ln10,
     # log_avo, stream
     'interp_tau_launch': [_P] * 5 + [_I] * 4 + [_F] * 2 + [_P],
+    # q, idx, w4, mixcol, qparams, out, nmol, npt, nwno, nlayer, ln10,
+    # log_avo, stream
+    'interp_tau_q_launch': [_P] * 6 + [_I] * 4 + [_F] * 2 + [_P],
+    # log_kappa, idx, w4, mixcol, out, nmol, npt, nwno, nlayer, ln10,
+    # log_avo, stream (probes/gather_probe.py)
+    'interp_tau_layer_inner_launch': [_P] * 5 + [_I] * 4 + [_F] * 2 + [_P],
+    # b, c, d, out, nlayer, ncol, staged, tile, stream
+    # (probes/sweep_layout_probe.py)
+    'sweep_layout_launch': [_P] * 4 + [_I] * 4 + [_P],
     # all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, rf, surf_reflect,
     # F0PI, ubar0, ubar1, cos_theta, ptfac, xint, thermal, scratch,
     # nlayer, nwno, nang, single_phase, multi_phase, toon_coefficients,

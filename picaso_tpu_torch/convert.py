@@ -3,8 +3,9 @@
 The inputs are plain numpy arrays (for example
 ``{k: np.asarray(v) for k, v in scene._asdict().items()}`` of a
 ``picaso_tpu`` SceneTensors) plus the static tuples, so nothing here
-imports jax.  The outputs are the port's objects on ``device`` in
-``dtype`` (default: float64 on the CPU, float32 on CUDA).
+imports jax.  The outputs are the port's objects on ``device`` (default
+``'cuda'``; raises where there is no card) in ``dtype`` (default: float64
+on the CPU, float32 on CUDA).
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import default_dtype
+from . import checked_device, default_dtype
 from .opacities.db import OpacityGrid, PTGrid
 from .pipeline import SceneTensors
 
@@ -26,14 +27,14 @@ def _tensor(name, value, device, dtype):
     return torch.tensor(np.asarray(value), dtype=dt, device=device)
 
 
-def grid_from_numpy(arrays, molecules, continuum_molecules, device='cpu',
+def grid_from_numpy(arrays, molecules, continuum_molecules, device='cuda',
                     dtype=None) -> OpacityGrid:
     """OpacityGrid from numpy arrays.
 
     ``arrays`` holds wno, log_kappa [nmol, npt, nwno], cont_opa, cia_temps
     and the PTGrid fields t_inv_grid, p_log_grid, nc_p, t_offset.
     """
-    device = torch.device(device)
+    device = checked_device(device)
     dtype = default_dtype(device) if dtype is None else dtype
 
     def t(name):
@@ -46,9 +47,9 @@ def grid_from_numpy(arrays, molecules, continuum_molecules, device='cpu',
                        continuum_molecules=tuple(continuum_molecules))
 
 
-def scene_from_numpy(arrays, device='cpu', dtype=None) -> SceneTensors:
+def scene_from_numpy(arrays, device='cuda', dtype=None) -> SceneTensors:
     """SceneTensors from a dict with one numpy array per field."""
-    device = torch.device(device)
+    device = checked_device(device)
     dtype = default_dtype(device) if dtype is None else dtype
     return SceneTensors(**{name: _tensor(name, arrays[name], device, dtype)
                            for name in SceneTensors._fields})

@@ -1,32 +1,36 @@
-"""Synthetic opacity grids for tests and the production-shaped problem.
+"""Synthetic opacity grids and databases for tests and the
+production-shaped problem.
 
-Port of the in-memory grid constructors of
-``picaso_tpu/opacities/factory.py``:
-deterministic pseudo-line bands with temperature/pressure broadening,
-spanning the ~1e-33..1e-18 cm^2/molecule range of real cross sections.
-Every random draw comes from ``np.random.default_rng(crc32(name) + seed)``
-exactly as in the JAX module, so both packages build the same tables.
+Port of the in-memory grid constructors and the sqlite writers
+(``build_synthetic_db``, ``slice_db``) of
+``picaso_tpu/opacities/factory.py``: deterministic pseudo-line bands with
+temperature/pressure broadening, spanning the ~1e-33..1e-18 cm^2/molecule
+range of real cross sections.  Every random draw comes from
+``np.random.default_rng(crc32(name) + seed)`` exactly as in the JAX
+module, so both packages build the same tables.
 
 The production (T, P) layout is read from the chemistry table bundled with
 the JAX package, by path and with numpy: importing ``picaso_tpu`` would
 import jax, and the port runs where neither jax nor pandas is installed.
-The sqlite database writer and the correlated-k tooling are not ported
-yet.
+The correlated-k tooling is not ported yet.
 """
 
 from __future__ import annotations
 
 import os
+import sqlite3
 import zlib
 
 import numpy as np
 import torch
 
-from .db import OpacityGrid, PTGrid
+from .. import checked_device
+from .db import OpacityGrid, PTGrid, _adapt_array, connect
 
 __all__ = ['synthetic_cross_sections', 'synthetic_opacity_grid',
            'default_pt_grid', 'production_pt_grid',
-           'synthetic_opacity_grid_ragged']
+           'synthetic_opacity_grid_ragged', 'build_synthetic_db',
+           'slice_db']
 
 _CHEM_1060 = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -68,12 +72,16 @@ def synthetic_cross_sections(molecule, wno, temps, pressures, seed=1234,
     return sigma
 
 
+def _cia_shape(mol, wno):
+    """The synthetic CIA spectral shape of continuum ``mol`` at 1000 K."""
+    rng = np.random.default_rng(zlib.crc32(mol.encode()))
+    return 10 ** (-8 + 2 * np.sin(wno / wno.max() * 6 + rng.uniform(0, 3)))
+
+
 def _continuum_table(wno, cia_temps, dtype):
     cont = np.zeros((len(CONTINUUM), len(cia_temps), len(wno)))
     for im, mol in enumerate(CONTINUUM):
-        rng = np.random.default_rng(zlib.crc32(mol.encode()))
-        shape = 10 ** (-8 + 2 * np.sin(wno / wno.max() * 6
-                                       + rng.uniform(0, 3)))
+        shape = _cia_shape(mol, wno)
         for it, T in enumerate(cia_temps):
             cont[im, it] = shape * (T / 1000.0) ** 0.5
     # the JAX module fills a table of the working dtype in place
@@ -82,8 +90,9 @@ def _continuum_table(wno, cia_temps, dtype):
 
 def synthetic_opacity_grid(wno, molecules=('H2O', 'CH4', 'CO', 'NH3'),
                            ntemp=8, npress=6, seed=1234,
-                           dtype=torch.float64, device='cpu') -> OpacityGrid:
+                           dtype=torch.float64, device='cuda') -> OpacityGrid:
     """Regular-grid OpacityGrid (factory.py:145-183 of the JAX package)."""
+    device = checked_device(device)
     np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
     wno = np.asarray(wno, np.float64)
     temps, pressures = default_pt_grid(ntemp, npress)
@@ -164,10 +173,11 @@ def _band_sigma_flat(molecule, wno, temps_flat, press_flat, device,
 
 def synthetic_opacity_grid_ragged(wno, molecules, seed=1234,
                                   dtype=torch.float64,
-                                  device='cpu') -> OpacityGrid:
+                                  device='cuda') -> OpacityGrid:
     """Production-shaped OpacityGrid: the ragged 1060-point PT grid with
     synthetic band-model opacities for ``molecules`` (factory.py:259-297
     of the JAX package)."""
+    device = checked_device(device)
     wno = np.asarray(wno, np.float64)
     temps_flat, press_flat, nc_p = production_pt_grid()
     log_kappa = torch.empty((len(molecules), len(temps_flat), len(wno)),
@@ -196,3 +206,134 @@ def synthetic_opacity_grid_ragged(wno, molecules, seed=1234,
                        cont_opa=dev(cont), cia_temps=dev(cia_temps),
                        molecules=tuple(molecules),
                        continuum_molecules=CONTINUUM)
+
+
+_SCHEMA = ('CREATE TABLE header (id INTEGER PRIMARY KEY, '
+           'pressure_unit VARCHAR, temperature_unit VARCHAR, '
+           'wavenumber_grid array, continuum_unit VARCHAR, '
+           'molecular_unit VARCHAR)',
+           'CREATE TABLE molecular (id INTEGER PRIMARY KEY, '
+           'molecule VARCHAR, ptid INTEGER, pressure FLOAT, '
+           'temperature FLOAT, opacity array)',
+           'CREATE TABLE continuum (id INTEGER PRIMARY KEY, '
+           'molecule VARCHAR, temperature FLOAT, opacity array)')
+_INSERT_HEADER = ('INSERT INTO header (pressure_unit, temperature_unit, '
+                  'wavenumber_grid, continuum_unit, molecular_unit) '
+                  'VALUES (?,?,?,?,?)')
+_INSERT_MOLECULAR = ('INSERT INTO molecular (molecule, ptid, pressure, '
+                     'temperature, opacity) VALUES (?,?,?,?,?)')
+_INSERT_CONTINUUM = ('INSERT INTO continuum (molecule, temperature, '
+                     'opacity) VALUES (?,?,?)')
+
+
+def _new_db(filename):
+    """A fresh database with the reference schema (opacity_factory.py:
+    622-740 of the reference): (connection, cursor)."""
+    sqlite3.register_adapter(np.ndarray, _adapt_array)
+    conn = sqlite3.connect(filename, detect_types=sqlite3.PARSE_DECLTYPES)
+    cur = conn.cursor()
+    for statement in _SCHEMA:
+        cur.execute(statement)
+    return conn, cur
+
+
+def build_synthetic_db(filename, wno, molecules=('H2O', 'CH4', 'CO', 'NH3'),
+                       continuum=('H2H2', 'H2He'), ntemp=8, npress=6,
+                       cia_temps=None, seed=1234, pt_layout='regular',
+                       device='cuda'):
+    """Write a reference-schema sqlite database with synthetic opacities
+    (factory.py:69-142 of the JAX package); returns ``filename``.
+
+    ``pt_layout='regular'``: the ``ntemp x npress`` grid of
+    :func:`default_pt_grid`, cross sections from the float64 numpy band
+    model (:func:`synthetic_cross_sections`, the JAX writer's numbers
+    exactly).  ``pt_layout='1060'``: the ragged production grid
+    (:func:`production_pt_grid`), one ``molecular`` row per flat grid
+    point, the float32 band model :func:`_band_sigma_flat` evaluated on
+    ``device`` (the JAX writer evaluates the same float32 arithmetic on its
+    device; the two agree to ~1e-4 dex).  The CIA rows use ``crc32`` seeds
+    as in the JAX package.
+    """
+    if pt_layout == '1060':
+        device = checked_device(device)
+        temps_flat, press_flat, _ = production_pt_grid()
+    else:
+        temps, pressures = default_pt_grid(ntemp, npress)
+    if cia_temps is None:
+        cia_temps = np.linspace(100, 3000, 10)
+    wno_arr = np.asarray(wno)
+
+    conn, cur = _new_db(filename)
+    cur.execute(_INSERT_HEADER, ('bar', 'kelvin',
+                                 np.asarray(wno, np.float64),
+                                 'cm-1 amagat-2', 'cm2/molecule'))
+    for mol in molecules:
+        if pt_layout == '1060':
+            log_sig = _band_sigma_flat(mol, wno_arr, temps_flat, press_flat,
+                                       device, seed=seed)
+            log_sig = log_sig.cpu().numpy().astype(np.float64)
+            for ptid0, (T, P) in enumerate(zip(temps_flat, press_flat)):
+                cur.execute(_INSERT_MOLECULAR,
+                            (mol, ptid0 + 1, float(P), float(T),
+                             10.0 ** log_sig[ptid0]))
+            continue
+        sigma = synthetic_cross_sections(mol, wno_arr, temps, pressures,
+                                         seed=seed)
+        ptid = 0
+        for it, T in enumerate(temps):
+            for ip, P in enumerate(pressures):
+                ptid += 1
+                cur.execute(_INSERT_MOLECULAR,
+                            (mol, ptid, float(P), float(T),
+                             sigma[it, ip].astype(np.float64)))
+    for mol in continuum:
+        shape = _cia_shape(mol, wno_arr)
+        for T in cia_temps:
+            cur.execute(_INSERT_CONTINUUM,
+                        (mol, float(T),
+                         (shape * (T / 1000.0) ** 0.5).astype(np.float64)))
+    conn.commit()
+    conn.close()
+    return filename
+
+
+def slice_db(src_db, dst_db, wave_range, molecules=None):
+    """Write a narrow-wavelength slice of a reference-schema opacity
+    database (factory.py:468-529 of the JAX package); returns ``dst_db``.
+
+    ``wave_range`` is [min, max] in micron (open interval); ``molecules``
+    optionally restricts the species kept.  Continuum rows are sliced on
+    the same window; the header keeps the source's units.
+    """
+    cur, conn = connect(src_db)
+    cur.execute('SELECT wavenumber_grid FROM header')
+    wno = np.asarray(cur.fetchone()[0], float)
+    cur.execute('SELECT pressure_unit, temperature_unit, continuum_unit, '
+                'molecular_unit FROM header')
+    units = cur.fetchone()
+    wave = 1e4 / wno
+    keep = (wave > min(wave_range)) & (wave < max(wave_range))
+    if not keep.any():
+        raise ValueError(f'no wavenumber points inside {wave_range} um')
+    idx = np.where(keep)[0]
+
+    out, oc = _new_db(dst_db)
+    oc.execute(_INSERT_HEADER, (units[0], units[1], wno[idx], units[2],
+                                units[3]))
+    if molecules is None:
+        cur.execute('SELECT DISTINCT molecule FROM molecular')
+        molecules = [x[0] for x in cur.fetchall()]
+    for mol in molecules:
+        cur.execute('SELECT ptid, pressure, temperature, opacity '
+                    'FROM molecular WHERE molecule = ?', (mol,))
+        rows = [(mol, ptid, p, t, np.asarray(op, float)[idx])
+                for ptid, p, t, op in cur.fetchall()]
+        oc.executemany(_INSERT_MOLECULAR, rows)
+    cur.execute('SELECT molecule, temperature, opacity FROM continuum')
+    crows = [(mol, t, np.asarray(op, float)[idx])
+             for mol, t, op in cur.fetchall()]
+    oc.executemany(_INSERT_CONTINUUM, crows)
+    out.commit()
+    out.close()
+    conn.close()
+    return dst_db

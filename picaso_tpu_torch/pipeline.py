@@ -8,7 +8,10 @@ fused or unfused optics and the ``test_mode`` optics.  With
 ``use_kernels`` (the default) the hot stages go through the hand-written
 kernels:
 
-* ``opacities.cuda_interp.interp_tau`` -- the molecular opacity gather;
+* ``opacities.cuda_interp.interp_tau`` -- the molecular opacity gather,
+  or ``interp_tau_q`` when the grid carries the int16 table
+  (``OpacityGrid.with_blocked_table(quantize=True)``,
+  ``build_problem(blocked='int16')``);
 * ``rt.cuda_toon.spectrum_toon`` -- Toon optics + reflected + thermal, when
   both are asked for (fused optics, no test mode);
 * ``rt.cuda_toon.reflected_toon`` / ``thermal_toon`` -- one of the two
@@ -41,12 +44,12 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from . import default_dtype
+from . import checked_device, default_dtype
 from . import disco as disco_mod
 from . import raman as raman_mod
 from .constants import PCONV
 from .opacities import assemble
-from .opacities.cuda_interp import interp_tau
+from .opacities.cuda_interp import interp_tau, interp_tau_q
 from .opacities.db import (OpacityGrid, _find_indices, interp_molecular,
                            nearest_continuum)
 from .optics import combine_optics
@@ -142,11 +145,19 @@ def _check_config(config: SpectrumConfig):
         cuda_toon._check_controls(config.controls, config.stream)
 
 
+def _quantized(grid: OpacityGrid):
+    return (grid.log_kappa_blocked is not None
+            and grid.log_kappa_blocked.dtype == torch.int16)
+
+
 def gather_args(scene: SceneTensors, grid: OpacityGrid,
                 config: SpectrumConfig):
-    """The gather kernel's arguments (log_kappa, idx, t_w, p_w, mixcol):
-    neighbour rows and weights of every layer, and the mix * colden / mmw
-    column weight of every table molecule (zero for unused ones)."""
+    """The arguments of the gather kernel the grid routes to: (log_kappa,
+    idx, t_w, p_w, mixcol) for ``interp_tau``, or (q, idx, t_w, p_w,
+    mixcol, qparams) for ``interp_tau_q`` when the grid carries the int16
+    table (picaso_tpu/pipeline.py:165-168): neighbour rows and weights of
+    every layer, and the mix * colden / mmw column weight of every table
+    molecule (zero for unused ones)."""
     nlayer = scene.tlayer.shape[0]
     rows = [dict(config.mix_index)[grid.molecules[i]]
             for i in config.mol_indices]
@@ -156,14 +167,21 @@ def gather_args(scene: SceneTensors, grid: OpacityGrid,
     mixcol = torch.zeros((len(grid.molecules), nlayer),
                          dtype=scene.mix.dtype, device=scene.mix.device)
     mixcol[list(config.mol_indices)] = scene.mix[rows] * colw
+    if _quantized(grid):
+        return (grid.log_kappa_blocked, idx, t_w, p_w, mixcol,
+                grid.blocked_qparams)
     return grid.log_kappa, idx, t_w, p_w, mixcol
 
 
 def gather_taugas(scene: SceneTensors, grid: OpacityGrid,
                   config: SpectrumConfig):
-    """The molecular-opacity stage alone: taugas [nlayer, nwno]."""
+    """The molecular-opacity stage alone: taugas [nlayer, nwno].  With
+    ``use_kernels`` the gather kernel of :func:`gather_args` (K8 on an
+    int16 grid, else K1); without, the plain float path on ``log_kappa``,
+    as in the JAX package."""
     if config.use_kernels:
-        return interp_tau(*gather_args(scene, grid, config))
+        gather = interp_tau_q if _quantized(grid) else interp_tau
+        return gather(*gather_args(scene, grid, config))
     rows = [dict(config.mix_index)[grid.molecules[i]]
             for i in config.mol_indices]
     kappa = interp_molecular(grid, scene.tlayer, scene.player / PCONV)
@@ -578,9 +596,9 @@ def stellar_shifts_5700k(wno, raman_db):
     return shifts
 
 
-def build_problem(nwno, nlevel=91, production=True, device='cpu',
+def build_problem(nwno, nlevel=91, production=True, device='cuda',
                   dtype=None, raman=2, reflected=True, thermal=True,
-                  test_mode=None):
+                  test_mode=None, blocked='f32'):
     """Scene + grid + config at the requested size, as ``bench.py``'s
     ``build_problem`` builds them for the JAX package.
 
@@ -592,11 +610,17 @@ def build_problem(nwno, nlevel=91, production=True, device='cpu',
     raman: 2 none (the default here, as in bench.py); 1 Pollack (the row
     from ``raman_fortran.txt``); 0 Oklopcic (shift ratios of a 5700 K
     blackbody star, :func:`stellar_shifts_5700k`).  reflected, thermal and
-    test_mode go into the config as given.
+    test_mode go into the config as given.  blocked='int16' attaches the
+    int16 fixed-point table (``with_blocked_table(quantize=True)``), which
+    ``forward`` then gathers from (bench.py:103,141); 'f32' gathers from
+    the float table.  ``device`` defaults to the card and raises where
+    there is none.
     """
     from .opacities import factory
 
-    device = torch.device(device)
+    if blocked not in ('f32', 'int16'):
+        raise ValueError(f"blocked must be 'f32' or 'int16', got {blocked!r}")
+    device = checked_device(device)
     dtype = default_dtype(device) if dtype is None else dtype
     wno = np.linspace(300.0, 33000.0, nwno)  # ~0.3-33 um
     if production:
@@ -623,6 +647,7 @@ def build_problem(nwno, nlevel=91, production=True, device='cpu',
         dtype=dtype, device=device)
     config = dataclasses.replace(config, reflected=reflected,
                                  thermal=thermal, test_mode=test_mode)
+    grid = grid.with_blocked_table(quantize=(blocked == 'int16'))
     return with_raman(scene, grid, config, raman)
 
 

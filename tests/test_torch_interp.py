@@ -41,7 +41,7 @@ def _grid_arrays(grid):
 
 def _port_grid(jgrid):
     return grid_from_numpy(_grid_arrays(jgrid), jgrid.molecules,
-                           jgrid.continuum_molecules)
+                           jgrid.continuum_molecules, device='cpu')
 
 
 @pytest.fixture(scope='module')
@@ -138,7 +138,7 @@ def test_ragged_grid_matches_jax(ragged_grid):
     jgrid = ragged_grid
     wno = np.asarray(jgrid.wno)
     tgrid = tfactory.synthetic_opacity_grid_ragged(
-        wno, molecules=jgrid.molecules, dtype=torch.float64)
+        wno, molecules=jgrid.molecules, dtype=torch.float64, device='cpu')
     assert tgrid.log_kappa.shape == (3, 1060, 256)
     np.testing.assert_allclose(tgrid.log_kappa.numpy(),
                                np.asarray(jgrid.log_kappa), rtol=0,
@@ -157,7 +157,8 @@ def test_ragged_grid_matches_jax(ragged_grid):
 def test_regular_grid_matches_jax(regular_grid):
     jgrid = regular_grid
     tgrid = tfactory.synthetic_opacity_grid(
-        np.asarray(jgrid.wno), molecules=jgrid.molecules, ntemp=6, npress=5)
+        np.asarray(jgrid.wno), molecules=jgrid.molecules, ntemp=6, npress=5,
+        device='cpu')
     for name in ('wno', 'log_kappa', 'cont_opa', 'cia_temps'):
         np.testing.assert_array_equal(getattr(tgrid, name).numpy(),
                                       np.asarray(getattr(jgrid, name)))

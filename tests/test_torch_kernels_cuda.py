@@ -9,10 +9,13 @@ every test worker collects the same tests).  Run on a GPU machine with
 port need not have).
 
 Tolerances, float32 on both sides with the same arithmetic order (the
-kernels are built with -fmad=false): the gather to rtol 1e-5; the Toon
-(K2-K6) and SH spectrum kernels to max rel 1e-3 and median rel 1e-5 (the
-recursions amplify the few-ulp differences of expf/cumsum between the
-two).
+kernels are built with -fmad=false): the gathers (K1, K8, the gather
+probe's layer-inner kernel) and the sweep probe's two layouts to rtol
+1e-5; the Toon (K2-K6) and SH spectrum kernels to max rel 1e-3 and median
+rel 1e-5 (the recursions amplify the few-ulp differences of expf/cumsum
+between the two).  The int16 forward is held against the float plain path
+within the JAX package's int16 gate (max rel 5e-3, median 4e-3,
+scripts/tpu_parity.py).
 """
 
 import dataclasses
@@ -23,10 +26,14 @@ import torch
 
 from picaso_tpu_torch import pipeline
 from picaso_tpu_torch.opacities.cuda_interp import (interp_tau,
-                                                    interp_tau_plain)
+                                                    interp_tau_plain,
+                                                    interp_tau_q,
+                                                    interp_tau_q_plain,
+                                                    quantize_table)
 from picaso_tpu_torch.opacities.db import _find_indices
 from picaso_tpu_torch.opacities.factory import synthetic_opacity_grid
 from picaso_tpu_torch.optics import combine_optics
+from picaso_tpu_torch.probes import gather_probe, sweep_layout_probe
 from picaso_tpu_torch.rt import cuda_sh, cuda_toon
 from picaso_tpu_torch.rt.cuda_toon import spectrum_toon, spectrum_toon_plain
 from picaso_tpu_torch.rt.toon import ScatteringControls, blackbody
@@ -364,3 +371,94 @@ def test_toon_split_forwards_match_plain_path(dev, case):
         assert torch.isfinite(out[key]).all()
         rel = _rel(out[key], ref[key])
         assert rel.max().item() <= 5e-3 and rel.median().item() <= 2e-4, key
+
+
+@pytest.mark.parametrize('nwno', [256, 700, 37])
+def test_interp_q_kernel_matches_twin(dev, nwno):
+    log_kappa, idx, t_w, p_w, mixcol = _gather_inputs(dev, nwno)
+    q, qp = quantize_table(log_kappa)
+    before = interp_tau_q.launches
+    out = interp_tau_q(q, idx, t_w, p_w, mixcol, qparams=qp)
+    torch.cuda.synchronize()
+    assert interp_tau_q.launches == before + 1
+    ref = interp_tau_q_plain(q, idx, t_w, p_w, mixcol, qp)
+    assert out.shape == ref.shape == (12, nwno)
+    assert _rel(out, ref).max().item() <= 1e-5
+    # the int16 gather stays within its quantization of the float one
+    assert _rel(out, interp_tau(log_kappa, idx, t_w, p_w, mixcol)
+                ).max().item() <= 5e-3
+
+
+def test_interp_q_wrapper_rejects_bad_inputs(dev):
+    log_kappa, idx, t_w, p_w, mixcol = _gather_inputs(dev, 300)
+    q, qp = quantize_table(log_kappa)
+    with pytest.raises(TypeError):
+        interp_tau_q(log_kappa, idx, t_w, p_w, mixcol, qparams=qp)
+    with pytest.raises(ValueError):
+        interp_tau_q(q, idx, t_w, p_w, mixcol)
+    with pytest.raises(ValueError):
+        interp_tau_q(q, idx, t_w, p_w, mixcol, qparams=qp.cpu())
+
+
+def test_quantize_on_card_equals_cpu(dev):
+    log_kappa = _gather_inputs(dev, 700)[0]
+    q, qp = quantize_table(log_kappa)
+    q_cpu, qp_cpu = quantize_table(log_kappa.cpu())
+    assert q.device.type == 'cuda'
+    assert torch.equal(q.cpu(), q_cpu) and torch.equal(qp.cpu(), qp_cpu)
+
+
+def test_int16_forward_takes_k8(dev):
+    scene, grid, config = pipeline.build_problem(2000, production=False,
+                                                 device=dev, blocked='int16')
+    before = (interp_tau.launches, interp_tau_q.launches,
+              spectrum_toon.launches)
+    out = pipeline.forward(scene, grid, config)
+    torch.cuda.synchronize()
+    assert (interp_tau.launches, interp_tau_q.launches,
+            spectrum_toon.launches) == (before[0], before[1] + 1,
+                                        before[2] + 1)
+    ref = pipeline.forward(scene, grid,
+                           dataclasses.replace(config, use_kernels=False))
+    for key in ('albedo', 'thermal', 'transit_depth'):
+        assert torch.isfinite(out[key]).all()
+        rel = _rel(out[key], ref[key])
+        assert rel.max().item() <= 5e-3 and rel.median().item() <= 4e-3, key
+
+
+@pytest.mark.parametrize('slots', ['raw', 'stabilized', 'parity',
+                                   'constant'])
+def test_layer_inner_kernel_matches_twin(dev, slots):
+    scene, grid, config = pipeline.build_problem(2000, production=False,
+                                                 device=dev)
+    log_kappa, mixcol, inputs = gather_probe.slot_inputs(scene, grid,
+                                                         config)
+    idx, w4 = inputs[slots]
+    kernel = gather_probe.interp_tau_layer_inner
+    before = kernel.launches
+    out = kernel(log_kappa, idx, w4, mixcol)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    ref = gather_probe.interp_tau_layer_inner_plain(log_kappa, idx, w4,
+                                                    mixcol)
+    assert _rel(out, ref).max().item() <= 1e-5
+    if slots != 'constant':
+        k1 = interp_tau(*pipeline.gather_args(scene, grid, config))
+        assert _rel(out, k1).max().item() <= 1e-4
+
+
+@pytest.mark.parametrize('layout', ['rows', 32, 64, 128])
+def test_sweep_kernels_match_twin(dev, layout):
+    b, c, d = sweep_layout_probe.sweep_inputs(90, 1000, dev, seed=5)
+    if layout == 'rows':
+        kernel, kw = sweep_layout_probe.sweep_rows, {}
+    else:
+        kernel, kw = sweep_layout_probe.sweep_staged, dict(tile=layout)
+    before = kernel.launches
+    out = kernel(b, c, d, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    ref = sweep_layout_probe.sweep_plain(b, c, d)
+    assert torch.isfinite(out).all()
+    assert _rel(out, ref).max().item() <= 1e-5
+

@@ -28,6 +28,8 @@ from picaso_tpu_torch import disco as tdisco
 from picaso_tpu_torch import pipeline as tpipeline
 from picaso_tpu_torch import raman as traman
 from picaso_tpu_torch.convert import grid_from_numpy, scene_from_numpy
+from picaso_tpu_torch.opacities import db as tdb
+from picaso_tpu_torch.opacities import factory as tfactory
 from picaso_tpu_torch.opacities.assemble import ContinuumSpec
 from picaso_tpu_torch.opacities.cuda_interp import interp_tau
 from picaso_tpu_torch.rt import cuda_sh, cuda_toon
@@ -74,9 +76,10 @@ def _port_problem(jgrid, jscene, jconfig):
               for k in ('wno', 'log_kappa', 'cont_opa', 'cia_temps')}
     arrays.update({k: np.asarray(v) for k, v in jgrid.pt._asdict().items()})
     grid = grid_from_numpy(arrays, jgrid.molecules,
-                           jgrid.continuum_molecules)
+                           jgrid.continuum_molecules, device='cpu')
     scene = scene_from_numpy({k: np.asarray(v)
-                              for k, v in jscene._asdict().items()})
+                              for k, v in jscene._asdict().items()},
+                             device='cpu')
     config = tpipeline.SpectrumConfig(
         mol_indices=jconfig.mol_indices,
         continuum_specs=tuple(ContinuumSpec(*s)
@@ -366,7 +369,8 @@ def test_forward_batch_matches_jax(jax_problem, geometry):
                                    dataclasses.replace(jconfig, **change))
     grid, _, config = _port_problem(jgrid, jscenes[0], jconfig)
     scenes = [scene_from_numpy({k: np.asarray(v)
-                                for k, v in s._asdict().items()})
+                                for k, v in s._asdict().items()},
+                               device='cpu')
               for s in jscenes]
     batch = tpipeline.stack_scenes(scenes)
     assert batch.tlevel.shape == (3, NLEVEL)
@@ -419,7 +423,8 @@ def test_bad_rt_options_raise(jax_problem, change):
 def test_build_problem_shapes():
     """build_problem mirrors bench.py: 5 disk angles from num_gangle=10,
     90 layers, transmission on; small regular grid here."""
-    scene, grid, config = tpipeline.build_problem(64, production=False)
+    scene, grid, config = tpipeline.build_problem(64, production=False,
+                                                  device='cpu')
     assert scene.ubar0.shape == (5, 1)
     assert scene.tlayer.shape == (90,)
     assert grid.log_kappa.shape == (6, 150, 64)
@@ -436,7 +441,7 @@ def test_build_problem_raman_modes(raman):
     from the neutral 0.99999 and the forward stays finite."""
     scene, grid, config = tpipeline.build_problem(64, nlevel=21,
                                                   production=False,
-                                                  raman=raman)
+                                                  raman=raman, device='cpu')
     assert config.raman == raman
     wno = grid.wno.numpy()
     if raman == 1:
@@ -454,3 +459,26 @@ def test_build_problem_raman_modes(raman):
     assert rf.shape == (20, 64) and (rf < 0.99999).any()
     out = tpipeline.forward(scene, grid, config)
     assert all(torch.isfinite(v).all() for v in out.values())
+
+
+_DATA_ENTRY_POINTS = {
+    'build_problem': lambda: tpipeline.build_problem(64, production=False),
+    'synthetic_opacity_grid': lambda: tfactory.synthetic_opacity_grid(
+        np.linspace(1000.0, 2000.0, 8)),
+    'synthetic_opacity_grid_ragged':
+        lambda: tfactory.synthetic_opacity_grid_ragged(
+            np.linspace(1000.0, 2000.0, 8), ('H2O',)),
+    'grid_from_numpy': lambda: grid_from_numpy({}, (), ()),
+    'scene_from_numpy': lambda: scene_from_numpy({}),
+    'load_opacity_db': lambda: tdb.load_opacity_db('missing.db'),
+}
+
+
+@pytest.mark.parametrize('entry', list(_DATA_ENTRY_POINTS))
+def test_data_entry_points_default_to_the_card(entry):
+    """The entry points that build data run on the card unless the caller
+    asks for the CPU: without a card they raise, never falling back."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present, so the default runs there')
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        _DATA_ENTRY_POINTS[entry]()
