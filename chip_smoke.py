@@ -22,11 +22,13 @@ Phases (any failure raises, so the exit code is nonzero):
  5. spectrum kernel vs its twin at the production shape
     (max rel <= 1e-3, median rel <= 1e-5)
  6. forward on 4 temperature-perturbed scenes: finite outputs, each
-    kernel launched exactly once per forward
+    kernel launched exactly once per forward, each forward's peak device
+    memory (as in phases 10, 14 and 19)
  7. nwno = 5000 oracle: the plain path in float64 against the kernel path
     in float32 (max rel <= 5e-3, median rel <= 2e-4, TPU_PARITY.json's
     forward tolerances)
- 8. timings: forward with kernels vs the plain path, each kernel vs twin
+ 8. timings: forward with kernels vs the plain path, each kernel vs twin,
+    and K2's two launches apart (stage A with the thermal pass, stage B)
  9. each SH kernel (reflected/thermal at 4 and 2 streams) vs its twin at
     the production shape (max rel <= 1e-3, median rel <= 1e-5)
 10. SH4 and SH2 forwards on the 4 perturbed scenes: finite outputs, each
@@ -41,7 +43,8 @@ Phases (any failure raises, so the exit code is nonzero):
     (reflected) with Pollack Raman, K4 (thermal) without and with a hard
     surface, K5/K6 (from RTProps) on the unfused props and on the
     test_mode='rayleigh' props (max rel <= 1e-3, median rel <= 1e-5);
-    each timed against its twin
+    each timed against its twin, K3's and K5's two stages apart; then K3
+    alone at the phase curve's 36 angles against its twin, timed
 14. the split Toon paths, counted over 4 forwards each: reflected-only
     (K1 + K3), thermal-only (K1 + K4), unfused optics (K1 + K5 + K6), and
     forward_batch of 4 phase-curve scenes at 0, 45, 90, 120 degrees
@@ -169,6 +172,36 @@ def cuda_ms(fn, n):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def stages_ms(kern, args, kw, n):
+    """Mean device time of each stage (A, B) of a two-stage reflected
+    kernel over n calls, by CUDA events recorded before, between (the
+    wrapper's ``split_event``) and after its two launches."""
+    kern(*args, **kw)
+    torch.cuda.synchronize()
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+              for _ in range(n)]
+    for start, mid, end in events:
+        start.record()
+        kern(*args, split_event=mid, **kw)
+        end.record()
+    torch.cuda.synchronize()
+    return [sum(e[i].elapsed_time(e[i + 1]) for e in events) / n
+            for i in (0, 1)]
+
+
+def forwards_with_peaks(label, fn, items):
+    """[fn(x) for x in items], each call's peak device memory
+    (max_memory_allocated after a reset) logged under ``label``."""
+    outs, peaks = [], []
+    for x in items:
+        torch.cuda.reset_peak_memory_stats()
+        outs.append(fn(x))
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated())
+    log(f'     {label}: peak bytes per forward {peaks}')
+    return outs
 
 
 def wall_ms(fn, n, passes=2):
@@ -385,8 +418,8 @@ def main():
     # phase 6: the main path, counted
     scenes = perturbed(scene, N_SCENES)
     reset_counts()
-    outs = [pipeline.forward(s, grid, config) for s in scenes]
-    torch.cuda.synchronize()
+    outs = forwards_with_peaks(
+        '[6] Toon', lambda s: pipeline.forward(s, grid, config), scenes)
     launches = counts()
     log(f'[6] {N_SCENES} forwards, launches {launches}')
     check_counts(launches, ('interp_tau', 'spectrum_toon'))
@@ -431,8 +464,11 @@ def main():
     k1_plain_ms = cuda_ms(lambda: interp_tau_plain(*g_args), 5)
     k2_ms = cuda_ms(lambda: spectrum_toon(*s_args, **s_kw), 10)
     k2_plain_ms = cuda_ms(lambda: spectrum_toon_plain(*s_args, **s_kw), 3)
+    k2_stages = stages_ms(spectrum_toon, s_args, s_kw, 10)
     log(f'    interp_tau {k1_ms:.3f} ms vs twin {k1_plain_ms:.3f} ms; '
-        f'spectrum_toon {k2_ms:.3f} ms vs twin {k2_plain_ms:.3f} ms')
+        f'spectrum_toon {k2_ms:.3f} ms (stage A + thermal '
+        f'{k2_stages[0]:.3f}, stage B {k2_stages[1]:.3f}) vs twin '
+        f'{k2_plain_ms:.3f} ms')
 
     # phase 9: SH kernels vs twins at the production shape
     sh = {}
@@ -469,8 +505,9 @@ def main():
     for stream in (4, 2):
         cfg = dataclasses.replace(config, rt_method=1, stream=stream)
         reset_counts()
-        outs = [pipeline.forward(s, grid, cfg) for s in scenes]
-        torch.cuda.synchronize()
+        outs = forwards_with_peaks(
+            f'[10] SH{stream}', lambda s: pipeline.forward(s, grid, cfg),
+            scenes)
         got = counts()
         log(f'[10] SH{stream}: {N_SCENES} forwards, launches {got}')
         check_counts(got, ('interp_tau', f'reflected_sh{stream}',
@@ -553,9 +590,32 @@ def main():
                        'ms': cuda_ms(lambda: kern(*args, **kw), 10),
                        'plain_ms': cuda_ms(lambda: twin(*args, **kw), 3),
                        'bytes': sizes[0][0], 'ops': sizes[0][1]}
-        log(f'     {name} {split[name]["ms"]:.3f} ms vs twin '
+        if name.startswith('reflected'):
+            split[name]['stages_ms'] = stages_ms(kern, args, kw, 10)
+        log(f'     {name} {split[name]["ms"]:.3f} ms '
+            f'(stages {split[name].get("stages_ms")}) vs twin '
             f'{split[name]["plain_ms"]:.3f} ms')
     del runs, props
+    # K3 alone at the phase curve's 6 x 6 disk (36 angles, 45 degrees)
+    scene_36 = pipeline.with_geometry(scene_p, disco.make_geometry(
+        math.radians(45.0), num_gangle=6, num_tangle=6))
+    r36_args, r36_kw = pipeline.reflected_args(
+        scene_36, config_p, *pipeline.rt_sources(scene_36, grid, config_p))
+    out = cuda_toon.reflected_toon(*r36_args, **r36_kw)
+    ref = cuda_toon.reflected_toon_plain(*r36_args, **r36_kw)
+    torch.cuda.synchronize()
+    err = check_twin('reflected_toon 36 angles', out, ref)
+    del out, ref
+    split['reflected_toon'].update(
+        phase_curve_max_abs_err=err,
+        phase_curve_ms=cuda_ms(
+            lambda: cuda_toon.reflected_toon(*r36_args, **r36_kw), 10),
+        phase_curve_stages_ms=stages_ms(cuda_toon.reflected_toon, r36_args,
+                                        r36_kw, 10))
+    log(f'     reflected_toon at 36 angles '
+        f'{split["reflected_toon"]["phase_curve_ms"]:.3f} ms (stages '
+        f'{split["reflected_toon"]["phase_curve_stages_ms"]})')
+    del r36_args
 
     # phase 14: the split Toon paths, counted
     paths = {
@@ -573,8 +633,9 @@ def main():
     }
     for label, (cfg, path_scenes, expected, keys) in paths.items():
         reset_counts()
-        outs = [pipeline.forward(s, grid, cfg) for s in path_scenes]
-        torch.cuda.synchronize()
+        outs = forwards_with_peaks(
+            f'[14] {label}', lambda s: pipeline.forward(s, grid, cfg),
+            path_scenes)
         got = counts()
         log(f'[14] {label}: {N_SCENES} forwards, launches {got}')
         check_counts(got, expected)
@@ -591,8 +652,10 @@ def main():
             math.radians(deg), num_gangle=6, num_tangle=6))
         for s, deg in zip(perturbed(scene_p, N_SCENES), PHASES_DEG)])
     reset_counts()
-    batch_out = pipeline.forward_batch(phase_batch, grid, refl_cfg)
-    torch.cuda.synchronize()
+    (batch_out,) = forwards_with_peaks(
+        '[14] phase curve', lambda b: pipeline.forward_batch(b, grid,
+                                                             refl_cfg),
+        [phase_batch])
     got = counts()
     log(f'[14] phase curve at {PHASES_DEG} deg through forward_batch '
         f'({phase_batch.ubar0.shape[1]} x {phase_batch.ubar0.shape[2]} '
@@ -679,8 +742,8 @@ def main():
 
     # phase 19: the int16 path, counted
     reset_counts()
-    outs = [pipeline.forward(s, g16, config) for s in scenes]
-    torch.cuda.synchronize()
+    outs = forwards_with_peaks(
+        '[19] int16', lambda s: pipeline.forward(s, g16, config), scenes)
     got = counts()
     log(f'[19] int16 table: {N_SCENES} forwards, launches {got}')
     check_counts(got, ('interp_tau_q', 'spectrum_toon'))
@@ -805,7 +868,7 @@ def main():
                            plain_ms=k1_plain_ms, bytes=k1_bytes, ops=k1_ops),
         'spectrum_toon': dict(max_abs_err=k2_abs, ms=k2_ms,
                               plain_ms=k2_plain_ms, bytes=k2_bytes,
-                              ops=k2_ops),
+                              ops=k2_ops, stages_ms=k2_stages),
         **sh, **split,
         'interp_tau_q': dict(max_abs_err=k8_abs, ms=k8_ms,
                              plain_ms=k8_plain_ms, bytes=k8_bytes,

@@ -56,15 +56,15 @@ _SIGNATURES = {
     # F0PI, ubar0, ubar1, cos_theta, ptfac, xint, thermal, scratch,
     # nlayer, nwno, nang, single_phase, multi_phase, toon_coefficients,
     # frac_a, frac_b, frac_c, constant_back, constant_forward, b_top,
-    # stream, delta_eddington, hard_surface, cuda stream
+    # stream, delta_eddington, hard_surface, stage (0: A, 1: B), cuda stream
     'toon_spectrum_launch': [_P] * 16 + [_I] * 6 + [_F] * 6
-                            + [_I] * 3 + [_P],
+                            + [_I] * 4 + [_P],
     # taugas, tauray, cld_opd, cld_w0, cld_g0, rf, surf_reflect, F0PI,
     # ubar0, ubar1, cos_theta, xint, scratch, nlayer, nwno, nang,
     # single_phase, multi_phase, toon_coefficients, frac_a, frac_b, frac_c,
     # constant_back, constant_forward, b_top, stream, delta_eddington,
-    # cuda stream
-    'toon_reflected_launch': [_P] * 13 + [_I] * 6 + [_F] * 6 + [_I] * 2
+    # stage, cuda stream
+    'toon_reflected_launch': [_P] * 13 + [_I] * 6 + [_F] * 6 + [_I] * 3
                              + [_P],
     # all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, ptfac, surf_reflect,
     # ubar1, thermal, scratch, nlayer, nwno, nang, hard_surface, cuda stream
@@ -73,15 +73,17 @@ _SIGNATURES = {
     # w0_og, cosb_og, surf_reflect, F0PI, ubar0, ubar1, cos_theta, xint,
     # scratch, nlayer, nwno, nang, single_phase, multi_phase,
     # toon_coefficients, frac_a, frac_b, frac_c, constant_back,
-    # constant_forward, b_top, cuda stream
-    'toon_reflected_props_launch': [_P] * 18 + [_I] * 6 + [_F] * 6 + [_P],
+    # constant_forward, b_top, stage, cuda stream
+    'toon_reflected_props_launch': [_P] * 18 + [_I] * 6 + [_F] * 6 + [_I]
+                                   + [_P],
     # all_b, dtau, w0, cosb, tau_top, surf_reflect, ubar1, thermal, scratch,
     # nlayer, nwno, nang, hard_surface, cuda stream
     'toon_thermal_props_launch': [_P] * 9 + [_I] * 4 + [_P],
     # number of [nlayer + 1, nwno] scratch slots each Toon kernel expects
-    'toon_spectrum_scratch_slots': [],
-    'toon_reflected_scratch_slots': [],
-    'toon_thermal_scratch_slots': [],
+    # at nang disk angles
+    'toon_spectrum_scratch_slots': [_I],
+    'toon_reflected_scratch_slots': [_I],
+    'toon_thermal_scratch_slots': [_I],
     # stream, taugas, tauray, cld_opd, cld_w0, cld_g0, rf, surf_reflect,
     # F0PI, ubar0, ubar1, cos_theta, out, scratch, nlayer, nwno, nang,
     # delta_eddington, w_single_form, w_multi_form, psingle_form,

@@ -1,12 +1,13 @@
 // Toon89 reflected and thermal spectra for every wavenumber column.
 //
-// Replaces five TPU kernels of picaso_tpu/rt/pallas_toon.py, one
-// __global__ kernel each, all built from the same column routines:
-//   toon_spectrum_kernel       <- spectrum_pallas_fused (reflected + thermal)
-//   toon_reflected_kernel<0>   <- reflected_pallas_fused
-//   toon_thermal_kernel<0>     <- thermal_pallas_fused
-//   toon_reflected_kernel<1>   <- reflected_pallas (precomputed RTProps)
-//   toon_thermal_kernel<1>     <- thermal_pallas (precomputed OG optics)
+// Replaces five TPU kernels of picaso_tpu/rt/pallas_toon.py, all built from
+// the same column routines (the reflected ones in two launches, stage A then
+// stage B):
+//   K2 spectrum_pallas_fused  <- toon_spectrum_kernel + reflected_angles_kernel
+//   K3 reflected_pallas_fused <- toon_reflected_kernel<0> + reflected_angles_kernel
+//   K4 thermal_pallas_fused   <- toon_thermal_kernel<0>
+//   K5 reflected_pallas       <- toon_reflected_kernel<1> + reflected_angles_kernel
+//   K6 thermal_pallas         <- toon_thermal_kernel<1>
 // (_optics_block, _reflected_core, _thermal_core, _solve_two_stream_scratch).
 // Per wavenumber column the reflected pass takes the delta-Eddington and OG
 // optics of each layer (built from the six source strips, or read from the
@@ -19,16 +20,40 @@
 // source-function up-sweep.  Outputs xint and thermal, each [nang, nwno].
 //
 // What bounds it on this card: fp32 expf and division, and the chain of
-// dependent layer steps.  Each column is a sequential recursion over the
-// layers (Thomas elimination up, substitution down, intensity sweep up),
-// so only the wavenumber axis is parallel: 50k columns are ~390 blocks of
-// 128 threads, about three per SM, and each thread waits on its own chain.
+// dependent layer steps (elimination up, substitution down, intensity sweep
+// up); only the wavenumber axis and, for the reflected beam, the disk-angle
+// axis are parallel.  The first design ran everything of a column in one
+// thread and was bounded by three things: the angles ran one after another
+// (three dependent 90-step sweeps per angle after the shared factorisation:
+// 15 chained sweeps per thread at 5 angles, 108 at a phase curve's 36, where
+// the TPU kernel advances all angles in one loop step on its lane axis);
+// 50 000 threads are about 12 warps per SM of 64, too few to hide the
+// latency of those chains; and each angle re-read the column's
+// angle-independent layer state from global scratch (about 28 of 40 accesses
+// per layer and angle), about 3.6 GB per launch at the production shape from
+// a 437 MB scratch that does not fit the 50 MB L2.
 //
-// Design: one thread per column, everything about its column in that
-// thread.  Per-layer intermediates go to global scratch laid out
-// [slot, row, nwno], so the 32 threads of a warp touch 128 contiguous
-// bytes per access; the wrapper allocates it (the kernel allocates
-// nothing): kReflSlots for the reflected pass, kThermSlots for the thermal
+// Design: the reflected pass is split in two launches on one stream.
+//  Stage A, one thread per column (toon_spectrum_kernel,
+//  toon_reflected_kernel): the layer optics and the angle-independent
+//  factorisation into the kReflSlots rows; in K2 also the whole thermal
+//  column, in the same thread.
+//  Stage B, one thread per (column, angle) (reflected_angles_kernel): a
+//  block is 32 consecutive columns by up to 8 angles, one warp per angle, so
+//  every access still coalesces and the warps of one column tile read the
+//  same angle-independent rows at about the same time (from L1 or L2, not
+//  from HBM once per angle); more angles are cut into chunks of at most 8,
+//  the chunks of one tile in neighbouring blocks.  The angles' sweeps run in
+//  parallel on nang times as many threads, and the stage has its own
+//  register budget.  Only the right-hand side DSE/DSO is kept per angle
+//  (kAngleSlots); the beam sources c+up, c-up and e_u0dt are computed again
+//  in the ascent by the same expressions, so the outputs are bitwise those
+//  of the one-thread design.
+//
+// Per-layer intermediates go to global scratch laid out [slot, row, nwno],
+// so the 32 threads of a warp touch 128 contiguous bytes per access; the
+// wrapper allocates it (the kernels allocate nothing): kReflSlots +
+// kAngleSlots * nang for the reflected pass, kThermSlots for the thermal
 // one.  The arithmetic follows the TPU kernel, not the JAX scan path:
 // stable gama = g2/(g1+lamda), exptrm_minus = 1/exptrm_positive, the
 // e_u0dt/e_u1 products in place of extra exps, product-form resonant
@@ -41,7 +66,9 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;                         // stage A, thermal
+constexpr int kTileCols = 32;   // stage B: one warp = 32 columns, one angle
+constexpr int kMaxAngles = 8;   // stage B: angles per block
 constexpr float kClip = 10.0f;                        // _exp_clip(f32)
 constexpr float kPi = (float)3.141592653589793;
 constexpr float kTwoPi = (float)(2.0 * 3.141592653589793);
@@ -52,14 +79,15 @@ constexpr float kUbar2Fac = (float)(3.0 * 0.767 * 0.767);
 constexpr float kDitherDelta = 1e-3f;
 constexpr float kOnePlusDelta = (float)(1.0 + 1e-3);
 
-// reflected scratch slots, each [nlayer + 1, nwno]
+// angle-independent reflected scratch slots (stage A), each [nlayer + 1,
+// nwno]; kAngleSlots per disk angle follow them (stage B)
 enum ReflSlot {
   S_DTAU, S_TAU, S_W0, S_COSB, S_FTC, S_GCOS2, S_DTAU_OG, S_TAU_OG, S_W0_OG,
   S_LAM, S_GAMA, S_EP, S_G1, S_G2, S_PSINGLE,
   S_ASE, S_ASO, S_XE, S_XO,              // reflected factorisation
-  S_DSE, S_DSO, S_CPU, S_CMU, S_EU0DT,   // reflected, one angle at a time
   kReflSlots
 };
+enum AngleSlot { A_DSE, A_DSO, kAngleSlots };
 
 // thermal scratch slots, each [nlayer + 1, nwno]
 enum ThermSlot {
@@ -82,12 +110,16 @@ struct Params {
   int stream, dedd, hard_surface;
 };
 
-// one thread's view of its column
+// one thread's view of its column (and, in stage B, of its angle a)
 struct Col {
   const Params& p;
   long long w;
+  int a;
   __device__ float& s(int slot, int row) const {
     return p.scr[((long long)slot * (p.nlayer + 1) + row) * p.nwno + w];
+  }
+  __device__ float& d(int slot, int row) const {
+    return s(kReflSlots + kAngleSlots * a + slot, row);
   }
   __device__ float& t(int slot, int row) const {
     return p.tscr[((long long)slot * (p.nlayer + 1) + row) * p.nwno + w];
@@ -178,14 +210,13 @@ __device__ ERow refl_e(const Col& c, int j) {
   return erow(c.s(S_GAMA, j), c.s(S_EP, j));
 }
 
-// reflected beam sources of layer j for incidence u0; also stores the
-// values the intensity sweep reads again (c+up, c-up, e_u0dt)
-__device__ CRow refl_c(const Col& c, int j, float u0, float f0pi) {
-  const Params& p = c.p;
-  const float ftc = c.s(S_FTC, j), cosb = c.s(S_COSB, j);
-  const float w0 = c.s(S_W0, j), lam = c.s(S_LAM, j);
-  const float g1 = c.s(S_G1, j), g2 = c.s(S_G2, j);
-  const float g3 = p.toon_coef == 1
+// reflected beam sources of one layer for incidence u0, and e_u0dt; the
+// elimination and the intensity ascent both compute them from the same
+// layer values, so they round the same in both
+__device__ CRow beam(int toon_coef, float ftc, float cosb, float w0,
+                     float lam, float g1, float g2, float tau, float dtau,
+                     float u0, float f0pi, float& e_u0dt) {
+  const float g3 = toon_coef == 1
                        ? (2.0f - 3.0f * ftc * cosb * u0) / 4.0f
                        : 0.5f * (1.0f - kSq3 * ftc * cosb * u0);
   const float g4 = 1.0f - g3;
@@ -195,15 +226,17 @@ __device__ CRow refl_c(const Col& c, int j, float u0, float f0pi) {
       f0pi * w0 * (g4 * (g1 + 1.0f / u0b) + g2 * g3) / denominator;
   const float a_plus =
       f0pi * w0 * (g3 * (g1 - 1.0f / u0b) + g2 * g4) / denominator;
-  const float x_up = expf(-c.s(S_TAU, j) / u0b);
-  const float e_u0dt = expf(-c.s(S_DTAU, j) / u0b);
+  const float x_up = expf(-tau / u0b);
+  e_u0dt = expf(-dtau / u0b);
   const float x_dn = x_up * e_u0dt;
-  const CRow r = {a_plus * x_up, a_minus * x_up, a_plus * x_dn,
-                  a_minus * x_dn};
-  c.s(S_CPU, j) = r.cpu;
-  c.s(S_CMU, j) = r.cmu;
-  c.s(S_EU0DT, j) = e_u0dt;
-  return r;
+  return {a_plus * x_up, a_minus * x_up, a_plus * x_dn, a_minus * x_dn};
+}
+
+__device__ CRow refl_c(const Col& c, int j, float u0, float f0pi) {
+  float e_u0dt;
+  return beam(c.p.toon_coef, c.s(S_FTC, j), c.s(S_COSB, j), c.s(S_W0, j),
+              c.s(S_LAM, j), c.s(S_G1, j), c.s(S_G2, j), c.s(S_TAU, j),
+              c.s(S_DTAU, j), u0, f0pi, e_u0dt);
 }
 
 __device__ ERow therm_e(const Col& c, int j) {
@@ -370,7 +403,7 @@ __device__ void reflected_factor(const Col& c, float sr) {
   }
 }
 
-// one disk angle of the reflected solve and the TOA intensity
+// one disk angle of the reflected solve and the TOA intensity (stage B)
 __device__ float reflected_angle(const Col& c, float u0, float u1, float sr,
                                  float f0pi) {
   const Params& p = c.p;
@@ -385,8 +418,8 @@ __device__ float reflected_angle(const Col& c, float u0, float u1, float sr,
   Coef k = coef(L - 1, L, em1, e, ep1, cm1, cc, cp1, p.b_top, b_surface, sr);
   const float ds_last = k.de / k.be;
   float ds_n = (k.d_o - k.co * ds_last) * c.s(S_XO, L - 1);
-  c.s(S_DSE, L - 1) = ds_last;
-  c.s(S_DSO, L - 1) = ds_n;
+  c.d(A_DSE, L - 1) = ds_last;
+  c.d(A_DSO, L - 1) = ds_n;
   for (int n = L - 2; n >= 0; --n) {
     ep1 = e;
     e = em1;
@@ -402,34 +435,37 @@ __device__ float reflected_angle(const Col& c, float u0, float u1, float sr,
     const float co_x = k.co * xo;
     const float ds_e = k.de * xe - ce_x * ds_n;
     ds_n = k.d_o * xo - co_x * ds_e;
-    c.s(S_DSE, n) = ds_e;
-    c.s(S_DSO, n) = ds_n;
+    c.d(A_DSE, n) = ds_e;
+    c.d(A_DSO, n) = ds_n;
   }
   // forward substitution; positive/negative replace ds in place
-  float x_o = c.s(S_DSO, 0);
-  float x_e = c.s(S_DSE, 0) - c.s(S_ASE, 0) * x_o;
-  c.s(S_DSO, 0) = x_o + x_e;
-  c.s(S_DSE, 0) = x_o - x_e;
+  float x_o = c.d(A_DSO, 0);
+  float x_e = c.d(A_DSE, 0) - c.s(S_ASE, 0) * x_o;
+  c.d(A_DSO, 0) = x_o + x_e;
+  c.d(A_DSE, 0) = x_o - x_e;
   for (int n = 1; n < L; ++n) {
-    x_o = c.s(S_DSO, n) - c.s(S_ASO, n) * x_e;
-    x_e = c.s(S_DSE, n) - c.s(S_ASE, n) * x_o;
-    c.s(S_DSO, n) = x_o + x_e;
-    c.s(S_DSE, n) = x_o - x_e;
+    x_o = c.d(A_DSO, n) - c.s(S_ASO, n) * x_e;
+    x_e = c.d(A_DSE, n) - c.s(S_ASE, n) * x_o;
+    c.d(A_DSO, n) = x_o + x_e;
+    c.d(A_DSE, n) = x_o - x_e;
   }
   // TOA intensity: ascend from the bottom boundary
   const float ep_l = c.s(S_EP, L - 1);
-  const float flux_zero = c.s(S_DSO, L - 1) * ep_l
-                          + c.s(S_GAMA, L - 1) * c.s(S_DSE, L - 1)
+  const float flux_zero = c.d(A_DSO, L - 1) * ep_l
+                          + c.s(S_GAMA, L - 1) * c.d(A_DSE, L - 1)
                                 * (1.0f / ep_l)
                           + cpd_last;
   float x = flux_zero / kPi;
   for (int j = L - 1; j >= 0; --j) {
-    const float positive = c.s(S_DSO, j), negative = c.s(S_DSE, j);
+    const float positive = c.d(A_DSO, j), negative = c.d(A_DSE, j);
     const float ftc = c.s(S_FTC, j), cosb = c.s(S_COSB, j);
     const float gama = c.s(S_GAMA, j), w0 = c.s(S_W0, j);
     const float lam = c.s(S_LAM, j), dtau = c.s(S_DTAU, j);
     const float ep = c.s(S_EP, j);
     const float em = 1.0f / ep;
+    float e_u0dt;
+    const CRow cj = beam(p.toon_coef, ftc, cosb, w0, lam, c.s(S_G1, j),
+                         c.s(S_G2, j), c.s(S_TAU, j), dtau, u0, f0pi, e_u0dt);
     float multi_plus, multi_minus;
     if (p.multi_phase == 0) {
       const float gcos2 = c.s(S_GCOS2, j);
@@ -445,7 +481,7 @@ __device__ float reflected_angle(const Col& c, float u0, float u1, float sr,
         positive * (multi_plus + gama * multi_minus) * w0 * kHalfInvPi;
     const float H =
         negative * (gama * multi_plus + multi_minus) * w0 * kHalfInvPi;
-    const float A = (multi_plus * c.s(S_CPU, j) + multi_minus * c.s(S_CMU, j))
+    const float A = (multi_plus * cj.cpu + multi_minus * cj.cmu)
                     * w0 * kHalfInvPi;
     const float e_u1 = expf(-dtau / u1);
     const float ssterm = (c.s(S_W0_OG, j) * f0pi / k4Pi)
@@ -458,7 +494,7 @@ __device__ float reflected_angle(const Col& c, float u0, float u1, float sr,
     const float hdt1 = dtau / u1;
     const float x1 = hdt1 * den_u1;
     const float msterm =
-        A * (1.0f - c.s(S_EU0DT, j) * e_u1) * (u0 / (u0 + u1))
+        A * (1.0f - e_u0dt * e_u1) * (u0 / (u0 + u1))
         + G * resonant_ratio(ep * e_u1 - 1.0f, den_u1,
                              hdt1 * (1.0f + x1 * (0.5f + x1 / 6.0f)))
         + H * (1.0f - em * e_u1) / (lam * u1 + 1.0f);
@@ -600,15 +636,11 @@ __device__ float thermal_angle(const Col& c, float iubar, float sr) {
   return fp_mid;
 }
 
+// stage A of the reflected pass: the column's optics and factorisation
 template <bool kProps>
 __device__ void reflected_column(const Col& c) {
-  const Params& p = c.p;
-  const float sr = p.sr[c.w], f0pi = p.f0pi[c.w];
-  reflected_layers<kProps>(c, p.cos_theta[0]);
-  reflected_factor(c, sr);
-  for (int a = 0; a < p.nang; ++a)
-    p.xint[(long long)a * p.nwno + c.w] =
-        reflected_angle(c, p.u0[a], p.u1[a], sr, f0pi);
+  reflected_layers<kProps>(c, c.p.cos_theta[0]);
+  reflected_factor(c, c.p.sr[c.w]);
 }
 
 template <bool kProps>
@@ -624,21 +656,23 @@ __device__ void thermal_column(const Col& c) {
     p.therm[(long long)a * p.nwno + c.w] = thermal_angle(c, p.u1[a], sr);
 }
 
+// stage A of K2: reflected optics and factorisation, then the thermal pass
 __global__ void __launch_bounds__(kThreads)
     toon_spectrum_kernel(const Params p) {
   const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (w >= p.nwno) return;
-  const Col c{p, w};
+  const Col c{p, w, 0};
   reflected_column<false>(c);
   thermal_column<false>(c);
 }
 
+// stage A of K3 (optics from the strips) and K5 (optics given)
 template <bool kProps>
 __global__ void __launch_bounds__(kThreads)
     toon_reflected_kernel(const Params p) {
   const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (w >= p.nwno) return;
-  reflected_column<kProps>(Col{p, w});
+  reflected_column<kProps>(Col{p, w, 0});
 }
 
 template <bool kProps>
@@ -646,7 +680,21 @@ __global__ void __launch_bounds__(kThreads)
     toon_thermal_kernel(const Params p) {
   const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (w >= p.nwno) return;
-  thermal_column<kProps>(Col{p, w});
+  thermal_column<kProps>(Col{p, w, 0});
+}
+
+// stage B of K2, K3 and K5: one thread per (column, angle).  Block b holds
+// column tile b / chunks and angle chunk b % chunks: threadIdx.x is the
+// column in the tile, threadIdx.y the angle in the chunk (blockDim.y angles
+// per chunk, at most kMaxAngles)
+__global__ void __launch_bounds__(kTileCols * kMaxAngles, 4)
+    reflected_angles_kernel(const Params p, int chunks) {
+  const long long w =
+      (long long)(blockIdx.x / chunks) * kTileCols + threadIdx.x;
+  const int a = (blockIdx.x % chunks) * blockDim.y + threadIdx.y;
+  if (w >= p.nwno || a >= p.nang) return;
+  p.xint[(long long)a * p.nwno + w] =
+      reflected_angle(Col{p, w, a}, p.u0[a], p.u1[a], p.sr[w], p.f0pi[w]);
 }
 
 Params column_params(const void* surf_reflect, const void* ubar0,
@@ -691,13 +739,45 @@ void set_strips(Params& p, const void* taugas, const void* tauray,
 
 int blocks(int nwno) { return (nwno + kThreads - 1) / kThreads; }
 
+// launch stage 0 (A: ``columns``, one thread per column) or stage 1 (B:
+// reflected_angles_kernel) of a reflected kernel; the cudaError_t
+int launch_stage(const Params& p, int stage, void (*columns)(const Params),
+                 void* cuda_stream) {
+  const cudaStream_t s = (cudaStream_t)cuda_stream;
+  if (stage == 0) {
+    columns<<<blocks(p.nwno), kThreads, 0, s>>>(p);
+  } else if (stage == 1) {
+    if (p.nang < 1) return (int)cudaSuccess;  // no angle to solve
+    const int chunks = (p.nang + kMaxAngles - 1) / kMaxAngles;
+    const int per_chunk = (p.nang + chunks - 1) / chunks;
+    const int tiles = (p.nwno + kTileCols - 1) / kTileCols;
+    reflected_angles_kernel<<<tiles * chunks, dim3(kTileCols, per_chunk), 0,
+                              s>>>(p, chunks);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+long long refl_slots(int nang) {
+  return kReflSlots + (long long)kAngleSlots * nang;
+}
+
 }  // namespace
 
-extern "C" int toon_spectrum_scratch_slots() {
-  return kReflSlots + kThermSlots;
+// scratch slots ([nlayer + 1, nwno] each) of the Toon kernels at nang
+// disk angles
+extern "C" int toon_spectrum_scratch_slots(int nang) {
+  return (int)refl_slots(nang) + kThermSlots;
 }
-extern "C" int toon_reflected_scratch_slots() { return kReflSlots; }
-extern "C" int toon_thermal_scratch_slots() { return kThermSlots; }
+extern "C" int toon_reflected_scratch_slots(int nang) {
+  return (int)refl_slots(nang);
+}
+extern "C" int toon_thermal_scratch_slots(int) { return kThermSlots; }
+
+// Each reflected entry launches one stage (0: A, 1: B) and returns its
+// cudaError_t; the wrapper calls it for stage 0, then stage 1, on one
+// stream.
 
 // spectrum_pallas_fused: scratch holds the reflected slots, then the
 // thermal ones
@@ -710,10 +790,10 @@ extern "C" int toon_spectrum_launch(
     int nwno, int nang, int single_phase, int multi_phase,
     int toon_coefficients, float frac_a, float frac_b, float frac_c,
     float constant_back, float constant_forward, float b_top, int stream,
-    int delta_eddington, int hard_surface, void* cuda_stream) {
+    int delta_eddington, int hard_surface, int stage, void* cuda_stream) {
   Params p = column_params(surf_reflect, ubar0, ubar1, scratch, nlayer, nwno,
                              nang);
-  p.tscr = p.scr + (long long)kReflSlots * (nlayer + 1) * nwno;
+  p.tscr = p.scr + refl_slots(nang) * (nlayer + 1) * nwno;
   set_strips(p, taugas, tauray, cld_opd, cld_w0, cld_g0, rf);
   set_controls(p, single_phase, multi_phase, toon_coefficients, frac_a,
                frac_b, frac_c, constant_back, constant_forward, b_top);
@@ -726,9 +806,7 @@ extern "C" int toon_spectrum_launch(
   p.stream = stream;
   p.dedd = delta_eddington;
   p.hard_surface = hard_surface;
-  toon_spectrum_kernel<<<blocks(nwno), kThreads, 0,
-                         (cudaStream_t)cuda_stream>>>(p);
-  return (int)cudaGetLastError();
+  return launch_stage(p, stage, toon_spectrum_kernel, cuda_stream);
 }
 
 // reflected_pallas_fused
@@ -740,7 +818,7 @@ extern "C" int toon_reflected_launch(
     int nlayer, int nwno, int nang, int single_phase, int multi_phase,
     int toon_coefficients, float frac_a, float frac_b, float frac_c,
     float constant_back, float constant_forward, float b_top, int stream,
-    int delta_eddington, void* cuda_stream) {
+    int delta_eddington, int stage, void* cuda_stream) {
   Params p = column_params(surf_reflect, ubar0, ubar1, scratch, nlayer, nwno,
                              nang);
   set_strips(p, taugas, tauray, cld_opd, cld_w0, cld_g0, rf);
@@ -751,9 +829,7 @@ extern "C" int toon_reflected_launch(
   p.xint = (float*)xint;
   p.stream = stream;
   p.dedd = delta_eddington;
-  toon_reflected_kernel<false><<<blocks(nwno), kThreads, 0,
-                                 (cudaStream_t)cuda_stream>>>(p);
-  return (int)cudaGetLastError();
+  return launch_stage(p, stage, toon_reflected_kernel<false>, cuda_stream);
 }
 
 // thermal_pallas_fused: scratch holds the thermal slots
@@ -786,7 +862,7 @@ extern "C" int toon_reflected_props_launch(
     void* scratch, int nlayer, int nwno, int nang, int single_phase,
     int multi_phase, int toon_coefficients, float frac_a, float frac_b,
     float frac_c, float constant_back, float constant_forward, float b_top,
-    void* cuda_stream) {
+    int stage, void* cuda_stream) {
   Params p = column_params(surf_reflect, ubar0, ubar1, scratch, nlayer, nwno,
                              nang);
   p.dtau = (const float*)dtau;
@@ -805,9 +881,7 @@ extern "C" int toon_reflected_props_launch(
   p.f0pi = (const float*)F0PI;
   p.cos_theta = (const float*)cos_theta;
   p.xint = (float*)xint;
-  toon_reflected_kernel<true><<<blocks(nwno), kThreads, 0,
-                                (cudaStream_t)cuda_stream>>>(p);
-  return (int)cudaGetLastError();
+  return launch_stage(p, stage, toon_reflected_kernel<true>, cuda_stream);
 }
 
 // thermal_pallas: dtau, w0, cosb [nlayer, nwno] and tau_top [nwno] given

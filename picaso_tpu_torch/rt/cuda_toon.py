@@ -17,7 +17,11 @@ replaces its five TPU kernels, one wrapper each here:
 Each builds (or reads) the per-layer optics, solves the Toon89 eqn-44
 system (one factorisation shared by every disk angle, one right-hand side
 per angle) and runs the TOA intensity recursion or the per-angle thermal
-source-function up-sweep.
+source-function up-sweep.  The reflected kernels (K2, K3, K5) are two
+launches on the current stream: stage A, one thread per wavenumber column,
+builds the optics and the shared factorisation (and, in K2, runs the
+thermal pass); stage B, one thread per (column, disk angle), solves each
+angle's right-hand side and intensity sweep.
 
 Each ``*_plain`` function is the kernel's plain PyTorch twin with the TPU
 kernel's arithmetic (stable ``gama = g2/(g1+lamda)``, ``exptrm_minus =
@@ -25,7 +29,9 @@ kernel's arithmetic (stable ``gama = g2/(g1+lamda)``, ``exptrm_minus =
 exps, product-form resonant limits, exp clip 10 in f32, beam dither 1e-3
 in f32).  Each wrapper runs its twin for CPU tensors and launches its
 kernel for CUDA tensors, or raises; ``wrapper.launches`` counts the
-launches.
+wrapper's launches (one per call, both stages).  The two-stage wrappers
+take ``split_event``, a ``torch.cuda.Event`` recorded between the stages,
+so a caller can time them apart.
 """
 
 from __future__ import annotations
@@ -386,21 +392,32 @@ def _controls_args(c, b_top):
             float(b_top))
 
 
-def _launch(fn, entry, dev, slots_entry, nlayer, nwno, nouts, nang, args):
-    """Allocate the outputs ([nang, nwno] each) and the scratch, launch
-    ``entry`` on the current stream with ``args(outs, scratch)`` and check
-    the launch."""
+def _launch(fn, entry, dev, slots_entry, nlayer, nwno, nouts, nang, args,
+            two_stage=False, split_event=None):
+    """Allocate the outputs ([nang, nwno] each) and the scratch (its slot
+    count at ``nang`` angles from ``slots_entry``), launch ``entry`` on the
+    current stream with ``args(outs, scratch)`` and check the launch.  A
+    ``two_stage`` entry is called for stage 0 (A), then stage 1 (B), each
+    launch checked before the next; ``split_event`` is recorded between
+    them."""
     from .._build import check, library
     lib = library()
     f32 = torch.float32
     outs = [torch.empty((nang, nwno), dtype=f32, device=dev)
             for _ in range(nouts)]
-    scratch = torch.empty((getattr(lib, slots_entry)(), nlayer + 1, nwno),
+    scratch = torch.empty((getattr(lib, slots_entry)(nang), nlayer + 1, nwno),
                           dtype=f32, device=dev)
     with torch.cuda.device(dev):
-        stream_handle = torch.cuda.current_stream(dev).cuda_stream
-        code = getattr(lib, entry)(*args(outs, scratch), stream_handle)
-    check(code, fn)
+        stream = torch.cuda.current_stream(dev)
+        if not two_stage:
+            check(getattr(lib, entry)(*args(outs, scratch),
+                                      stream.cuda_stream), fn)
+            return outs
+        for stage in (0, 1):
+            if stage == 1 and split_event is not None:
+                split_event.record(stream)
+            check(getattr(lib, entry)(*args(outs, scratch), stage,
+                                      stream.cuda_stream), fn)
     return outs
 
 
@@ -420,7 +437,8 @@ def spectrum_toon(all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, rf, ptfac,
                   surf_reflect, ubar0, ubar1, cos_theta, F0PI,
                   controls: ScatteringControls = ScatteringControls(),
                   b_top: float = 0.0, stream: int = 2,
-                  delta_eddington: bool = True, hard_surface: bool = False):
+                  delta_eddington: bool = True, hard_surface: bool = False,
+                  split_event=None):
     """Reflected TOA intensity and thermal TOA flux, each [ng, nt, nwno]
     (K2).
 
@@ -437,8 +455,8 @@ def spectrum_toon(all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, rf, ptfac,
       depths): a running sum in the thread;
     - the SMEM/VMEM operand split (angles and scalars in SMEM): angles,
       cos_theta and ptfac are small device arrays read by every thread;
-    - the angle-stacked RHS buffers: each thread solves its angles one
-      after another against the shared factorisation.
+    - the angle-stacked RHS buffers: stage B gives each (column, angle)
+      its own thread, which reads the shared factorisation from scratch.
     """
     fn = 'spectrum_toon'
     if _on_cpu(fn, taugas):
@@ -466,7 +484,7 @@ def spectrum_toon(all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, rf, ptfac,
                    surf_reflect, F0PI, u0, u1, ct, pt, o[0], o[1], scr),
             nlayer, nwno, ng * nt, *_controls_args(controls, b_top),
             int(stream), int(bool(delta_eddington)),
-            int(bool(hard_surface))))
+            int(bool(hard_surface))), two_stage=True, split_event=split_event)
     spectrum_toon.launches += 1
     return xint.reshape(ng, nt, nwno), therm.reshape(ng, nt, nwno)
 
@@ -475,7 +493,7 @@ def reflected_toon(taugas, tauray, cld_opd, cld_w0, cld_g0, rf,
                    surf_reflect, ubar0, ubar1, cos_theta, F0PI,
                    controls: ScatteringControls = ScatteringControls(),
                    b_top: float = 0.0, stream: int = 2,
-                   delta_eddington: bool = True):
+                   delta_eddington: bool = True, split_event=None):
     """Reflected TOA intensity [ng, nt, nwno] from the six strips (K3).
     Same contract as ``reflected_pallas_fused``; CPU tensors take the twin,
     CUDA tensors launch the kernel or raise."""
@@ -501,7 +519,8 @@ def reflected_toon(taugas, tauray, cld_opd, cld_w0, cld_g0, rf,
             *_ptrs(taugas, tauray, cld_opd, cld_w0, cld_g0, rf,
                    surf_reflect, F0PI, u0, u1, ct, o[0], scr),
             nlayer, nwno, ng * nt, *_controls_args(controls, b_top),
-            int(stream), int(bool(delta_eddington))))
+            int(stream), int(bool(delta_eddington))), two_stage=True,
+        split_event=split_event)
     reflected_toon.launches += 1
     return xint.reshape(ng, nt, nwno)
 
@@ -543,7 +562,7 @@ def reflected_toon_props(dtau, tau, w0, cosb, gcos2, ftau_cld, ftau_ray,
                          dtau_og, tau_og, w0_og, cosb_og, surf_reflect,
                          ubar0, ubar1, cos_theta, F0PI,
                          controls: ScatteringControls = ScatteringControls(),
-                         b_top: float = 0.0):
+                         b_top: float = 0.0, split_event=None):
     """Reflected TOA intensity [ng, nt, nwno] from a precomputed RTProps
     (K5).  Same contract as ``reflected_pallas``: tau and tau_og are taken
     as given (under ``test_mode`` they come from the overridden optical
@@ -572,7 +591,8 @@ def reflected_toon_props(dtau, tau, w0, cosb, gcos2, ftau_cld, ftau_ray,
         'toon_reflected_scratch_slots', nlayer, nwno, 1, ng * nt,
         lambda o, scr: (
             *_ptrs(*fields, surf_reflect, F0PI, u0, u1, ct, o[0], scr),
-            nlayer, nwno, ng * nt, *_controls_args(controls, b_top)))
+            nlayer, nwno, ng * nt, *_controls_args(controls, b_top)),
+        two_stage=True, split_event=split_event)
     reflected_toon_props.launches += 1
     return xint.reshape(ng, nt, nwno)
 

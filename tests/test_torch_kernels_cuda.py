@@ -120,10 +120,16 @@ _CASES = [
 ]
 
 
+# disk angles of the two-stage reflected kernels: 9 and 36 cross stage B's
+# 8-angle chunks; nwno 300 and 1000 are not multiples of its 32 columns
+_NANGS = [3, 1, 5, 8, 9, 36]
+
+
+@pytest.mark.parametrize('nang', _NANGS)
 @pytest.mark.parametrize('nwno', [300, 1000])
 @pytest.mark.parametrize('case', range(len(_CASES)))
-def test_toon_kernel_matches_twin(dev, nwno, case):
-    args = _toon_inputs(dev, nwno)
+def test_toon_kernel_matches_twin(dev, nwno, case, nang):
+    args = _toon_inputs(dev, nwno, nang=nang)
     kw = _CASES[case]
     before = spectrum_toon.launches
     xint, therm = spectrum_toon(*args, **kw)
@@ -131,7 +137,7 @@ def test_toon_kernel_matches_twin(dev, nwno, case):
     assert spectrum_toon.launches == before + 1
     r_xint, r_therm = spectrum_toon_plain(*args, **kw)
     for out, ref in ((xint, r_xint), (therm, r_therm)):
-        assert out.shape == ref.shape == (3, 1, nwno)
+        assert out.shape == ref.shape == (nang, 1, nwno)
         assert torch.isfinite(out).all()
         rel = _rel(out, ref)
         assert rel.max().item() <= 1e-3
@@ -285,7 +291,8 @@ _SPLIT_CASES = {
         dict(controls=ScatteringControls(single_phase=0,
                                          toon_coefficients=1)),
         dict(controls=ScatteringControls(single_phase=1, multi_phase=1)),
-        dict(controls=ScatteringControls(single_phase=2, frac_c=1.5))],
+        dict(controls=ScatteringControls(single_phase=2, frac_c=1.5)),
+        dict(controls=ScatteringControls(single_phase=3))],
     'thermal_toon': [dict(), dict(hard_surface=True)],
     'reflected_toon_props': [
         dict(), dict(controls=ScatteringControls(single_phase=0))],
@@ -303,7 +310,7 @@ def _assert_matches_twin(out, ref, nwno, nang):
     assert rel.median().item() <= 1e-5
 
 
-@pytest.mark.parametrize('nang', [1, 5, 12])
+@pytest.mark.parametrize('nang', [1, 5, 12, 8, 9, 36])
 @pytest.mark.parametrize('nwno', [300, 1000])
 @pytest.mark.parametrize('name', _SPLIT)
 def test_toon_split_kernels_match_twins(dev, name, nwno, nang):
@@ -318,6 +325,30 @@ def test_toon_split_kernels_match_twins(dev, name, nwno, nang):
             torch.cuda.synchronize()
             assert wrapper.launches == before + 1
             _assert_matches_twin(out, twin(*args, **kw), nwno, nang)
+
+
+@pytest.mark.parametrize('nang', [1, 5, 9, 36])
+@pytest.mark.parametrize('multi_phase', [0, 1])
+def test_spectrum_and_reflected_kernels_agree_bitwise(dev, nang, multi_phase):
+    """K2's reflected half and K3 on the same strips (no Raman factor
+    between them) run the same stage A rows and stage B: equal bit for
+    bit, with or without an event recorded between the stages."""
+    args = _toon_inputs(dev, 1000, nang=nang)
+    (all_b, tg, tr, copd, cw0, cg0, rf, ptfac, surf, u0, u1, ct,
+     f0pi) = args
+    kw = dict(controls=ScatteringControls(multi_phase=multi_phase))
+    xint, _ = spectrum_toon(*args, **kw)
+    k3_args = (tg, tr, copd, cw0, cg0, rf, surf, u0, u1, ct, f0pi)
+    k3 = cuda_toon.reflected_toon(*k3_args, **kw)
+    start, mid, end = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(3))
+    start.record()
+    k3_split = cuda_toon.reflected_toon(*k3_args, split_event=mid, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    assert torch.isfinite(k3).all()
+    assert torch.equal(xint, k3) and torch.equal(k3, k3_split)
+    assert start.elapsed_time(mid) > 0 and mid.elapsed_time(end) > 0
 
 
 @pytest.mark.parametrize('name', _SPLIT)
