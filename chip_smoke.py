@@ -30,15 +30,19 @@ Phases (any failure raises, so the exit code is nonzero):
  8. timings: forward with kernels vs the plain path, each kernel vs twin,
     and K2's two launches apart (stage A with the thermal pass, stage B)
  9. each SH kernel (reflected/thermal at 4 and 2 streams) vs its twin at
-    the production shape (max rel <= 1e-3, median rel <= 1e-5)
+    the production shape (max rel <= 1e-3, median rel <= 1e-5), each timed
+    against its twin, the reflected kernels' two launches apart; then
+    reflected_sh4 alone at the phase curve's 36 angles against its twin,
+    timed
 10. SH4 and SH2 forwards on the 4 perturbed scenes: finite outputs, each
     SH kernel of the stream and the gather launched once per forward, no
     other kernel
 11. nwno = 5000 SH oracle at 4 and 2 streams: the f32 kernel path against
     the f64 plain path (albedo and thermal max rel <= 8e-3, median rel <=
     1e-3, TPU_PARITY.json's SH tolerances; transit as phase 7)
-12. timings: SH forwards with kernels vs the plain path, each SH kernel vs
-    its twin
+12. timings: SH forwards with kernels vs the plain path; each SH
+    forward's peak device memory over one call after gc.collect(),
+    torch.cuda.empty_cache() and a reset, beside the bytes alive before it
 13. the split Toon kernels vs their twins at the production shape: K3
     (reflected) with Pollack Raman, K4 (thermal) without and with a hard
     surface, K5/K6 (from RTProps) on the unfused props and on the
@@ -80,6 +84,7 @@ Phases (any failure raises, so the exit code is nonzero):
 """
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -238,14 +243,14 @@ def check_outputs(outs, keys=('albedo', 'thermal', 'transit_depth'),
                                      f'{tuple(val.shape)} or non-finite')
 
 
-def check_twin(label, out, ref):
+def check_twin(label, out, ref, phase=13):
     """Kernel output against its twin's: finite, max rel <= 1e-3, median
     rel <= 1e-5.  Returns the max abs difference."""
     if not (torch.isfinite(out).all() and torch.isfinite(ref).all()):
         raise AssertionError(f'{label}: non-finite values')
     mx, med = rel_stats(out, ref)
     err = (out - ref).abs().max().item()
-    log(f'[13] {label} kernel vs twin {tuple(out.shape)}: max abs '
+    log(f'[{phase}] {label} kernel vs twin {tuple(out.shape)}: max abs '
         f'{err:.3e}')
     check(f'{label} max rel', mx, TOL['spectrum_max_rel'])
     check(f'{label} median rel', med, TOL['spectrum_median_rel'])
@@ -485,21 +490,39 @@ def main():
             ref, ops = counted(twin, *args, **kw)
             torch.cuda.synchronize()
             nbytes = tensor_bytes(args, out)
-            if not (torch.isfinite(out).all() and torch.isfinite(ref).all()):
-                raise AssertionError(f'{name}: non-finite values')
-            mx, med = rel_stats(out, ref)
-            err = (out - ref).abs().max().item()
-            log(f'[9] {name} kernel vs twin {tuple(out.shape)}: max abs '
-                f'{err:.3e}')
-            check(f'{name} max rel', mx, TOL['spectrum_max_rel'])
-            check(f'{name} median rel', med, TOL['spectrum_median_rel'])
+            err = check_twin(name, out, ref, phase=9)
             del out, ref
             sh[name] = {'max_abs_err': err,
                         'ms': cuda_ms(lambda: kern(*args, **kw), 10),
                         'plain_ms': cuda_ms(lambda: twin(*args, **kw), 2),
                         'bytes': nbytes, 'ops': ops}
-            log(f'    {name} {sh[name]["ms"]:.3f} ms vs twin '
+            if kind == 'reflected':
+                sh[name]['stages_ms'] = stages_ms(kern, args, kw, 10)
+            log(f'    {name} {sh[name]["ms"]:.3f} ms (stages '
+                f'{sh[name].get("stages_ms")}) vs twin '
                 f'{sh[name]["plain_ms"]:.3f} ms')
+    # reflected_sh4 alone at the phase curve's 6 x 6 disk (36 angles, 45
+    # degrees)
+    scene_36 = pipeline.with_geometry(scene, disco.make_geometry(
+        math.radians(45.0), num_gangle=6, num_tangle=6))
+    (r36_args, r36_kw), _ = pipeline.sh_args(
+        scene_36, grid, dataclasses.replace(config, rt_method=1, stream=4),
+        tg, tr, rf)
+    out = cuda_sh.reflected_sh4(*r36_args, **r36_kw)
+    ref = cuda_sh.reflected_sh4_plain(*r36_args, **r36_kw)
+    torch.cuda.synchronize()
+    err = check_twin('reflected_sh4 36 angles', out, ref, phase=9)
+    del out, ref
+    sh['reflected_sh4'].update(
+        phase_curve_max_abs_err=err,
+        phase_curve_ms=cuda_ms(
+            lambda: cuda_sh.reflected_sh4(*r36_args, **r36_kw), 10),
+        phase_curve_stages_ms=stages_ms(cuda_sh.reflected_sh4, r36_args,
+                                        r36_kw, 10))
+    log(f'    reflected_sh4 at 36 angles '
+        f'{sh["reflected_sh4"]["phase_curve_ms"]:.3f} ms (stages '
+        f'{sh["reflected_sh4"]["phase_curve_stages_ms"]})')
+    del r36_args, scene_36
 
     # phase 10: the SH main paths, counted
     for stream in (4, 2):
@@ -535,13 +558,22 @@ def main():
             check(f'SH{stream} {key} median rel', med,
                   TOL[f'{kind}_median_rel'])
 
-    # phase 12: SH forward timings (nothing asserted)
+    # phase 12: SH forward timings and peaks (nothing asserted)
     for stream in (4, 2):
         cfg = dataclasses.replace(config, rt_method=1, stream=stream)
         plain_cfg = dataclasses.replace(cfg, use_kernels=False)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        gc.collect()
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        fwd_ms = wall_ms(lambda: pipeline.forward(s0, grid, cfg), 10)
+        alive = torch.cuda.memory_allocated()
+        pipeline.forward(s0, grid, cfg)
+        torch.cuda.synchronize()
         fwd_peak = torch.cuda.max_memory_allocated()
+        log(f'[12] SH{stream} forward: {held} bytes allocated, {alive} alive '
+            f'after gc.collect(); peak {fwd_peak} bytes (+{fwd_peak - alive})')
+        fwd_ms = wall_ms(lambda: pipeline.forward(s0, grid, cfg), 10)
         plain_ms = wall_ms(lambda: pipeline.forward(s0, grid, plain_cfg), 2)
         fwd_ms2 = wall_ms(lambda: pipeline.forward(s0, grid, cfg), 10)
         log(f'[12] SH{stream} forward, kernels: {fwd_ms:.3f} / '

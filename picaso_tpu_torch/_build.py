@@ -89,8 +89,10 @@ _SIGNATURES = {
     # delta_eddington, w_single_form, w_multi_form, psingle_form,
     # w_single_rayleigh, w_multi_rayleigh, psingle_rayleigh, single_form,
     # frac_a, frac_b, frac_c, constant_back, constant_forward, b_top,
-    # constant_forward**stream, constant_back**stream, cuda stream
-    'sh_reflected_launch': [_I] + [_P] * 13 + [_I] * 11 + [_F] * 8 + [_P],
+    # constant_forward**stream, constant_back**stream, stage (0: A, 1: B),
+    # cuda stream
+    'sh_reflected_launch': [_I] + [_P] * 13 + [_I] * 11 + [_F] * 8 + [_I]
+                           + [_P],
     # stream, all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, rf,
     # surf_reflect, ubar1, ptfac, out, scratch, nlayer, nwno, nang,
     # delta_eddington, hard_surface, cuda stream

@@ -1,48 +1,80 @@
 // Spherical-harmonics (SH2/SH4) reflected and thermal solves for every
 // wavenumber column.
 //
-// Replaces the TPU kernels reflected_sh4_pallas, thermal_sh4_pallas,
-// reflected_sh2_pallas and thermal_sh2_pallas of picaso_tpu/rt/pallas_sh.py
+// Replaces four TPU kernels of picaso_tpu/rt/pallas_sh.py
 // (_sh{4,2}_{reflected,thermal}_core -> _optics_block, _sh{4,2}_coeffs,
-// _eta{,2}_sources, _stage_system, _solve_sh_staged, _gj_rows).  Per column
-// a kernel builds the optics from the six source strips, the SH
+// _eta{,2}_sources, _stage_system, _solve_sh_staged, _gj_rows), the
+// reflected ones in two launches, stage A then stage B:
+//   reflected_sh4_pallas <- sh_reflected_columns<4> + sh_reflected_angles<4>
+//   reflected_sh2_pallas <- sh_reflected_columns<2> + sh_reflected_angles<2>
+//   thermal_sh4_pallas   <- sh_thermal_kernel<4>
+//   thermal_sh2_pallas   <- sh_thermal_kernel<2>
+// Per column they build the optics from the six source strips, the SH
 // coefficients of every layer, the block-tridiagonal system in the
 // 'incoming' row grouping (S x S blocks, S = stream; every pivot block
-// stays nonsingular in fp32), eliminates it (block Thomas, pivoted
-// Gauss-Jordan on each S x 2S block row), substitutes back and runs the
+// stays nonsingular in fp32), eliminate it (block Thomas, pivoted
+// Gauss-Jordan on each S x 2S block row), substitute back and run the
 // per-angle TOA intensity sweep.  Outputs [nang, nwno].
 //
-// What bounds it on this card: the chain of dependent layer steps (the
+// What bounds them on this card: the chain of dependent layer steps (the
 // elimination and the sweeps are sequential over the layers) and the fp32
-// divisions, square roots and exponentials of the per-layer coefficients.
-// Only the wavenumber axis is parallel: 50k columns are ~390 blocks of 128
-// threads, about three per SM.
+// divisions, square roots and exponentials of the per-layer coefficients;
+// only the wavenumber axis and, for the reflected beam, the disk-angle axis
+// are parallel.  The first reflected design ran everything of a column in
+// one thread and was bounded by three things: the angles ran one after
+// another (after the shared factorisation of a block row the thread
+// replayed it on each angle's right-hand side in turn, then substituted
+// back and swept each angle in turn: about 15 chained 90-step sweeps per
+// thread at 5 angles, where the TPU kernel puts the angles' right-hand
+// sides side by side as extra columns of one [B | C | D] block row and
+// advances them all in one loop step); 50 000 threads are about 12 warps
+// per SM of 64, too few to hide the latency of the sqrtf/expf/division
+// chains of the coefficients; and each angle re-read the column's
+// angle-independent rows (the optics, Cp[k]) from a scratch of 45 slots x
+// 91 x 50 000 x 4 B = 819 MB at SH4 and 5 angles, 16 times the 50 MB L2,
+// so from HBM.
 //
-// Design: one thread per column, as in toon_spectrum.cu.  The TPU kernel
-// stages the whole block system (A, B, C, D) in VMEM; here only what the
-// later passes read goes to global scratch [slot, row, nwno] (coalesced
-// across a warp): the optics of each layer, the eliminated Cp[k] (S*S
-// slots) and the right-hand sides D[k] -> Dp[k] -> X[k] (S*nang slots).
-// The block rows of the elimination are rebuilt on the fly from the
-// coefficients of layers k-1, k, k+1 (a rolling window).  The source rows
-// D are written in the optics pass with one placeholder per row: the
-// z_up value of layer k sits in its row until layer k+1 turns it into
-// z_down - z_up.  The Gauss-Jordan step eliminates [B | C] once, keeps its
-// row swaps, pivot inverses and multipliers, and replays them on each
-// right-hand side, one angle at a time: the same operations on each value
-// as eliminating the stacked matrix, with a working set of S x 2S however
-// many angles there are (nang is a runtime value).  Per-layer coefficients
-// the sweeps need are recomputed from the stored optics rather than
-// stored.  Expressions keep the TPU kernel's order of operations (integer
-// powers as lax.integer_pow's products, the Taylor expm1 below |x| 0.05,
-// the exp clip at 35, beam dither 1e-3); built with -fmad=false, so each
-// operation rounds as in the eager PyTorch twin (rt/cuda_sh.py).
+// Design of the reflected pass: two launches on one stream, as in
+// toon_spectrum.cu.
+//  Stage A, one thread per column (sh_reflected_columns): the optics rows,
+//  then the matrix half of the elimination: block row k rebuilt from the
+//  coefficients of layers k-1, k, k+1 (a rolling window), the pivoted
+//  Gauss-Jordan step on [B | C], Cp[k] and the step's replay record (row
+//  swap flags packed into one slot, pivot inverses, multipliers: 17 slots
+//  at SH4, 5 at SH2) to scratch.  No beam source, no right-hand side.
+//  Stage B, one thread per (column, angle) (sh_reflected_angles): a block
+//  is 32 consecutive columns by up to 8 angles, one warp per angle, so
+//  every access coalesces and the warps of one tile read the tile's
+//  angle-independent rows (optics, Cp, record) at about the same time, from
+//  L1/L2 instead of from HBM once per angle; more angles are cut into
+//  chunks of at most 8, the chunks of one tile in neighbouring blocks.  Top
+//  down, each thread builds its angle's source rows D[k] from the beams of
+//  layers k-1, k and k+1, applies the Schur update and replays layer k's
+//  record on them; Dp[k] (S slots per angle) is its only scratch.  Bottom
+//  up, one loop substitutes back (X[k] = Dp[k] - Cp[k] X[k+1], in
+//  registers) and advances the TOA intensity sweep with X[k] as soon as it
+//  is known.  The angles' recursions run in parallel on nang times as many
+//  threads, with their own register budget.
+//
+// Each value is computed by the same operations in the same order as in
+// the one-thread design (the record holds the very swaps, inverses and
+// multipliers; coefficients and beams are recomputed from the stored
+// optics), so the outputs are bitwise those of that design.  Per-layer
+// values go to global scratch [slot, row, nwno] (coalesced across a warp),
+// which the wrapper allocates.  Expressions keep the TPU kernel's order of
+// operations (integer powers as lax.integer_pow's products, the Taylor
+// expm1 below |x| 0.05, the exp clip at 35, beam dither 1e-3); built with
+// -fmad=false, so each operation rounds as in the eager PyTorch twin
+// (rt/cuda_sh.py).  The thermal kernels keep one thread per column: one
+// right-hand side, the angles only in the final sweep.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;   // stage A, thermal
+constexpr int kTileCols = 32;   // stage B: one warp = 32 columns, one angle
+constexpr int kMaxAngles = 8;   // stage B: angles per block
 constexpr float kClip = 35.0f;
 constexpr float kPi = (float)3.141592653589793;
 constexpr float k2Pi = (float)(2.0 * 3.141592653589793);
@@ -51,10 +83,19 @@ constexpr float kSixth = (float)(1.0 / 6.0);
 constexpr float kDitherDelta = 1e-3f;
 constexpr float kOnePlusDelta = (float)(1.0 + 1e-3);
 
-// scratch slots, each [nlayer + 1, nwno]; Cp and D follow
+// scratch slots, each [nlayer + 1, nwno].  Reflected: the optics, Cp
+// (S * S), the replay record (kRecSlots), then S Dp rows per angle;
+// thermal: its optics, Cp, then D.
 enum ReflSlot { R_DTAU, R_TAU, R_W0, R_W0_OG, R_DTAU_OG, R_TAU_OG,
                 R_COSB_OG, R_FTC, R_FTR, kReflSlots };
 enum ThermSlot { T_DTAU, T_W0, T_COSB_OG, kThermSlots };
+
+// one layer's Gauss-Jordan record: the packed swap flags, S pivot
+// inverses, S (S - 1) multipliers
+template <int S> constexpr int kRecSlots = 1 + S + S * (S - 1);
+constexpr int kCp = kReflSlots;
+template <int S> constexpr int kRec = kReflSlots + S * S;
+template <int S> constexpr int kDp = kRec<S> + kRecSlots<S>;
 
 struct Params {
   const float *all_b, *taugas, *tauray, *cld_opd, *cld_w0, *cld_g0, *rf;
@@ -349,40 +390,126 @@ __device__ float homogeneous4(const Coef<4>& c, const float wm[4],
 // block system: staging, elimination, back-substitution
 // ---------------------------------------------------------------------
 
-// Source rows of layer k for right-hand side r (pallas_sh.py:
-// _stage_system, D rows) from z_down/z_up of layer k.  Each row first
-// holds the z_up value it needs as a placeholder, replaced by the final
+// Source rows of layer k (pallas_sh.py:_stage_system, D rows) from
+// z_down/z_up of layer k, into slots d0..d0 + S - 1.  Each row first holds
+// the z_up value it needs as a placeholder, replaced by the final
 // difference once layer k + 1 (or the boundary) is known.
 template <int S>
-__device__ void stage(const Col& c, int d0, int nrhs, int k, int r,
-                      const float zd[S], const float zu[S], const float btv[],
-                      const float bsv[], float sr) {
+__device__ void stage(const Col& c, int d0, int k, const float zd[S],
+                      const float zu[S], const float btv[], const float bsv[],
+                      float sr) {
   constexpr int H = S / 2;
   const int L = c.p.nlayer;
 #pragma unroll
   for (int i = 0; i < H; ++i) {
-    float& d = c.s(d0 + nrhs * i + r, k);
+    float& d = c.s(d0 + i, k);
     d = k == 0 ? btv[i] - zd[i] : zd[i] - d;
-    if (k + 1 < L) c.s(d0 + nrhs * i + r, k + 1) = zu[i];
+    if (k + 1 < L) c.s(d0 + i, k + 1) = zu[i];
   }
 #pragma unroll
   for (int i = H; i < S; ++i) {
     if (k >= 1) {
-      float& d = c.s(d0 + nrhs * i + r, k - 1);
+      float& d = c.s(d0 + i, k - 1);
       d = zd[i] - d;
     }
-    c.s(d0 + nrhs * i + r, k) =
-        k == L - 1 ? bsv[i - H] - zu[i] + sr * zu[i - H] : zu[i];
+    c.s(d0 + i, k) = k == L - 1 ? bsv[i - H] - zu[i] + sr * zu[i - H] : zu[i];
   }
 }
 
-// Block-Thomas elimination (pallas_sh.py:_solve_sh_staged); `layer(j)`
-// gives the coefficients of layer j.  Writes Cp[k] to slots cp0.. and
-// turns D[k] into Dp[k] in place.
-template <int S, class Layer>
-__device__ void eliminate(const Col& c, const Layer& layer, int cp0, int d0,
-                          int nrhs, float sr) {
+// the pivoted Gauss-Jordan step of one block row: its row swaps, pivot
+// inverses and multipliers, replayed on the right-hand sides
+template <int S>
+struct GJ {
+  bool sw[S][S];
+  float inv[S], fac[S][S];
+};
+
+// block row k, [B | C] with the Schur update of its top rows by
+// Cp[k - 1] (cp), from the coefficients of layers k-1, k and k+1
+template <int S>
+__device__ void block_row(const Coef<S>& prev, const Coef<S>& cur,
+                          const Coef<S>& next, const float cp[S][S], int k,
+                          bool last, float sr, float M[S][2 * S]) {
   constexpr int H = S / 2;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      float acc = k == 0 ? cur.T(i, j) : -cur.T(i, j);
+      if (k > 0) {
+#pragma unroll
+        for (int kk = 0; kk < S; ++kk) acc = acc - prev.F(i, kk) * cp[kk][j];
+      }
+      M[i][j] = acc;
+      M[i][S + j] = 0.0f;
+    }
+  }
+#pragma unroll
+  for (int i = H; i < S; ++i) {
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      M[i][j] = last ? cur.F(i, j) - sr * cur.F(i - H, j) : cur.F(i, j);
+      M[i][S + j] = last ? 0.0f : -next.T(i, j);
+    }
+  }
+}
+
+// pivoted Gauss-Jordan on [B | C] in place (M[:, S:] becomes Cp), recorded
+template <int S>
+__device__ void factor(float M[S][2 * S], GJ<S>& g) {
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+#pragma unroll
+    for (int r = i + 1; r < S; ++r) {
+      g.sw[i][r] = fabsf(M[r][i]) > fabsf(M[i][i]);
+#pragma unroll
+      for (int col = i; col < 2 * S; ++col) {
+        const float top = M[i][col], bot = M[r][col];
+        M[i][col] = g.sw[i][r] ? bot : top;
+        M[r][col] = g.sw[i][r] ? top : bot;
+      }
+    }
+    g.inv[i] = 1.0f / M[i][i];
+#pragma unroll
+    for (int col = i + 1; col < 2 * S; ++col) M[i][col] = M[i][col] * g.inv[i];
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      if (r == i) continue;
+      g.fac[i][r] = M[r][i];
+#pragma unroll
+      for (int col = i + 1; col < 2 * S; ++col)
+        M[r][col] = M[r][col] - g.fac[i][r] * M[i][col];
+    }
+  }
+}
+
+// the recorded step on one right-hand side
+template <int S>
+__device__ void replay(const GJ<S>& g, float d[S]) {
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+#pragma unroll
+    for (int r = i + 1; r < S; ++r) {
+      const float top = d[i], bot = d[r];
+      d[i] = g.sw[i][r] ? bot : top;
+      d[r] = g.sw[i][r] ? top : bot;
+    }
+    d[i] = d[i] * g.inv[i];
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      if (r == i) continue;
+      d[r] = d[r] - g.fac[i][r] * d[i];
+    }
+  }
+}
+
+// Block-Thomas elimination, matrix half (pallas_sh.py:_solve_sh_staged);
+// `layer(j)` gives the coefficients of layer j.  Writes Cp[k] to slots
+// cp0.., then calls step(k, coefficients of layer k - 1, the step of
+// block row k).
+template <int S, class Layer, class Step>
+__device__ void eliminate(const Col& c, const Layer& layer, int cp0, float sr,
+                          const Step& step) {
   const int L = c.p.nlayer;
   Coef<S> prev{}, cur = layer(0), next{};
   float cp[S][S];
@@ -390,54 +517,9 @@ __device__ void eliminate(const Col& c, const Layer& layer, int cp0, int d0,
     const bool last = k == L - 1;
     if (!last) next = layer(k + 1);
     float M[S][2 * S];
-#pragma unroll
-    for (int i = 0; i < H; ++i) {
-#pragma unroll
-      for (int j = 0; j < S; ++j) {
-        float acc = k == 0 ? cur.T(i, j) : -cur.T(i, j);
-        if (k > 0) {
-#pragma unroll
-          for (int kk = 0; kk < S; ++kk) acc = acc - prev.F(i, kk) * cp[kk][j];
-        }
-        M[i][j] = acc;
-        M[i][S + j] = 0.0f;
-      }
-    }
-#pragma unroll
-    for (int i = H; i < S; ++i) {
-#pragma unroll
-      for (int j = 0; j < S; ++j) {
-        M[i][j] = last ? cur.F(i, j) - sr * cur.F(i - H, j) : cur.F(i, j);
-        M[i][S + j] = last ? 0.0f : -next.T(i, j);
-      }
-    }
-    // pivoted Gauss-Jordan on [B | C], recorded for the replays
-    bool sw[S][S];
-    float inv[S], fac[S][S];
-#pragma unroll
-    for (int i = 0; i < S; ++i) {
-#pragma unroll
-      for (int r = i + 1; r < S; ++r) {
-        sw[i][r] = fabsf(M[r][i]) > fabsf(M[i][i]);
-#pragma unroll
-        for (int col = i; col < 2 * S; ++col) {
-          const float top = M[i][col], bot = M[r][col];
-          M[i][col] = sw[i][r] ? bot : top;
-          M[r][col] = sw[i][r] ? top : bot;
-        }
-      }
-      inv[i] = 1.0f / M[i][i];
-#pragma unroll
-      for (int col = i + 1; col < 2 * S; ++col) M[i][col] = M[i][col] * inv[i];
-#pragma unroll
-      for (int r = 0; r < S; ++r) {
-        if (r == i) continue;
-        fac[i][r] = M[r][i];
-#pragma unroll
-        for (int col = i + 1; col < 2 * S; ++col)
-          M[r][col] = M[r][col] - fac[i][r] * M[i][col];
-      }
-    }
+    block_row<S>(prev, cur, next, cp, k, last, sr, M);
+    GJ<S> g;
+    factor<S>(M, g);
 #pragma unroll
     for (int i = 0; i < S; ++i) {
 #pragma unroll
@@ -446,37 +528,7 @@ __device__ void eliminate(const Col& c, const Layer& layer, int cp0, int d0,
         c.s(cp0 + S * i + j, k) = cp[i][j];
       }
     }
-    // each right-hand side: Schur update of the top rows, then the replay
-    for (int r = 0; r < nrhs; ++r) {
-      float d[S];
-#pragma unroll
-      for (int i = 0; i < S; ++i) d[i] = c.s(d0 + nrhs * i + r, k);
-      if (k > 0) {
-#pragma unroll
-        for (int i = 0; i < H; ++i) {
-#pragma unroll
-          for (int kk = 0; kk < S; ++kk)
-            d[i] = d[i] - prev.F(i, kk) * c.s(d0 + nrhs * kk + r, k - 1);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < S; ++i) {
-#pragma unroll
-        for (int rr = i + 1; rr < S; ++rr) {
-          const float top = d[i], bot = d[rr];
-          d[i] = sw[i][rr] ? bot : top;
-          d[rr] = sw[i][rr] ? top : bot;
-        }
-        d[i] = d[i] * inv[i];
-#pragma unroll
-        for (int rr = 0; rr < S; ++rr) {
-          if (rr == i) continue;
-          d[rr] = d[rr] - fac[i][rr] * d[i];
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < S; ++i) c.s(d0 + nrhs * i + r, k) = d[i];
-    }
+    step(k, prev, g);
     prev = cur;
     cur = next;
   }
@@ -484,26 +536,24 @@ __device__ void eliminate(const Col& c, const Layer& layer, int cp0, int d0,
 
 // y[k] = Dp[k] - Cp[k] y[k+1], bottom up; X replaces Dp in place
 template <int S>
-__device__ void back_substitute(const Col& c, int cp0, int d0, int nrhs) {
+__device__ void back_substitute(const Col& c, int cp0, int d0) {
   const int L = c.p.nlayer;
-  for (int r = 0; r < nrhs; ++r) {
-    float y[S];
+  float y[S];
 #pragma unroll
-    for (int i = 0; i < S; ++i) y[i] = c.s(d0 + nrhs * i + r, L - 1);
-    for (int k = L - 2; k >= 0; --k) {
-      float yn[S];
+  for (int i = 0; i < S; ++i) y[i] = c.s(d0 + i, L - 1);
+  for (int k = L - 2; k >= 0; --k) {
+    float yn[S];
 #pragma unroll
-      for (int i = 0; i < S; ++i) {
-        float acc = c.s(d0 + nrhs * i + r, k);
+    for (int i = 0; i < S; ++i) {
+      float acc = c.s(d0 + i, k);
 #pragma unroll
-        for (int j = 0; j < S; ++j) acc = acc - c.s(cp0 + S * i + j, k) * y[j];
-        yn[i] = acc;
-      }
+      for (int j = 0; j < S; ++j) acc = acc - c.s(cp0 + S * i + j, k) * y[j];
+      yn[i] = acc;
+    }
 #pragma unroll
-      for (int i = 0; i < S; ++i) {
-        y[i] = yn[i];
-        c.s(d0 + nrhs * i + r, k) = y[i];
-      }
+    for (int i = 0; i < S; ++i) {
+      y[i] = yn[i];
+      c.s(d0 + i, k) = y[i];
     }
   }
 }
@@ -554,19 +604,80 @@ __device__ float p_single(const Params& p, float cosb_og, float ftc, float ftr,
   return ps;
 }
 
+// the replay record of block row k: slot kRec holds the swap flags as the
+// bits of an int, then the inverses, then the multipliers
 template <int S>
-__global__ void __launch_bounds__(kThreads) sh_reflected_kernel(const Params p) {
-  constexpr int H = S / 2;
+__device__ void store_record(const Col& c, int k, const GJ<S>& g) {
+  int bits = 0, bit = 0, slot = kRec<S> + 1;
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+#pragma unroll
+    for (int r = i + 1; r < S; ++r) bits |= (int)g.sw[i][r] << bit++;
+  }
+  c.s(kRec<S>, k) = __int_as_float(bits);
+#pragma unroll
+  for (int i = 0; i < S; ++i) c.s(slot++, k) = g.inv[i];
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      if (r != i) c.s(slot++, k) = g.fac[i][r];
+    }
+  }
+}
+
+template <int S>
+__device__ GJ<S> load_record(const Col& c, int k) {
+  GJ<S> g;
+  const int bits = __float_as_int(c.s(kRec<S>, k));
+  int bit = 0, slot = kRec<S> + 1;
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+#pragma unroll
+    for (int r = i + 1; r < S; ++r) g.sw[i][r] = (bits >> bit++) & 1;
+  }
+#pragma unroll
+  for (int i = 0; i < S; ++i) g.inv[i] = c.s(slot++, k);
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      if (r != i) g.fac[i][r] = c.s(slot++, k);
+    }
+  }
+  return g;
+}
+
+// the beam source of layer j for one angle at the layer's top (zd) and
+// bottom (zu); cf = ReflLayer(j)
+template <int S>
+__device__ void beam_rows(const Col& c, const Coef<S>& cf, int j, float u0,
+                          float f0pi, float zd[S], float zu[S]) {
+  const Params& p = c.p;
+  const float cosb_og = c.s(R_COSB_OG, j);
+  const float fdm = p.dedd ? ipow(cosb_og, S) : 0.0f;
+  float ws[S];
+  w_expansions<S>(p, p.w_single_form, p.w_single_rayleigh, cosb_og,
+                  c.s(R_FTC, j), c.s(R_FTR, j), fdm, ws);
+  const Beam<S> bm = beam(cf, u0, c.s(R_W0, j), ws, f0pi);
+  const float ex_dn = expf(-clip35(c.s(R_TAU, j) / bm.u0b));
+  const float ex_up = expf(-clip35(c.s(R_TAU, j + 1) / bm.u0b));
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    zd[i] = bm.z[i] * ex_dn;
+    zu[i] = bm.z[i] * ex_up;
+  }
+}
+
+// stage A: optics rows top down, then Cp[k] and the replay record of
+// every block row
+template <int S>
+__global__ void __launch_bounds__(kThreads)
+    sh_reflected_columns(const Params p) {
   const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (w >= p.nwno) return;
   const Col c{p, w};
-  const int L = p.nlayer, nang = p.nang;
-  const int cp0 = kReflSlots, d0 = kReflSlots + S * S;
-  const float sr = p.sr[w], f0pi = p.f0pi[w], ct = p.cos_theta[0];
-  const float bt = p.b_top;
-  const float btv[2] = {bt, -bt / 4.0f};
-
-  // optics top down, beam sources into the D rows
+  const int L = p.nlayer;
   float tau = 0.0f, tau_og = 0.0f;
   for (int j = 0; j < L; ++j) {
     const Optics o = optics(c, j, S);
@@ -579,94 +690,175 @@ __global__ void __launch_bounds__(kThreads) sh_reflected_kernel(const Params p) 
     c.s(R_COSB_OG, j) = o.cosb_og;
     c.s(R_FTC, j) = o.ftc;
     c.s(R_FTR, j) = o.ftr;
-    const float tau_lo = tau + o.dtau;
-    const Coef<S> cf = ReflLayer<S>{c}(j);
-    const float fdm = p.dedd ? ipow(o.cosb_og, S) : 0.0f;
-    float ws[S];
-    w_expansions<S>(p, p.w_single_form, p.w_single_rayleigh, o.cosb_og, o.ftc,
-                    o.ftr, fdm, ws);
-    for (int a = 0; a < nang; ++a) {
-      const float u0 = p.u0[a];
-      const Beam<S> bm = beam(cf, u0, o.w0, ws, f0pi);
-      const float ex_dn = expf(-clip35(tau / bm.u0b));
-      const float ex_up = expf(-clip35(tau_lo / bm.u0b));
-      float zd[S], zu[S];
-#pragma unroll
-      for (int i = 0; i < S; ++i) {
-        zd[i] = bm.z[i] * ex_dn;
-        zu[i] = bm.z[i] * ex_up;
-      }
-      const float bs = sr * u0 * f0pi * expf(-clip35(tau_lo / u0));
-      const float bsv[2] = {bs, -bs / 4.0f};
-      stage<S>(c, d0, nang, j, a, zd, zu, btv, bsv, sr);
-    }
-    tau = tau_lo;
+    tau = tau + o.dtau;
     tau_og = tau_og + o.dtau_og;
   }
   c.s(R_TAU, L) = tau;
   c.s(R_TAU_OG, L) = tau_og;
+  eliminate<S>(c, ReflLayer<S>{c}, kCp, p.sr[w],
+               [&](int k, const Coef<S>&, const GJ<S>& g) {
+                 store_record<S>(c, k, g);
+               });
+}
 
-  eliminate<S>(c, ReflLayer<S>{c}, cp0, d0, nang, sr);
-  back_substitute<S>(c, cp0, d0, nang);
+// Registers of stage B: at most 65536 / (256 * min blocks) a thread (SH4
+// 80 registers instead of the 86 it takes unbounded, so 25 warps fit an
+// SM instead of 23; SH2 54, unbounded as well)
+template <int S> constexpr int kAnglesMinBlocks = S == 4 ? 3 : 4;
 
-  // per-angle TOA intensity, bottom up
-  for (int a = 0; a < nang; ++a) {
-    const float u0 = p.u0[a], u1 = p.u1[a];
-    float P0[4], P1[4];
-    legp(-u0, P0);
-    legp(u1, P1);
-    float x = 0.0f;
-    for (int k = L - 1; k >= 0; --k) {
-      const float dtau = c.s(R_DTAU, k), tau_k = c.s(R_TAU, k);
-      const float w0 = c.s(R_W0, k), cosb_og = c.s(R_COSB_OG, k);
-      const float ftc = c.s(R_FTC, k), ftr = c.s(R_FTR, k);
-      const float fdm = p.dedd ? ipow(cosb_og, S) : 0.0f;
-      float ws[S], wm[S], X[S];
-      w_expansions<S>(p, p.w_single_form, p.w_single_rayleigh, cosb_og, ftc,
-                      ftr, fdm, ws);
-      w_expansions<S>(p, p.w_multi_form, p.w_multi_rayleigh, cosb_og, ftc,
-                      ftr, fdm, wm);
-      Coef<S> cf;
-      coeffs(cf, w0, dtau, wm);
-      const Beam<S> bm = beam(cf, u0, w0, ws, f0pi);
+// stage B: one thread per (column, angle).  Block b holds column tile
+// b / chunks and angle chunk b % chunks: threadIdx.x is the column in the
+// tile, threadIdx.y the angle in the chunk (blockDim.y angles per chunk,
+// at most kMaxAngles)
+template <int S>
+__global__ void __launch_bounds__(kTileCols * kMaxAngles, kAnglesMinBlocks<S>)
+    sh_reflected_angles(const Params p, int chunks) {
+  constexpr int H = S / 2;
+  const long long w =
+      (long long)(blockIdx.x / chunks) * kTileCols + threadIdx.x;
+  const int a = (blockIdx.x % chunks) * blockDim.y + threadIdx.y;
+  if (w >= p.nwno || a >= p.nang) return;
+  const Col c{p, w};
+  const int L = p.nlayer;
+  const int dp0 = kDp<S> + S * a;  // this angle's Dp rows
+  const float sr = p.sr[w], f0pi = p.f0pi[w], ct = p.cos_theta[0];
+  const float u0 = p.u0[a], u1 = p.u1[a];
+  const float bt = p.b_top;
+  const float btv[2] = {bt, -bt / 4.0f};
+  const ReflLayer<S> layer{c};
+
+  // Top down: D[k] (pallas_sh.py:_stage_system) from z_up of layer k-1,
+  // z_down/z_up of layer k and z_down of layer k+1; the Schur update of
+  // its top rows with F(k-1) Dp[k-1]; the replay of block row k's record.
+  // Kept from step to step: z_up of layer k, the top rows of D[k], the top
+  // rows of F of layer k and the Schur products F(k-1)[i][kk] Dp[k-1][kk].
+  float zu[S], dtop[H], fn[H][S], schur[H][S], d[S];
+  {
+    const Coef<S> cf = layer(0);
+    float zd[S];
+    beam_rows<S>(c, cf, 0, u0, f0pi, zd, zu);
 #pragma unroll
-      for (int i = 0; i < S; ++i) X[i] = c.s(d0 + nang * i + a, k);
-      if (k == L - 1) {
-        float flux_bot = cf.F(H, 0) * X[0];
+    for (int i = 0; i < H; ++i) {
+      dtop[i] = btv[i] - zd[i];
 #pragma unroll
-        for (int m = 1; m < S; ++m) flux_bot = flux_bot + cf.F(H, m) * X[m];
-        flux_bot = flux_bot + bm.z[H] * expf(-clip35(c.s(R_TAU, L) / bm.u0b));
-        x = flux_bot / kPi;
-      }
-      const float u0b = bm.u0b;
-      const float mus = (u1 + u0b) / (u1 * u0b);
-      const float exptrm_mus = -expm1_(-clip35(mus * dtau)) / mus;
-      const float expon1 = exptrm_mus * expf(-clip35(tau_k / u0b));
-      const float trans = expf(-clip35(dtau / u1));
-      float ms;
-      if constexpr (S == 4) {
-        ms = homogeneous4(cf, wm, P1, X, u1, dtau, trans);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) ms = ms + wm[j] * P1[j] * bm.eta[j] * expon1;
-      } else {
-        const float lam = cf.lam[0], q = cf.q;
-        const float alpha = 1.0f / u1 + lam, beta = 1.0f / u1 - lam;
-        const float alp = -expm1_(-clip35(alpha * dtau)) / alpha;
-        const float bet = scaled_bet(cf.ex[0], trans, beta, dtau);
-        ms = X[0] * (wm[0] - wm[1] * u1 * q) * alp
-             + X[1] * (wm[0] + wm[1] * u1 * q) * bet
-             + wm[0] * (bm.eta[0] * expon1) + wm[1] * u1 * (bm.eta[1] * expon1);
-      }
-      const float ps = p_single<S>(p, cosb_og, ftc, ftr, ct, ws, P0, P1);
-      const float em_mus1 = -expm1_(-clip35(mus * c.s(R_DTAU_OG, k)));
-      const float intgrl =
-          w0 * ms
-          + c.s(R_W0_OG, k) * f0pi / k4Pi * ps * em_mus1
-                * expf(-clip35(c.s(R_TAU_OG, k) / u0)) / mus;
-      x = x * trans + intgrl / u1;
+      for (int j = 0; j < S; ++j) fn[i][j] = cf.F(i, j);
     }
-    p.out[(long long)a * p.nwno + w] = x;
   }
+  for (int k = 0; k < L; ++k) {
+#pragma unroll
+    for (int i = 0; i < H; ++i) d[i] = dtop[i];
+    float f[H][S];
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+#pragma unroll
+      for (int j = 0; j < S; ++j) f[i][j] = fn[i][j];
+    }
+    if (k < L - 1) {
+      const Coef<S> cf = layer(k + 1);
+      float zd[S], zu_next[S];
+      beam_rows<S>(c, cf, k + 1, u0, f0pi, zd, zu_next);
+#pragma unroll
+      for (int i = 0; i < H; ++i) {
+        dtop[i] = zd[i] - zu[i];
+#pragma unroll
+        for (int j = 0; j < S; ++j) fn[i][j] = cf.F(i, j);
+      }
+#pragma unroll
+      for (int i = H; i < S; ++i) d[i] = zd[i] - zu[i];
+#pragma unroll
+      for (int i = 0; i < S; ++i) zu[i] = zu_next[i];
+    } else {
+      const float bs = sr * u0 * f0pi * expf(-clip35(c.s(R_TAU, L) / u0));
+      const float bsv[2] = {bs, -bs / 4.0f};
+#pragma unroll
+      for (int i = H; i < S; ++i)
+        d[i] = bsv[i - H] - zu[i] + sr * zu[i - H];
+    }
+    if (k > 0) {
+#pragma unroll
+      for (int i = 0; i < H; ++i) {
+#pragma unroll
+        for (int kk = 0; kk < S; ++kk) d[i] = d[i] - schur[i][kk];
+      }
+    }
+    replay<S>(load_record<S>(c, k), d);
+#pragma unroll
+    for (int i = 0; i < S; ++i) c.s(dp0 + i, k) = d[i];
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+#pragma unroll
+      for (int kk = 0; kk < S; ++kk) schur[i][kk] = f[i][kk] * d[kk];
+    }
+  }
+
+  // Bottom up: X[k] = Dp[k] - Cp[k] X[k+1] (X[L-1] = Dp[L-1], still in d),
+  // and the TOA intensity sweep with it
+  float P0[4], P1[4];
+  legp(-u0, P0);
+  legp(u1, P1);
+  float x = 0.0f;
+  float (&X)[S] = d;
+  for (int k = L - 1; k >= 0; --k) {
+    if (k < L - 1) {
+      float Xn[S];
+#pragma unroll
+      for (int i = 0; i < S; ++i) {
+        float acc = c.s(dp0 + i, k);
+#pragma unroll
+        for (int j = 0; j < S; ++j)
+          acc = acc - c.s(kCp + S * i + j, k) * X[j];
+        Xn[i] = acc;
+      }
+#pragma unroll
+      for (int i = 0; i < S; ++i) X[i] = Xn[i];
+    }
+    const float dtau = c.s(R_DTAU, k), tau_k = c.s(R_TAU, k);
+    const float w0 = c.s(R_W0, k), cosb_og = c.s(R_COSB_OG, k);
+    const float ftc = c.s(R_FTC, k), ftr = c.s(R_FTR, k);
+    const float fdm = p.dedd ? ipow(cosb_og, S) : 0.0f;
+    float ws[S], wm[S];
+    w_expansions<S>(p, p.w_single_form, p.w_single_rayleigh, cosb_og, ftc,
+                    ftr, fdm, ws);
+    w_expansions<S>(p, p.w_multi_form, p.w_multi_rayleigh, cosb_og, ftc,
+                    ftr, fdm, wm);
+    Coef<S> cf;
+    coeffs(cf, w0, dtau, wm);
+    const Beam<S> bm = beam(cf, u0, w0, ws, f0pi);
+    if (k == L - 1) {
+      float flux_bot = cf.F(H, 0) * X[0];
+#pragma unroll
+      for (int m = 1; m < S; ++m) flux_bot = flux_bot + cf.F(H, m) * X[m];
+      flux_bot = flux_bot + bm.z[H] * expf(-clip35(c.s(R_TAU, L) / bm.u0b));
+      x = flux_bot / kPi;
+    }
+    const float u0b = bm.u0b;
+    const float mus = (u1 + u0b) / (u1 * u0b);
+    const float exptrm_mus = -expm1_(-clip35(mus * dtau)) / mus;
+    const float expon1 = exptrm_mus * expf(-clip35(tau_k / u0b));
+    const float trans = expf(-clip35(dtau / u1));
+    float ms;
+    if constexpr (S == 4) {
+      ms = homogeneous4(cf, wm, P1, X, u1, dtau, trans);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ms = ms + wm[j] * P1[j] * bm.eta[j] * expon1;
+    } else {
+      const float lam = cf.lam[0], q = cf.q;
+      const float alpha = 1.0f / u1 + lam, beta = 1.0f / u1 - lam;
+      const float alp = -expm1_(-clip35(alpha * dtau)) / alpha;
+      const float bet = scaled_bet(cf.ex[0], trans, beta, dtau);
+      ms = X[0] * (wm[0] - wm[1] * u1 * q) * alp
+           + X[1] * (wm[0] + wm[1] * u1 * q) * bet
+           + wm[0] * (bm.eta[0] * expon1) + wm[1] * u1 * (bm.eta[1] * expon1);
+    }
+    const float ps = p_single<S>(p, cosb_og, ftc, ftr, ct, ws, P0, P1);
+    const float em_mus1 = -expm1_(-clip35(mus * c.s(R_DTAU_OG, k)));
+    const float intgrl =
+        w0 * ms
+        + c.s(R_W0_OG, k) * f0pi / k4Pi * ps * em_mus1
+              * expf(-clip35(c.s(R_TAU_OG, k) / u0)) / mus;
+    x = x * trans + intgrl / u1;
+  }
+  p.out[(long long)a * p.nwno + w] = x;
 }
 
 // ---------------------------------------------------------------------
@@ -694,6 +886,7 @@ struct ThermLayer {
 
 template <int S>
 __global__ void __launch_bounds__(kThreads) sh_thermal_kernel(const Params p) {
+  constexpr int H = S / 2;
   const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (w >= p.nwno) return;
   const Col c{p, w};
@@ -732,11 +925,28 @@ __global__ void __launch_bounds__(kThreads) sh_thermal_kernel(const Params p) {
     const float bsv[2] = {
         p.hard_surface ? kPi * ab_last : kPi * (ab_last + b1 * 0.5f),
         -kPi * ab_last / 4.0f};
-    stage<S>(c, d0, 1, j, 0, zd, zu, btv, bsv, sr);
+    stage<S>(c, d0, j, zd, zu, btv, bsv, sr);
   }
 
-  eliminate<S>(c, ThermLayer<S>{c}, cp0, d0, 1, sr);
-  back_substitute<S>(c, cp0, d0, 1);
+  // the one right-hand side: Schur update of its top rows, then the replay
+  eliminate<S>(c, ThermLayer<S>{c}, cp0, sr,
+               [&](int k, const Coef<S>& prev, const GJ<S>& g) {
+                 float d[S];
+#pragma unroll
+                 for (int i = 0; i < S; ++i) d[i] = c.s(d0 + i, k);
+                 if (k > 0) {
+#pragma unroll
+                   for (int i = 0; i < H; ++i) {
+#pragma unroll
+                     for (int kk = 0; kk < S; ++kk)
+                       d[i] = d[i] - prev.F(i, kk) * c.s(d0 + kk, k - 1);
+                   }
+                 }
+                 replay<S>(g, d);
+#pragma unroll
+                 for (int i = 0; i < S; ++i) c.s(d0 + i, k) = d[i];
+               });
+  back_substitute<S>(c, cp0, d0);
 
   const float b1_last =
       (ab_last - c.in(p.all_b, L - 1)) / c.s(T_DTAU, L - 1);
@@ -785,23 +995,50 @@ __global__ void __launch_bounds__(kThreads) sh_thermal_kernel(const Params p) {
   }
 }
 
-template <class K>
-int launch(K kernel, const Params& p, void* cuda_stream) {
-  const int blocks = (p.nwno + kThreads - 1) / kThreads;
-  kernel<<<blocks, kThreads, 0, (cudaStream_t)cuda_stream>>>(p);
+int blocks(int nwno) { return (nwno + kThreads - 1) / kThreads; }
+
+// stage 0 (A: sh_reflected_columns, one thread per column) or stage 1 (B:
+// sh_reflected_angles, one per column and angle) of a reflected kernel;
+// the cudaError_t
+template <int S>
+int launch_reflected(const Params& p, int stage, cudaStream_t s) {
+  if (stage == 0) {
+    sh_reflected_columns<S><<<blocks(p.nwno), kThreads, 0, s>>>(p);
+  } else if (stage == 1) {
+    if (p.nang < 1) return (int)cudaSuccess;  // no angle to solve
+    const int chunks = (p.nang + kMaxAngles - 1) / kMaxAngles;
+    const int per_chunk = (p.nang + chunks - 1) / chunks;
+    const int tiles = (p.nwno + kTileCols - 1) / kTileCols;
+    sh_reflected_angles<S><<<tiles * chunks, dim3(kTileCols, per_chunk), 0,
+                             s>>>(p, chunks);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int S>
+int launch_thermal(const Params& p, cudaStream_t s) {
+  sh_thermal_kernel<S><<<blocks(p.nwno), kThreads, 0, s>>>(p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// scratch slots ([nlayer + 1, nwno] each) of the SH kernels
 extern "C" int sh_reflected_scratch_slots(int stream, int nang) {
-  return kReflSlots + stream * stream + stream * nang;
+  if (stream == 4) return kDp<4> + 4 * nang;
+  if (stream == 2) return kDp<2> + 2 * nang;
+  return -1;
 }
 
 extern "C" int sh_thermal_scratch_slots(int stream) {
   return kThermSlots + stream * stream + stream;
 }
 
+// Launches one stage (0: A, 1: B) of the reflected kernel and returns its
+// cudaError_t; the wrapper calls it for stage 0, then stage 1, on one
+// stream.
 extern "C" int sh_reflected_launch(
     int stream, const void* taugas, const void* tauray, const void* cld_opd,
     const void* cld_w0, const void* cld_g0, const void* rf,
@@ -812,7 +1049,7 @@ extern "C" int sh_reflected_launch(
     int w_multi_rayleigh, int psingle_rayleigh, int single_form,
     float frac_a, float frac_b, float frac_c, float constant_back,
     float constant_forward, float b_top, float cf_pow, float cb_pow,
-    void* cuda_stream) {
+    int stage, void* cuda_stream) {
   Params p = {};
   p.taugas = (const float*)taugas;
   p.tauray = (const float*)tauray;
@@ -846,8 +1083,9 @@ extern "C" int sh_reflected_launch(
   p.b_top = b_top;
   p.cf_pow = cf_pow;
   p.cb_pow = cb_pow;
-  if (stream == 4) return launch(sh_reflected_kernel<4>, p, cuda_stream);
-  if (stream == 2) return launch(sh_reflected_kernel<2>, p, cuda_stream);
+  const cudaStream_t s = (cudaStream_t)cuda_stream;
+  if (stream == 4) return launch_reflected<4>(p, stage, s);
+  if (stream == 2) return launch_reflected<2>(p, stage, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -875,7 +1113,8 @@ extern "C" int sh_thermal_launch(
   p.nang = nang;
   p.dedd = delta_eddington;
   p.hard_surface = hard_surface;
-  if (stream == 4) return launch(sh_thermal_kernel<4>, p, cuda_stream);
-  if (stream == 2) return launch(sh_thermal_kernel<2>, p, cuda_stream);
+  const cudaStream_t s = (cudaStream_t)cuda_stream;
+  if (stream == 4) return launch_thermal<4>(p, s);
+  if (stream == 2) return launch_thermal<2>(p, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -9,7 +9,11 @@ the optics (``pallas_toon._optics_block`` with stream 4 or 2), the SH
 coefficients, the block-tridiagonal system in the 'incoming' grouping
 (every pivot block nonsingular at float32), solves it by block-Thomas
 elimination with pivoted Gauss-Jordan steps on the s x s blocks, and runs
-the per-angle TOA intensity sweep.
+the per-angle TOA intensity sweep.  The reflected kernels are two launches
+on the current stream: stage A, one thread per wavenumber column, builds
+the optics and factorises the block rows (Cp and each step's replay
+record); stage B, one thread per (column, disk angle), replays the record
+on the angle's right-hand side, substitutes back and sweeps.
 
 The ``*_plain`` functions are the twins: the Pallas kernels' arithmetic in
 eager PyTorch (``_expm1`` as a 4th-order Taylor below |x| < 0.05 and a
@@ -21,7 +25,10 @@ axis instead of a Python loop.
 
 Each public wrapper runs its twin for CPU tensors and launches its kernel
 for CUDA tensors (float32, contiguous), or raises.  Each counts its own
-launches in ``<wrapper>.launches``.
+launches in ``<wrapper>.launches`` (one per call; both stages of a
+reflected kernel are one).  The reflected wrappers take ``split_event``, a
+``torch.cuda.Event`` recorded between the stages, so a caller can time
+them apart.
 """
 
 from __future__ import annotations
@@ -561,7 +568,10 @@ def _launch_reflected(name, stream, taugas, tauray, cld_opd, cld_w0, cld_g0,
                       controls=ScatteringControls(), b_top=0.0,
                       delta_eddington=True, w_single_form=0, w_multi_form=0,
                       psingle_form=0, w_single_rayleigh=1,
-                      w_multi_rayleigh=1, psingle_rayleigh=1, single_form=0):
+                      w_multi_rayleigh=1, psingle_rayleigh=1, single_form=0,
+                      split_event=None):
+    """Stage 0 (A), then stage 1 (B), each launch checked before the next;
+    ``split_event`` is recorded between them."""
     _check_options(stream, w_single_form, w_multi_form, psingle_form,
                    single_form)
     strips = dict(zip(_STRIPS, (taugas, tauray, cld_opd, cld_w0, cld_g0,
@@ -581,21 +591,25 @@ def _launch_reflected(name, stream, taugas, tauray, cld_opd, cld_w0, cld_g0,
                            nlayer + 1, nwno), dtype=torch.float32,
                           device=dev)
     c = controls
+    args = (
+        stream, taugas.data_ptr(), tauray.data_ptr(), cld_opd.data_ptr(),
+        cld_w0.data_ptr(), cld_g0.data_ptr(), rf.data_ptr(),
+        surf_reflect.data_ptr(), F0PI.data_ptr(),
+        ubar0.reshape(-1).data_ptr(), ubar1.reshape(-1).data_ptr(),
+        ct.data_ptr(), out.data_ptr(), scratch.data_ptr(), nlayer, nwno, nang,
+        int(bool(delta_eddington)), int(w_single_form), int(w_multi_form),
+        int(psingle_form), int(w_single_rayleigh), int(w_multi_rayleigh),
+        int(psingle_rayleigh), int(single_form), c.frac_a, c.frac_b,
+        c.frac_c, c.constant_back, c.constant_forward, float(b_top),
+        c.constant_forward ** stream, c.constant_back ** stream)
     with torch.cuda.device(dev):
-        code = lib.sh_reflected_launch(
-            stream, taugas.data_ptr(), tauray.data_ptr(), cld_opd.data_ptr(),
-            cld_w0.data_ptr(), cld_g0.data_ptr(), rf.data_ptr(),
-            surf_reflect.data_ptr(), F0PI.data_ptr(),
-            ubar0.reshape(-1).data_ptr(), ubar1.reshape(-1).data_ptr(),
-            ct.data_ptr(), out.data_ptr(), scratch.data_ptr(), nlayer, nwno,
-            nang, int(bool(delta_eddington)), int(w_single_form),
-            int(w_multi_form), int(psingle_form), int(w_single_rayleigh),
-            int(w_multi_rayleigh), int(psingle_rayleigh), int(single_form),
-            c.frac_a, c.frac_b, c.frac_c, c.constant_back,
-            c.constant_forward, float(b_top),
-            c.constant_forward ** stream, c.constant_back ** stream,
-            torch.cuda.current_stream(dev).cuda_stream)
-    check(code, name)
+        cuda_stream = torch.cuda.current_stream(dev)
+        for stage in (0, 1):
+            if stage == 1 and split_event is not None:
+                split_event.record(cuda_stream)
+            check(lib.sh_reflected_launch(*args, stage,
+                                          cuda_stream.cuda_stream),
+                  f'{name} stage {"AB"[stage]}')
     return out.reshape(ng, nt, nwno)
 
 
@@ -632,45 +646,51 @@ def _launch_thermal(name, stream, all_b, taugas, tauray, cld_opd, cld_w0,
     return out.reshape(ng, nt, nwno)
 
 
-def _dispatch(wrapper, twin, launch, stream, taugas, args, kwargs):
+def _dispatch(wrapper, twin, launch, stream, taugas, args, kwargs,
+              **launch_kwargs):
+    """The twin for CPU tensors; else the kernel, with ``launch_kwargs``
+    (options the twin does not take)."""
     dev = taugas.device
     if dev.type == 'cpu':
         return twin(*args, **kwargs)
     if dev.type != 'cuda':
         raise ValueError(f'{wrapper.__name__}: unsupported device {dev}')
-    out = launch(wrapper.__name__, stream, *args, **kwargs)
+    out = launch(wrapper.__name__, stream, *args, **kwargs, **launch_kwargs)
     wrapper.launches += 1
     return out
 
 
 def reflected_sh4(taugas, tauray, cld_opd, cld_w0, cld_g0, rf, surf_reflect,
-                  ubar0, ubar1, cos_theta, F0PI, **kwargs):
+                  ubar0, ubar1, cos_theta, F0PI, split_event=None, **kwargs):
     """SH4 reflected TOA intensity [ng, nt, nwno]; same contract and
     options as ``reflected_sh4_pallas`` (``controls``, ``b_top``,
     ``delta_eddington``, the seven SH form switches).  CPU tensors take
-    the twin, CUDA tensors ``csrc/sh_spectrum.cu``.
+    the twin, CUDA tensors ``csrc/sh_spectrum.cu`` (two stages;
+    ``split_event`` is recorded between them).
 
     Left out of the TPU kernel, with the reason: the wavelength blocks and
-    their VMEM staging (one thread owns one column, per-layer values in
-    global scratch [slot, row, nwno]); the staged A/B/C blocks (the thread
-    rebuilds each block row from the layer's coefficients); the
-    triangular-matmul cumsum (a running sum); the SMEM angle operands
+    their VMEM staging (a thread owns a column in stage A, a column and an
+    angle in stage B; per-layer values in global scratch [slot, row,
+    nwno]); the staged A/B/C blocks (stage A rebuilds each block row from
+    the layer's coefficients); the angle-stacked right-hand sides (stage B
+    replays each block row's recorded Gauss-Jordan step on one angle's);
+    the triangular-matmul cumsum (a running sum); the SMEM angle operands
     (small device arrays read by every thread).
     """
     args = (taugas, tauray, cld_opd, cld_w0, cld_g0, rf, surf_reflect,
             ubar0, ubar1, cos_theta, F0PI)
     return _dispatch(reflected_sh4, reflected_sh4_plain, _launch_reflected,
-                     4, taugas, args, kwargs)
+                     4, taugas, args, kwargs, split_event=split_event)
 
 
 def reflected_sh2(taugas, tauray, cld_opd, cld_w0, cld_g0, rf, surf_reflect,
-                  ubar0, ubar1, cos_theta, F0PI, **kwargs):
+                  ubar0, ubar1, cos_theta, F0PI, split_event=None, **kwargs):
     """SH2 reflected TOA intensity; :func:`reflected_sh4` with 2 x 2
     blocks (``reflected_sh2_pallas``)."""
     args = (taugas, tauray, cld_opd, cld_w0, cld_g0, rf, surf_reflect,
             ubar0, ubar1, cos_theta, F0PI)
     return _dispatch(reflected_sh2, reflected_sh2_plain, _launch_reflected,
-                     2, taugas, args, kwargs)
+                     2, taugas, args, kwargs, split_event=split_event)
 
 
 def thermal_sh4(all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, rf, ptfac,

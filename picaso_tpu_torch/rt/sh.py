@@ -39,43 +39,46 @@ PI = math.pi
 _CLIP = 35.0
 
 
+def _float_dtypes(x):
+    """The floating dtypes of the tensors in a nested tuple / list."""
+    if isinstance(x, torch.Tensor):
+        return {x.dtype} if x.is_floating_point() else set()
+    if isinstance(x, (tuple, list)):
+        return set().union(*(_float_dtypes(y) for y in x))
+    return set()
+
+
+def _cast(x, target):
+    """``x`` (nested tuple / NamedTuple) with its floating tensors in
+    ``target``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(target) if x.is_floating_point() else x
+    if isinstance(x, tuple) and hasattr(x, '_fields'):
+        return type(x)(*[_cast(y, target) for y in x])
+    if isinstance(x, (tuple, list)):
+        return type(x)(_cast(y, target) for y in x)
+    return x
+
+
 def _promote(arrays, precision):
     """Cast a (nested tuple / NamedTuple) of SH inputs per ``precision``.
 
     Returns (cast, restore); restore(x) casts an output back to the
-    floating dtype of the inputs.
+    floating dtype of the inputs.  (Module-level helpers, not recursive
+    closures: a closure that calls itself is a reference cycle, which kept
+    every input alive until the garbage collector ran.)
     """
-    leaves = []
-
-    def collect(x):
-        if isinstance(x, torch.Tensor):
-            leaves.append(x)
-        elif isinstance(x, (tuple, list)):
-            for y in x:
-                collect(y)
-
-    collect(arrays)
-    floats = [x.dtype for x in leaves if x.is_floating_point()]
-    dt = torch.float64 if torch.float64 in floats else torch.float32
+    dt = (torch.float64 if torch.float64 in _float_dtypes(arrays)
+          else torch.float32)
     if precision == 'auto':
         precision = 'f64' if dt == torch.float64 else 'f32'
     if precision not in ('f64', 'f32'):
         raise ValueError(f"SH precision must be 'auto', 'f64' or 'f32', "
                          f'got {precision!r}')
     target = torch.float64 if precision == 'f64' else torch.float32
-
-    def cast(x):
-        if isinstance(x, torch.Tensor):
-            return x.to(target) if x.is_floating_point() else x
-        if isinstance(x, tuple) and hasattr(x, '_fields'):
-            return type(x)(*[cast(y) for y in x])
-        if isinstance(x, (tuple, list)):
-            return type(x)(cast(y) for y in x)
-        return x
-
     if target == dt:
-        return cast(arrays), lambda x: x
-    return cast(arrays), lambda x: x.to(dt)
+        return _cast(arrays, target), lambda x: x
+    return _cast(arrays, target), lambda x: x.to(dt)
 
 
 def _ipow(x, n):

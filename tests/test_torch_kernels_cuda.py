@@ -189,15 +189,22 @@ def _sh_inputs(dev, kind, nwno, nang, nlayer=30, seed=17):
     return [all_b] + strips + [ptfac, surf, u1]
 
 
+# every branch of the reflected stage B: w_multi_form, psingle_form and
+# w_single_form 0/1/2, single_form 0/1, the Rayleigh switches off
 _SH_CASES = {
     'reflected': [dict(), dict(delta_eddington=False, b_top=0.1),
                   dict(w_multi_form=1, psingle_form=1, single_form=1),
-                  dict(controls=ScatteringControls(frac_c=1.5))],
+                  dict(controls=ScatteringControls(frac_c=1.5)),
+                  dict(w_multi_form=2, psingle_form=2, w_single_form=1),
+                  dict(w_single_form=2, single_form=1, w_single_rayleigh=0,
+                       w_multi_rayleigh=0, psingle_rayleigh=0)],
     'thermal': [dict(), dict(hard_surface=True, delta_eddington=False)],
 }
 
 
-@pytest.mark.parametrize('nang', [1, 5, 12])
+# disk angles: 9 and 36 cross the reflected stage B's 8-angle chunks; nwno
+# 300 and 1000 are not multiples of its 32 columns
+@pytest.mark.parametrize('nang', [1, 5, 12, 8, 9, 36])
 @pytest.mark.parametrize('nwno', [300, 1000])
 @pytest.mark.parametrize('stream', [2, 4])
 @pytest.mark.parametrize('kind', ['reflected', 'thermal'])
@@ -243,6 +250,52 @@ def test_sh_wrappers_reject_bad_inputs(dev, kind):
     if kind == 'reflected':
         with pytest.raises(ValueError):
             wrapper(*args, single_form=3)
+
+
+@pytest.mark.parametrize('nang', [5, 36])
+@pytest.mark.parametrize('stream', [2, 4])
+def test_sh_reflected_split_event_keeps_outputs(dev, stream, nang):
+    """The two stages with an event recorded between them give the same
+    bits as without, and the event splits the time."""
+    wrapper = getattr(cuda_sh, f'reflected_sh{stream}')
+    args = _sh_inputs(dev, 'reflected', 1000, nang)
+    out = wrapper(*args)
+    start, mid, end = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(3))
+    start.record()
+    split = wrapper(*args, split_event=mid)
+    end.record()
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.equal(out, split)
+    assert start.elapsed_time(mid) > 0 and mid.elapsed_time(end) > 0
+
+
+def test_sh_failed_launch_raises(dev, monkeypatch):
+    """An entry that refuses its arguments returns a nonzero code, which
+    `check` raises on; the wrapper raises when either stage fails and does
+    not count the call."""
+    from picaso_tpu_torch._build import check, library
+    lib = library()
+    null = [None] * 13
+    flags = [0] * 11
+    floats = [0.0] * 8
+    for stream, stage in ((3, 0), (4, 2), (2, 5)):
+        code = lib.sh_reflected_launch(stream, *null, 91, 300, 5, *flags[3:],
+                                       *floats, stage, None)
+        assert code != 0
+        with pytest.raises(RuntimeError):
+            check(code, 'sh_reflected_launch')
+    assert lib.sh_reflected_scratch_slots(3, 5) < 0
+    entry = lib.sh_reflected_launch
+    args = _sh_inputs(dev, 'reflected', 300, 5)
+    for bad_stage in (0, 1):
+        def refuse(*a, bad_stage=bad_stage):
+            return 1 if a[-2] == bad_stage else entry(*a)
+        monkeypatch.setattr(lib, 'sh_reflected_launch', refuse)
+        before = cuda_sh.reflected_sh4.launches
+        with pytest.raises(RuntimeError, match='stage ' + 'AB'[bad_stage]):
+            cuda_sh.reflected_sh4(*args)
+        assert cuda_sh.reflected_sh4.launches == before
 
 
 @pytest.mark.parametrize('stream', [2, 4])
