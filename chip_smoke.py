@@ -31,8 +31,8 @@ Phases (any failure raises, so the exit code is nonzero):
     and K2's two launches apart (stage A with the thermal pass, stage B)
  9. each SH kernel (reflected/thermal at 4 and 2 streams) vs its twin at
     the production shape (max rel <= 1e-3, median rel <= 1e-5), each timed
-    against its twin, the reflected kernels' two launches apart; then
-    reflected_sh4 alone at the phase curve's 36 angles against its twin,
+    against its twin, its two launches apart; then reflected_sh4 and
+    thermal_sh4 alone at the phase curve's 36 angles against their twins,
     timed
 10. SH4 and SH2 forwards on the 4 perturbed scenes: finite outputs, each
     SH kernel of the stream and the gather launched once per forward, no
@@ -180,8 +180,8 @@ def cuda_ms(fn, n):
 
 
 def stages_ms(kern, args, kw, n):
-    """Mean device time of each stage (A, B) of a two-stage reflected
-    kernel over n calls, by CUDA events recorded before, between (the
+    """Mean device time of each stage (A, B) of a two-stage kernel over n
+    calls, by CUDA events recorded before, between (the
     wrapper's ``split_event``) and after its two launches."""
     kern(*args, **kw)
     torch.cuda.synchronize()
@@ -495,34 +495,32 @@ def main():
             sh[name] = {'max_abs_err': err,
                         'ms': cuda_ms(lambda: kern(*args, **kw), 10),
                         'plain_ms': cuda_ms(lambda: twin(*args, **kw), 2),
-                        'bytes': nbytes, 'ops': ops}
-            if kind == 'reflected':
-                sh[name]['stages_ms'] = stages_ms(kern, args, kw, 10)
+                        'bytes': nbytes, 'ops': ops,
+                        'stages_ms': stages_ms(kern, args, kw, 10)}
             log(f'    {name} {sh[name]["ms"]:.3f} ms (stages '
                 f'{sh[name].get("stages_ms")}) vs twin '
                 f'{sh[name]["plain_ms"]:.3f} ms')
-    # reflected_sh4 alone at the phase curve's 6 x 6 disk (36 angles, 45
-    # degrees)
+    # reflected_sh4 and thermal_sh4 alone at the phase curve's 6 x 6 disk
+    # (36 angles, 45 degrees)
     scene_36 = pipeline.with_geometry(scene, disco.make_geometry(
         math.radians(45.0), num_gangle=6, num_tangle=6))
-    (r36_args, r36_kw), _ = pipeline.sh_args(
+    sh36 = dict(zip(('reflected_sh4', 'thermal_sh4'), pipeline.sh_args(
         scene_36, grid, dataclasses.replace(config, rt_method=1, stream=4),
-        tg, tr, rf)
-    out = cuda_sh.reflected_sh4(*r36_args, **r36_kw)
-    ref = cuda_sh.reflected_sh4_plain(*r36_args, **r36_kw)
-    torch.cuda.synchronize()
-    err = check_twin('reflected_sh4 36 angles', out, ref, phase=9)
-    del out, ref
-    sh['reflected_sh4'].update(
-        phase_curve_max_abs_err=err,
-        phase_curve_ms=cuda_ms(
-            lambda: cuda_sh.reflected_sh4(*r36_args, **r36_kw), 10),
-        phase_curve_stages_ms=stages_ms(cuda_sh.reflected_sh4, r36_args,
-                                        r36_kw, 10))
-    log(f'    reflected_sh4 at 36 angles '
-        f'{sh["reflected_sh4"]["phase_curve_ms"]:.3f} ms (stages '
-        f'{sh["reflected_sh4"]["phase_curve_stages_ms"]})')
-    del r36_args, scene_36
+        tg, tr, rf)))
+    for name, (args, kw) in sh36.items():
+        kern = getattr(cuda_sh, name)
+        out = kern(*args, **kw)
+        ref = getattr(cuda_sh, f'{name}_plain')(*args, **kw)
+        torch.cuda.synchronize()
+        err = check_twin(f'{name} 36 angles', out, ref, phase=9)
+        del out, ref
+        sh[name].update(
+            phase_curve_max_abs_err=err,
+            phase_curve_ms=cuda_ms(lambda: kern(*args, **kw), 10),
+            phase_curve_stages_ms=stages_ms(kern, args, kw, 10))
+        log(f'    {name} at 36 angles {sh[name]["phase_curve_ms"]:.3f} ms '
+            f'(stages {sh[name]["phase_curve_stages_ms"]})')
+    del sh36, scene_36
 
     # phase 10: the SH main paths, counted
     for stream in (4, 2):

@@ -95,8 +95,8 @@ _SIGNATURES = {
                            + [_P],
     # stream, all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, rf,
     # surf_reflect, ubar1, ptfac, out, scratch, nlayer, nwno, nang,
-    # delta_eddington, hard_surface, cuda stream
-    'sh_thermal_launch': [_I] + [_P] * 12 + [_I] * 5 + [_P],
+    # delta_eddington, hard_surface, stage (0: A, 1: B), cuda stream
+    'sh_thermal_launch': [_I] + [_P] * 12 + [_I] * 6 + [_P],
     # scratch slots of the SH kernels: (stream, nang) and (stream)
     'sh_reflected_scratch_slots': [_I, _I],
     'sh_thermal_scratch_slots': [_I],

@@ -3,12 +3,12 @@
 //
 // Replaces four TPU kernels of picaso_tpu/rt/pallas_sh.py
 // (_sh{4,2}_{reflected,thermal}_core -> _optics_block, _sh{4,2}_coeffs,
-// _eta{,2}_sources, _stage_system, _solve_sh_staged, _gj_rows), the
-// reflected ones in two launches, stage A then stage B:
+// _eta{,2}_sources, _stage_system, _solve_sh_staged, _gj_rows), each in two
+// launches, stage A then stage B:
 //   reflected_sh4_pallas <- sh_reflected_columns<4> + sh_reflected_angles<4>
 //   reflected_sh2_pallas <- sh_reflected_columns<2> + sh_reflected_angles<2>
-//   thermal_sh4_pallas   <- sh_thermal_kernel<4>
-//   thermal_sh2_pallas   <- sh_thermal_kernel<2>
+//   thermal_sh4_pallas   <- sh_thermal_columns<4> + sh_thermal_angles<4>
+//   thermal_sh2_pallas   <- sh_thermal_columns<2> + sh_thermal_angles<2>
 // Per column they build the optics from the six source strips, the SH
 // coefficients of every layer, the block-tridiagonal system in the
 // 'incoming' row grouping (S x S blocks, S = stream; every pivot block
@@ -19,60 +19,93 @@
 // What bounds them on this card: the chain of dependent layer steps (the
 // elimination and the sweeps are sequential over the layers) and the fp32
 // divisions, square roots and exponentials of the per-layer coefficients;
-// only the wavenumber axis and, for the reflected beam, the disk-angle axis
-// are parallel.  The first reflected design ran everything of a column in
-// one thread and was bounded by three things: the angles ran one after
-// another (after the shared factorisation of a block row the thread
-// replayed it on each angle's right-hand side in turn, then substituted
-// back and swept each angle in turn: about 15 chained 90-step sweeps per
-// thread at 5 angles, where the TPU kernel puts the angles' right-hand
-// sides side by side as extra columns of one [B | C | D] block row and
-// advances them all in one loop step); 50 000 threads are about 12 warps
-// per SM of 64, too few to hide the latency of the sqrtf/expf/division
-// chains of the coefficients; and each angle re-read the column's
-// angle-independent rows (the optics, Cp[k]) from a scratch of 45 slots x
-// 91 x 50 000 x 4 B = 819 MB at SH4 and 5 angles, 16 times the 50 MB L2,
-// so from HBM.
+// only the wavenumber axis and the disk-angle axis are parallel.  The
+// first design ran everything of a column in one thread and was bounded by
+// three things: the angles ran one after another (about 15 chained 90-step
+// sweeps per thread at 5 angles for the reflected beam, where the TPU
+// kernel advances all angles' right-hand sides in one loop step, and one
+// sweep per angle for the thermal pass, where the TPU kernel computes each
+// angle's sources for all layers at once); 50 000 threads are about 12
+// warps per SM of 64, too few to hide the latency of the sqrtf/expf/
+// division chains of the coefficients, which the thermal kernel computed
+// 2 + nang times per layer; and each angle re-read the column's
+// angle-independent rows from a scratch 16 times the 50 MB L2, so from HBM.
 //
-// Design of the reflected pass: two launches on one stream, as in
-// toon_spectrum.cu.
-//  Stage A, one thread per column (sh_reflected_columns): the optics rows,
-//  then the matrix half of the elimination: block row k rebuilt from the
-//  coefficients of layers k-1, k, k+1 (a rolling window), the pivoted
-//  Gauss-Jordan step on [B | C], Cp[k] and the step's replay record (row
-//  swap flags packed into one slot, pivot inverses, multipliers: 17 slots
-//  at SH4, 5 at SH2) to scratch.  No beam source, no right-hand side.
-//  Stage B, one thread per (column, angle) (sh_reflected_angles): a block
-//  is 32 consecutive columns by up to 8 angles, one warp per angle, so
-//  every access coalesces and the warps of one tile read the tile's
-//  angle-independent rows (optics, Cp, record) at about the same time, from
-//  L1/L2 instead of from HBM once per angle; more angles are cut into
-//  chunks of at most 8, the chunks of one tile in neighbouring blocks.  Top
-//  down, each thread builds its angle's source rows D[k] from the beams of
-//  layers k-1, k and k+1, applies the Schur update and replays layer k's
-//  record on them; Dp[k] (S slots per angle) is its only scratch.  Bottom
-//  up, one loop substitutes back (X[k] = Dp[k] - Cp[k] X[k+1], in
-//  registers) and advances the TOA intensity sweep with X[k] as soon as it
-//  is known.  The angles' recursions run in parallel on nang times as many
-//  threads, with their own register budget.
+// Design: two launches on one stream, as in toon_spectrum.cu.
+//  Stage A, one thread per column.  Reflected (sh_reflected_columns): the
+//  optics rows, then the matrix half of the elimination: block row k
+//  rebuilt from the coefficients of layers k-1, k, k+1 (a rolling window),
+//  the pivoted Gauss-Jordan step on [B | C], Cp[k] and the step's replay
+//  record (row swap flags packed into one slot, pivot inverses,
+//  multipliers: 17 slots at SH4, 5 at SH2) to scratch; no beam source, no
+//  right-hand side.  Thermal (sh_thermal_columns): one top-down loop
+//  computes each layer's optics and coefficients once, in the same rolling
+//  window, and writes dtau, w0 and the values the sweep needs (16 slots at
+//  SH4, 7 at SH2); it builds block row k and the source rows D[k] in
+//  registers from z_down/z_up of layers k-1, k and k+1, applies the Schur
+//  update, factors the block row, replays the step on D[k] and writes Cp[k]
+//  and Dp[k]; the back-substitution then leaves X[k] (S slots).
+//  Stage B, one thread per (column, angle): a block is 32 consecutive
+//  columns by up to 8 angles, one warp per angle, so every access
+//  coalesces and the warps of one tile read the tile's angle-independent
+//  rows at about the same time, from L1/L2 instead of from HBM once per
+//  angle; more angles are cut into chunks of at most 8, the chunks of one
+//  tile in neighbouring blocks.  No shared memory, no barrier.  Reflected
+//  (sh_reflected_angles): top down, each thread builds its angle's D[k]
+//  from the beams of layers k-1, k and k+1, applies the Schur update and
+//  replays layer k's record on them; Dp[k] (S slots per angle) is its only
+//  scratch.  Bottom up, one loop substitutes back (X[k] = Dp[k] - Cp[k]
+//  X[k+1], in registers) and advances the TOA intensity sweep with X[k] as
+//  soon as it is known.  Thermal (sh_thermal_angles): the bottom-up sweep
+//  of its angle over X[k] and the layer values stage A stored (recomputing
+//  them per angle instead made stage B 55 % slower at SH4).
 //
 // Each value is computed by the same operations in the same order as in
 // the one-thread design (the record holds the very swaps, inverses and
-// multipliers; coefficients and beams are recomputed from the stored
-// optics), so the outputs are bitwise those of that design.  Per-layer
+// multipliers; the thermal layer values are stored as computed; reflected
+// coefficients and beams are recomputed from the stored optics), so the
+// outputs are bitwise those of that design.  Per-layer
 // values go to global scratch [slot, row, nwno] (coalesced across a warp),
 // which the wrapper allocates.  Expressions keep the TPU kernel's order of
 // operations (integer powers as lax.integer_pow's products, the Taylor
 // expm1 below |x| 0.05, the exp clip at 35, beam dither 1e-3); built with
 // -fmad=false, so each operation rounds as in the eager PyTorch twin
-// (rt/cuda_sh.py).  The thermal kernels keep one thread per column: one
-// right-hand side, the angles only in the final sweep.
+// (rt/cuda_sh.py).
+//
+// Without nvcc (__CUDACC__ undefined) the file compiles as host C++
+// (g++ -std=c++17 -ffp-contract=off -x c++): the qualifiers are empty, the
+// thread indices are globals, and sh_thermal_host runs the thermal stages'
+// threads as loops (tests/test_torch_sh_thermal_host.py).
 
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#else
+#include <math.h>
+#include <string.h>
+#define __device__
+#define __global__
+#define __launch_bounds__(...)
+namespace {
+struct HostDim3 {
+  unsigned x = 0, y = 0, z = 0;
+};
+HostDim3 blockIdx, blockDim, threadIdx;
+float __int_as_float(int i) {
+  float f;
+  memcpy(&f, &i, sizeof f);
+  return f;
+}
+int __float_as_int(float f) {
+  int i;
+  memcpy(&i, &f, sizeof i);
+  return i;
+}
+}  // namespace
+#endif
 
 namespace {
 
-constexpr int kThreads = 128;   // stage A, thermal
+constexpr int kThreads = 128;   // stage A: one thread per column
 constexpr int kTileCols = 32;   // stage B: one warp = 32 columns, one angle
 constexpr int kMaxAngles = 8;   // stage B: angles per block
 constexpr float kClip = 35.0f;
@@ -85,10 +118,18 @@ constexpr float kOnePlusDelta = (float)(1.0 + 1e-3);
 
 // scratch slots, each [nlayer + 1, nwno].  Reflected: the optics, Cp
 // (S * S), the replay record (kRecSlots), then S Dp rows per angle;
-// thermal: its optics, Cp, then D.
+// thermal: dtau and w0, Cp, Dp (X after the back-substitution), then the
+// layer values of the sweep (kThermCoefSlots: lam, ex, R/Q/Sg or q, a0,
+// a1, wm).
 enum ReflSlot { R_DTAU, R_TAU, R_W0, R_W0_OG, R_DTAU_OG, R_TAU_OG,
                 R_COSB_OG, R_FTC, R_FTR, kReflSlots };
-enum ThermSlot { T_DTAU, T_W0, T_COSB_OG, kThermSlots };
+enum ThermSlot { T_DTAU, T_W0, kThermSlots };
+constexpr int kThermCp = kThermSlots;
+template <int S> constexpr int kThermX = kThermSlots + S * S;
+template <int S> constexpr int kThermCoef = kThermX<S> + S;
+template <int S> constexpr int kThermCoefSlots = S == 4 ? 16 : 7;
+template <int S>
+constexpr int kThermScratch = kThermCoef<S> + kThermCoefSlots<S>;
 
 // one layer's Gauss-Jordan record: the packed swap flags, S pivot
 // inverses, S (S - 1) multipliers
@@ -387,34 +428,8 @@ __device__ float homogeneous4(const Coef<4>& c, const float wm[4],
 }
 
 // ---------------------------------------------------------------------
-// block system: staging, elimination, back-substitution
+// block system: elimination, back-substitution
 // ---------------------------------------------------------------------
-
-// Source rows of layer k (pallas_sh.py:_stage_system, D rows) from
-// z_down/z_up of layer k, into slots d0..d0 + S - 1.  Each row first holds
-// the z_up value it needs as a placeholder, replaced by the final
-// difference once layer k + 1 (or the boundary) is known.
-template <int S>
-__device__ void stage(const Col& c, int d0, int k, const float zd[S],
-                      const float zu[S], const float btv[], const float bsv[],
-                      float sr) {
-  constexpr int H = S / 2;
-  const int L = c.p.nlayer;
-#pragma unroll
-  for (int i = 0; i < H; ++i) {
-    float& d = c.s(d0 + i, k);
-    d = k == 0 ? btv[i] - zd[i] : zd[i] - d;
-    if (k + 1 < L) c.s(d0 + i, k + 1) = zu[i];
-  }
-#pragma unroll
-  for (int i = H; i < S; ++i) {
-    if (k >= 1) {
-      float& d = c.s(d0 + i, k - 1);
-      d = zd[i] - d;
-    }
-    c.s(d0 + i, k) = k == L - 1 ? bsv[i - H] - zu[i] + sr * zu[i - H] : zu[i];
-  }
-}
 
 // the pivoted Gauss-Jordan step of one block row: its row swaps, pivot
 // inverses and multipliers, replayed on the right-hand sides
@@ -504,14 +519,15 @@ __device__ void replay(const GJ<S>& g, float d[S]) {
 }
 
 // Block-Thomas elimination, matrix half (pallas_sh.py:_solve_sh_staged);
-// `layer(j)` gives the coefficients of layer j.  Writes Cp[k] to slots
-// cp0.., then calls step(k, coefficients of layer k - 1, the step of
-// block row k).
+// `layer(j)` gives the state of layer j, computed once: its coefficients
+// (a Coef<S> or a type derived from it) and what the step needs besides.
+// Writes Cp[k] to slots cp0.., then calls step(k, the states of layers
+// k - 1, k and k + 1, the step of block row k).
 template <int S, class Layer, class Step>
 __device__ void eliminate(const Col& c, const Layer& layer, int cp0, float sr,
                           const Step& step) {
   const int L = c.p.nlayer;
-  Coef<S> prev{}, cur = layer(0), next{};
+  decltype(layer(0)) prev{}, cur = layer(0), next{};
   float cp[S][S];
   for (int k = 0; k < L; ++k) {
     const bool last = k == L - 1;
@@ -528,7 +544,7 @@ __device__ void eliminate(const Col& c, const Layer& layer, int cp0, float sr,
         c.s(cp0 + S * i + j, k) = cp[i][j];
       }
     }
-    step(k, prev, g);
+    step(k, prev, cur, next, g);
     prev = cur;
     cur = next;
   }
@@ -696,9 +712,8 @@ __global__ void __launch_bounds__(kThreads)
   c.s(R_TAU, L) = tau;
   c.s(R_TAU_OG, L) = tau_og;
   eliminate<S>(c, ReflLayer<S>{c}, kCp, p.sr[w],
-               [&](int k, const Coef<S>&, const GJ<S>& g) {
-                 store_record<S>(c, k, g);
-               });
+               [&](int k, const Coef<S>&, const Coef<S>&, const Coef<S>&,
+                   const GJ<S>& g) { store_record<S>(c, k, g); });
 }
 
 // Registers of stage B: at most 65536 / (256 * min blocks) a thread (SH4
@@ -872,145 +887,250 @@ __device__ void thermal_w(const Params& p, float cosb_og, float wm[S]) {
     wm[l] = (float)(2 * l + 1) * (ipow(cosb_og, l) - ff) / (1.0f - ff);
 }
 
+// the layer values of the sweep, which stage A stores for stage B, in
+// slot order: f(slot, value) for lam, ex, then R, Q, Sg (SH4) or q (SH2),
+// a0, a1, wm
+template <int S, class F>
+__device__ void sweep_values(Coef<S>& cf, float wm[S], const F& f) {
+  constexpr int H = S / 2;
+  int slot = kThermCoef<S>;
+#pragma unroll
+  for (int m = 0; m < H; ++m) f(slot++, cf.lam[m]);
+#pragma unroll
+  for (int m = 0; m < H; ++m) f(slot++, cf.ex[m]);
+  if constexpr (S == 4) {
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      f(slot++, cf.R[m]);
+      f(slot++, cf.Q[m]);
+      f(slot++, cf.Sg[m]);
+    }
+  } else {
+    f(slot++, cf.q);
+  }
+  f(slot++, cf.a[0]);
+  f(slot++, cf.a[1]);
+#pragma unroll
+  for (int l = 0; l < S; ++l) f(slot++, wm[l]);
+}
+
+// stage A's state of layer j: its coefficients, b1 (the Planck slope over
+// the layer) and the thermal source at its top (zd) and bottom (zu)
+template <int S>
+struct ThermState : Coef<S> {
+  float zd[S], zu[S], b1;
+};
+
+// layer j of stage A: writes its dtau and w0 and the sweep's layer values,
+// and returns its state
 template <int S>
 struct ThermLayer {
   const Col& c;
-  __device__ Coef<S> operator()(int j) const {
+  __device__ ThermState<S> operator()(int j) const {
+    const Params& p = c.p;
+    const Optics o = optics(c, j, S);
+    c.s(T_DTAU, j) = o.dtau;
+    c.s(T_W0, j) = o.w0;
+    const float dtau = o.dtau, w0 = o.w0;
     float wm[S];
-    thermal_w<S>(c.p, c.s(T_COSB_OG, j), wm);
-    Coef<S> cf;
-    coeffs(cf, c.s(T_W0, j), c.s(T_DTAU, j), wm);
-    return cf;
+    thermal_w<S>(p, o.cosb_og, wm);
+    ThermState<S> t;
+    coeffs(t, w0, dtau, wm);
+    sweep_values<S>(t, wm, [&](int slot, float& v) { c.s(slot, j) = v; });
+    const float b0 = c.in(p.all_b, j);
+    const float b1 = (c.in(p.all_b, j + 1) - b0) / dtau;
+    t.b1 = b1;
+    const float a0 = t.a[0], a1 = t.a[1];
+    const float pref = (1.0f - w0) / a0 * 2.0f * kPi;
+    t.zd[0] = pref * (b0 / 2.0f - b1 / a1);
+    t.zu[0] = pref * (b0 / 2.0f - b1 / a1 + b1 * dtau / 2.0f);
+    t.zd[S / 2] = pref * (b0 / 2.0f + b1 / a1);
+    t.zu[S / 2] = pref * (b0 / 2.0f + b1 / a1 + b1 * dtau / 2.0f);
+    if constexpr (S == 4) {
+      const float pref2 = -0.5f * (1.0f - w0) / (4.0f * a0) * 2.0f * kPi;
+      t.zd[1] = t.zd[3] = pref2 * b0;
+      t.zu[1] = t.zu[3] = pref2 * (b0 + b1 * dtau);
+    }
+    return t;
   }
 };
 
+// stage A: one top-down loop over the layers, each layer's coefficients
+// computed once (the window of eliminate); D[k] (pallas_sh.py:
+// _stage_system) is built in registers from z_up of layer k-1, z_down and
+// z_up of layer k and z_down of layer k+1, updated by F(k-1) Dp[k-1] in its
+// top rows, and solved by block row k's step.  Then X = the back-
+// substituted Dp.
 template <int S>
-__global__ void __launch_bounds__(kThreads) sh_thermal_kernel(const Params p) {
+__global__ void __launch_bounds__(kThreads)
+    sh_thermal_columns(const Params p) {
   constexpr int H = S / 2;
   const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (w >= p.nwno) return;
   const Col c{p, w};
   const int L = p.nlayer;
-  const int cp0 = kThermSlots, d0 = kThermSlots + S * S;
   const float sr = p.sr[w];
   const float ab_last = c.in(p.all_b, L);
+  float dp[S];  // Dp[k - 1]
+  eliminate<S>(
+      c, ThermLayer<S>{c}, kThermCp, sr,
+      [&](int k, const ThermState<S>& prev, const ThermState<S>& cur,
+          const ThermState<S>& next, const GJ<S>& g) {
+        float d[S];
+        if (k == 0) {
+          const float b0 = c.in(p.all_b, 0);
+          const float tau_top = c.s(T_DTAU, 0) * p.ptfac[0];
+          const float bt = kPi * (1.0f - expf(-tau_top / 0.5f)) * b0;
+          const float btv[2] = {bt, -bt / 4.0f};
+#pragma unroll
+          for (int i = 0; i < H; ++i) d[i] = btv[i] - cur.zd[i];
+        } else {
+#pragma unroll
+          for (int i = 0; i < H; ++i) d[i] = cur.zd[i] - prev.zu[i];
+        }
+        if (k == L - 1) {
+          const float bsv[2] = {
+              p.hard_surface ? kPi * ab_last : kPi * (ab_last + cur.b1 * 0.5f),
+              -kPi * ab_last / 4.0f};
+#pragma unroll
+          for (int i = H; i < S; ++i)
+            d[i] = bsv[i - H] - cur.zu[i] + sr * cur.zu[i - H];
+        } else {
+#pragma unroll
+          for (int i = H; i < S; ++i) d[i] = next.zd[i] - cur.zu[i];
+        }
+        if (k > 0) {
+#pragma unroll
+          for (int i = 0; i < H; ++i) {
+#pragma unroll
+            for (int kk = 0; kk < S; ++kk)
+              d[i] = d[i] - prev.F(i, kk) * dp[kk];
+          }
+        }
+        replay<S>(g, d);
+#pragma unroll
+        for (int i = 0; i < S; ++i) {
+          dp[i] = d[i];
+          c.s(kThermX<S> + i, k) = d[i];
+        }
+      });
+  back_substitute<S>(c, kThermCp, kThermX<S>);
+}
 
-  float btv[2] = {0.0f, 0.0f};
-  for (int j = 0; j < L; ++j) {
-    const Optics o = optics(c, j, S);
-    c.s(T_DTAU, j) = o.dtau;
-    c.s(T_W0, j) = o.w0;
-    c.s(T_COSB_OG, j) = o.cosb_og;
-    const Coef<S> cf = ThermLayer<S>{c}(j);
-    const float dtau = o.dtau, w0 = o.w0;
-    const float b0 = c.in(p.all_b, j);
-    const float b1 = (c.in(p.all_b, j + 1) - b0) / dtau;
-    if (j == 0) {
-      const float tau_top = dtau * p.ptfac[0];
-      btv[0] = kPi * (1.0f - expf(-tau_top / 0.5f)) * b0;
-      btv[1] = -btv[0] / 4.0f;
-    }
-    const float a0 = cf.a[0], a1 = cf.a[1];
-    const float pref = (1.0f - w0) / a0 * 2.0f * kPi;
-    float zd[S], zu[S];
-    zd[0] = pref * (b0 / 2.0f - b1 / a1);
-    zu[0] = pref * (b0 / 2.0f - b1 / a1 + b1 * dtau / 2.0f);
-    zd[S / 2] = pref * (b0 / 2.0f + b1 / a1);
-    zu[S / 2] = pref * (b0 / 2.0f + b1 / a1 + b1 * dtau / 2.0f);
-    if constexpr (S == 4) {
-      const float pref2 = -0.5f * (1.0f - w0) / (4.0f * a0) * 2.0f * kPi;
-      zd[1] = zd[3] = pref2 * b0;
-      zu[1] = zu[3] = pref2 * (b0 + b1 * dtau);
-    }
-    const float bsv[2] = {
-        p.hard_surface ? kPi * ab_last : kPi * (ab_last + b1 * 0.5f),
-        -kPi * ab_last / 4.0f};
-    stage<S>(c, d0, j, zd, zu, btv, bsv, sr);
-  }
-
-  // the one right-hand side: Schur update of its top rows, then the replay
-  eliminate<S>(c, ThermLayer<S>{c}, cp0, sr,
-               [&](int k, const Coef<S>& prev, const GJ<S>& g) {
-                 float d[S];
-#pragma unroll
-                 for (int i = 0; i < S; ++i) d[i] = c.s(d0 + i, k);
-                 if (k > 0) {
-#pragma unroll
-                   for (int i = 0; i < H; ++i) {
-#pragma unroll
-                     for (int kk = 0; kk < S; ++kk)
-                       d[i] = d[i] - prev.F(i, kk) * c.s(d0 + kk, k - 1);
-                   }
-                 }
-                 replay<S>(g, d);
-#pragma unroll
-                 for (int i = 0; i < S; ++i) c.s(d0 + i, k) = d[i];
-               });
-  back_substitute<S>(c, cp0, d0);
-
+// stage B: one thread per (column, angle), blocks as sh_reflected_angles;
+// the bottom-up TOA sweep of its angle over X[k] and the layer values
+// stage A stored.  No minimum-blocks bound: it takes 48 registers at either
+// stream count unbounded; (256, 6) held it to 40, spilled 28 B at SH4 and
+// was 1-3 % slower.
+template <int S>
+__global__ void __launch_bounds__(kTileCols * kMaxAngles)
+    sh_thermal_angles(const Params p, int chunks) {
+  const long long w =
+      (long long)(blockIdx.x / chunks) * kTileCols + threadIdx.x;
+  const int a = (blockIdx.x % chunks) * blockDim.y + threadIdx.y;
+  if (w >= p.nwno || a >= p.nang) return;
+  const Col c{p, w};
+  const int L = p.nlayer;
+  const float ab_last = c.in(p.all_b, L);
   const float b1_last =
       (ab_last - c.in(p.all_b, L - 1)) / c.s(T_DTAU, L - 1);
-  for (int a = 0; a < p.nang; ++a) {
-    const float u1 = p.u1[a];
-    float P1[4];
-    legp(u1, P1);
-    float x = p.hard_surface ? ab_last * 2.0f * kPi
-                             : (ab_last + b1_last * u1) * 2.0f * kPi;
-    for (int k = L - 1; k >= 0; --k) {
-      const float dtau = c.s(T_DTAU, k), w0 = c.s(T_W0, k);
-      float wm[S], X[S];
-      thermal_w<S>(p, c.s(T_COSB_OG, k), wm);
-      Coef<S> cf;
-      coeffs(cf, w0, dtau, wm);
+  const float u1 = p.u1[a];
+  float P1[4];
+  legp(u1, P1);
+  float x = p.hard_surface ? ab_last * 2.0f * kPi
+                           : (ab_last + b1_last * u1) * 2.0f * kPi;
+  for (int k = L - 1; k >= 0; --k) {
+    const float dtau = c.s(T_DTAU, k), w0 = c.s(T_W0, k);
+    float wm[S], X[S];
+    Coef<S> cf;
+    sweep_values<S>(cf, wm, [&](int slot, float& v) { v = c.s(slot, k); });
 #pragma unroll
-      for (int i = 0; i < S; ++i) X[i] = c.s(d0 + i, k);
-      const float b0 = c.in(p.all_b, k);
-      const float b1 = (c.in(p.all_b, k + 1) - b0) / dtau;
-      const float em = -expm1_(-clip35(dtau / u1));
-      const float expdtau = 1.0f - em;
-      const float a0 = cf.a[0], a1 = cf.a[1];
-      const float planck = b0 * em + b1 * (u1 - (dtau + u1) * expdtau);
-      float ms;
-      if constexpr (S == 4) {
-        ms = homogeneous4(cf, wm, P1, X, u1, dtau, expdtau);
-        const float nint0 = wm[0] * ((1.0f - w0) * u1 / a0 * planck);
-        const float nint1 =
-            wm[1] * u1 * ((1.0f - w0) * u1 / a0 * (b1 * em / a1));
-        ms = ms + nint0 + nint1;
-      } else {
-        const float lam = cf.lam[0], q = cf.q;
-        const float alpha = 1.0f / u1 + lam, beta = 1.0f / u1 - lam;
-        const float alp = -expm1_(-clip35(alpha * dtau)) / alpha;
-        const float bet = scaled_bet(cf.ex[0], expdtau, beta, dtau);
-        ms = X[0] * (wm[0] - wm[1] * u1 * q) * alp
-             + X[1] * (wm[0] + wm[1] * u1 * q) * bet
-             + wm[0] * ((1.0f - w0) * u1 / a0 * planck)
-             + wm[1] * u1 * ((1.0f - w0) * u1 / a0 * (b1 * em / a1));
-      }
-      const float intgrl =
-          w0 * ms * 2.0f * kPi + k2Pi * (1.0f - w0) * u1 * planck;
-      x = x * expdtau + intgrl / u1;
+    for (int i = 0; i < S; ++i) X[i] = c.s(kThermX<S> + i, k);
+    const float b0 = c.in(p.all_b, k);
+    const float b1 = (c.in(p.all_b, k + 1) - b0) / dtau;
+    const float em = -expm1_(-clip35(dtau / u1));
+    const float expdtau = 1.0f - em;
+    const float a0 = cf.a[0], a1 = cf.a[1];
+    const float planck = b0 * em + b1 * (u1 - (dtau + u1) * expdtau);
+    float ms;
+    if constexpr (S == 4) {
+      ms = homogeneous4(cf, wm, P1, X, u1, dtau, expdtau);
+      const float nint0 = wm[0] * ((1.0f - w0) * u1 / a0 * planck);
+      const float nint1 =
+          wm[1] * u1 * ((1.0f - w0) * u1 / a0 * (b1 * em / a1));
+      ms = ms + nint0 + nint1;
+    } else {
+      const float lam = cf.lam[0], q = cf.q;
+      const float alpha = 1.0f / u1 + lam, beta = 1.0f / u1 - lam;
+      const float alp = -expm1_(-clip35(alpha * dtau)) / alpha;
+      const float bet = scaled_bet(cf.ex[0], expdtau, beta, dtau);
+      ms = X[0] * (wm[0] - wm[1] * u1 * q) * alp
+           + X[1] * (wm[0] + wm[1] * u1 * q) * bet
+           + wm[0] * ((1.0f - w0) * u1 / a0 * planck)
+           + wm[1] * u1 * ((1.0f - w0) * u1 / a0 * (b1 * em / a1));
     }
-    p.out[(long long)a * p.nwno + w] = x;
+    const float intgrl =
+        w0 * ms * 2.0f * kPi + k2Pi * (1.0f - w0) * u1 * planck;
+    x = x * expdtau + intgrl / u1;
   }
+  p.out[(long long)a * p.nwno + w] = x;
 }
 
 int blocks(int nwno) { return (nwno + kThreads - 1) / kThreads; }
 
-// stage 0 (A: sh_reflected_columns, one thread per column) or stage 1 (B:
-// sh_reflected_angles, one per column and angle) of a reflected kernel;
-// the cudaError_t
+// stage B's grid: tiles of kTileCols columns times chunks of at most
+// kMaxAngles angles, per_chunk angles (blockDim.y) each
+struct AngleGrid {
+  int chunks, per_chunk, blocks;
+};
+
+AngleGrid angle_grid(const Params& p) {
+  const int chunks = (p.nang + kMaxAngles - 1) / kMaxAngles;
+  const int per_chunk = (p.nang + chunks - 1) / chunks;
+  const int tiles = (p.nwno + kTileCols - 1) / kTileCols;
+  return {chunks, per_chunk, tiles * chunks};
+}
+
+Params thermal_params(const void* all_b, const void* taugas,
+                      const void* tauray, const void* cld_opd,
+                      const void* cld_w0, const void* cld_g0, const void* rf,
+                      const void* surf_reflect, const void* ubar1,
+                      const void* ptfac, void* out, void* scratch, int nlayer,
+                      int nwno, int nang, int delta_eddington,
+                      int hard_surface) {
+  Params p = {};
+  p.all_b = (const float*)all_b;
+  p.taugas = (const float*)taugas;
+  p.tauray = (const float*)tauray;
+  p.cld_opd = (const float*)cld_opd;
+  p.cld_w0 = (const float*)cld_w0;
+  p.cld_g0 = (const float*)cld_g0;
+  p.rf = (const float*)rf;
+  p.sr = (const float*)surf_reflect;
+  p.u1 = (const float*)ubar1;
+  p.ptfac = (const float*)ptfac;
+  p.out = (float*)out;
+  p.scr = (float*)scratch;
+  p.nlayer = nlayer;
+  p.nwno = nwno;
+  p.nang = nang;
+  p.dedd = delta_eddington;
+  p.hard_surface = hard_surface;
+  return p;
+}
+
+#ifdef __CUDACC__
+// stage 0 (A: sh_*_columns, one thread per column) or stage 1 (B:
+// sh_*_angles, one per column and angle) of a kernel; the cudaError_t
 template <int S>
 int launch_reflected(const Params& p, int stage, cudaStream_t s) {
   if (stage == 0) {
     sh_reflected_columns<S><<<blocks(p.nwno), kThreads, 0, s>>>(p);
   } else if (stage == 1) {
     if (p.nang < 1) return (int)cudaSuccess;  // no angle to solve
-    const int chunks = (p.nang + kMaxAngles - 1) / kMaxAngles;
-    const int per_chunk = (p.nang + chunks - 1) / chunks;
-    const int tiles = (p.nwno + kTileCols - 1) / kTileCols;
-    sh_reflected_angles<S><<<tiles * chunks, dim3(kTileCols, per_chunk), 0,
-                             s>>>(p, chunks);
+    const AngleGrid g = angle_grid(p);
+    sh_reflected_angles<S><<<g.blocks, dim3(kTileCols, g.per_chunk), 0, s>>>(
+        p, g.chunks);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -1018,10 +1138,48 @@ int launch_reflected(const Params& p, int stage, cudaStream_t s) {
 }
 
 template <int S>
-int launch_thermal(const Params& p, cudaStream_t s) {
-  sh_thermal_kernel<S><<<blocks(p.nwno), kThreads, 0, s>>>(p);
+int launch_thermal(const Params& p, int stage, cudaStream_t s) {
+  if (stage == 0) {
+    sh_thermal_columns<S><<<blocks(p.nwno), kThreads, 0, s>>>(p);
+  } else if (stage == 1) {
+    if (p.nang < 1) return (int)cudaSuccess;  // no angle to sweep
+    const AngleGrid g = angle_grid(p);
+    sh_thermal_angles<S><<<g.blocks, dim3(kTileCols, g.per_chunk), 0, s>>>(
+        p, g.chunks);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
+#else
+// the thermal stages on the host: stage A's threads, then stage B's
+template <int S>
+int run_thermal_host(const Params& p) {
+  blockDim = {kThreads, 1, 1};
+  threadIdx.y = 0;
+  for (int b = 0; b < blocks(p.nwno); ++b) {
+    blockIdx.x = b;
+    for (int t = 0; t < kThreads; ++t) {
+      threadIdx.x = t;
+      sh_thermal_columns<S>(p);
+    }
+  }
+  if (p.nang < 1) return 0;
+  const AngleGrid g = angle_grid(p);
+  blockDim = {kTileCols, (unsigned)g.per_chunk, 1};
+  for (int b = 0; b < g.blocks; ++b) {
+    blockIdx.x = b;
+    for (int y = 0; y < g.per_chunk; ++y) {
+      threadIdx.y = y;
+      for (int x = 0; x < kTileCols; ++x) {
+        threadIdx.x = x;
+        sh_thermal_angles<S>(p, g.chunks);
+      }
+    }
+  }
+  return 0;
+}
+#endif
 
 }  // namespace
 
@@ -1033,9 +1191,12 @@ extern "C" int sh_reflected_scratch_slots(int stream, int nang) {
 }
 
 extern "C" int sh_thermal_scratch_slots(int stream) {
-  return kThermSlots + stream * stream + stream;
+  if (stream == 4) return kThermScratch<4>;
+  if (stream == 2) return kThermScratch<2>;
+  return -1;
 }
 
+#ifdef __CUDACC__
 // Launches one stage (0: A, 1: B) of the reflected kernel and returns its
 // cudaError_t; the wrapper calls it for stage 0, then stage 1, on one
 // stream.
@@ -1089,32 +1250,38 @@ extern "C" int sh_reflected_launch(
   return (int)cudaErrorInvalidValue;
 }
 
+// Launches one stage (0: A, 1: B) of the thermal kernel and returns its
+// cudaError_t; the wrapper calls it for stage 0, then stage 1, on one
+// stream.
 extern "C" int sh_thermal_launch(
     int stream, const void* all_b, const void* taugas, const void* tauray,
     const void* cld_opd, const void* cld_w0, const void* cld_g0,
     const void* rf, const void* surf_reflect, const void* ubar1,
     const void* ptfac, void* out, void* scratch, int nlayer, int nwno,
-    int nang, int delta_eddington, int hard_surface, void* cuda_stream) {
-  Params p = {};
-  p.all_b = (const float*)all_b;
-  p.taugas = (const float*)taugas;
-  p.tauray = (const float*)tauray;
-  p.cld_opd = (const float*)cld_opd;
-  p.cld_w0 = (const float*)cld_w0;
-  p.cld_g0 = (const float*)cld_g0;
-  p.rf = (const float*)rf;
-  p.sr = (const float*)surf_reflect;
-  p.u1 = (const float*)ubar1;
-  p.ptfac = (const float*)ptfac;
-  p.out = (float*)out;
-  p.scr = (float*)scratch;
-  p.nlayer = nlayer;
-  p.nwno = nwno;
-  p.nang = nang;
-  p.dedd = delta_eddington;
-  p.hard_surface = hard_surface;
+    int nang, int delta_eddington, int hard_surface, int stage,
+    void* cuda_stream) {
+  const Params p = thermal_params(
+      all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, rf, surf_reflect, ubar1,
+      ptfac, out, scratch, nlayer, nwno, nang, delta_eddington, hard_surface);
   const cudaStream_t s = (cudaStream_t)cuda_stream;
-  if (stream == 4) return launch_thermal<4>(p, s);
-  if (stream == 2) return launch_thermal<2>(p, s);
+  if (stream == 4) return launch_thermal<4>(p, stage, s);
+  if (stream == 2) return launch_thermal<2>(p, stage, s);
   return (int)cudaErrorInvalidValue;
 }
+#else
+// sh_thermal_launch's arguments without stage and stream, on host memory:
+// both stages run to completion; 0, or -1 for another stream count
+extern "C" int sh_thermal_host(
+    int stream, const void* all_b, const void* taugas, const void* tauray,
+    const void* cld_opd, const void* cld_w0, const void* cld_g0,
+    const void* rf, const void* surf_reflect, const void* ubar1,
+    const void* ptfac, void* out, void* scratch, int nlayer, int nwno,
+    int nang, int delta_eddington, int hard_surface) {
+  const Params p = thermal_params(
+      all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, rf, surf_reflect, ubar1,
+      ptfac, out, scratch, nlayer, nwno, nang, delta_eddington, hard_surface);
+  if (stream == 4) return run_thermal_host<4>(p);
+  if (stream == 2) return run_thermal_host<2>(p);
+  return -1;
+}
+#endif

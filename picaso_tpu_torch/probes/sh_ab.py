@@ -13,15 +13,16 @@ card, in turns:
     python3 picaso_tpu_torch/probes/sh_ab.py --tree build/parent
 
 It uses only the wrappers' public contract, which the two-stage SH
-reflected kernels kept, so it runs on a checkout from before them too (with
-the timing and digest helpers of ``probes/toon_ab.py``).  Per run it prints
+kernels kept, so it runs on a checkout from before them too (with the
+timing and digest helpers of ``probes/toon_ab.py``).  Per run it prints
 one JSON line (and appends it to ``chiprun_out/sh_ab.jsonl``): the card's
 name and power limit; the time of reflected_sh4/sh2 and thermal_sh4/sh2 by
-CUDA events, and of reflected_sh4 at a phase curve's 6 x 6 disk of 36
-angles; a SHA-256 of each reflected kernel's output, equal between two
-checkouts exactly when their outputs are bitwise equal; each kernel's max
-abs difference from its plain twin (5 angles); and the wall time and peak
-device memory of the SH4 and SH2 forwards.  A peak is
+CUDA events, and of reflected_sh4 and thermal_sh4 at a phase curve's 6 x 6
+disk of 36 angles; a SHA-256 of each kernel's output (both angle counts),
+equal between two checkouts exactly when their outputs are bitwise equal;
+each kernel's max abs difference from its plain twin (5 angles); the time
+of each stage of a wrapper that takes ``split_event`` (the two-stage
+kernels); and the wall time and peak device memory of the SH4 and SH2 forwards.  A peak is
 ``max_memory_allocated`` over one forward after ``gc.collect()``,
 ``torch.cuda.empty_cache()`` and a reset, beside the bytes alive before
 the call.
@@ -30,6 +31,7 @@ the call.
 import argparse
 import dataclasses
 import gc
+import inspect
 import json
 import math
 import os
@@ -50,6 +52,22 @@ def _peak(torch, fn):
     fn()
     torch.cuda.synchronize()
     return alive, torch.cuda.max_memory_allocated()
+
+
+def _stages_ms(torch, fn, n):
+    """Mean device time of each stage (A, B) of fn(split_event=...) over n
+    calls, by CUDA events before, between and after its two launches."""
+    fn(split_event=None)
+    torch.cuda.synchronize()
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+              for _ in range(n)]
+    for start, mid, end in events:
+        start.record()
+        fn(split_event=mid)
+        end.record()
+    torch.cuda.synchronize()
+    return [sum(e[i].elapsed_time(e[i + 1]) for e in events) / n
+            for i in (0, 1)]
 
 
 def main(argv=None):
@@ -91,17 +109,21 @@ def main(argv=None):
                                      r_args, r_kw)
         calls[f'thermal_sh{s}'] = (getattr(cuda_sh, f'thermal_sh{s}'),
                                    t_args, t_kw)
-    (r36_args, r36_kw), _ = pipeline.sh_args(scene_36, grid, configs[4], tg,
-                                             tr, rf)
+    (r36_args, r36_kw), (t36_args, t36_kw) = pipeline.sh_args(
+        scene_36, grid, configs[4], tg, tr, rf)
     calls['reflected_sh4 36 angles'] = (cuda_sh.reflected_sh4, r36_args,
                                         r36_kw)
+    calls['thermal_sh4 36 angles'] = (cuda_sh.thermal_sh4, t36_args, t36_kw)
     result = {'tree': args.tree, 'card': smi[0], 'kernel_ms': {},
-              'sha256': {}, 'max_abs_err': {}}
+              'stages_ms': {}, 'sha256': {}, 'max_abs_err': {}}
     for name, (fn, a, kw) in calls.items():
         result['kernel_ms'][name] = _cuda_ms(torch, lambda: fn(*a, **kw), 10)
+        if 'split_event' in inspect.signature(fn).parameters:
+            result['stages_ms'][name] = _stages_ms(
+                torch, lambda split_event: fn(*a, split_event=split_event,
+                                              **kw), 10)
         out = fn(*a, **kw)
-        if name.startswith('reflected'):
-            result['sha256'][name] = _digest(out)
+        result['sha256'][name] = _digest(out)
         if '36' not in name:
             ref = getattr(cuda_sh, f'{fn.__name__}_plain')(*a, **kw)
             result['max_abs_err'][name] = (out - ref).abs().max().item()

@@ -9,11 +9,14 @@ the optics (``pallas_toon._optics_block`` with stream 4 or 2), the SH
 coefficients, the block-tridiagonal system in the 'incoming' grouping
 (every pivot block nonsingular at float32), solves it by block-Thomas
 elimination with pivoted Gauss-Jordan steps on the s x s blocks, and runs
-the per-angle TOA intensity sweep.  The reflected kernels are two launches
-on the current stream: stage A, one thread per wavenumber column, builds
-the optics and factorises the block rows (Cp and each step's replay
-record); stage B, one thread per (column, disk angle), replays the record
-on the angle's right-hand side, substitutes back and sweeps.
+the per-angle TOA intensity sweep.  Each kernel is two launches on the
+current stream: stage A, one thread per wavenumber column; stage B, one
+thread per (column, disk angle).  Reflected: stage A builds the optics and
+factorises the block rows (Cp and each step's replay record); stage B
+replays the record on the angle's right-hand side, substitutes back and
+sweeps.  Thermal: stage A builds the optics, computes each layer's
+coefficients once, eliminates the one thermal right-hand side with the
+block rows and substitutes back (X); stage B sweeps the angle over X.
 
 The ``*_plain`` functions are the twins: the Pallas kernels' arithmetic in
 eager PyTorch (``_expm1`` as a 4th-order Taylor below |x| < 0.05 and a
@@ -25,10 +28,9 @@ axis instead of a Python loop.
 
 Each public wrapper runs its twin for CPU tensors and launches its kernel
 for CUDA tensors (float32, contiguous), or raises.  Each counts its own
-launches in ``<wrapper>.launches`` (one per call; both stages of a
-reflected kernel are one).  The reflected wrappers take ``split_event``, a
-``torch.cuda.Event`` recorded between the stages, so a caller can time
-them apart.
+launches in ``<wrapper>.launches`` (one per call; both stages of a kernel
+are one).  The wrappers take ``split_event``, a ``torch.cuda.Event``
+recorded between the stages, so a caller can time them apart.
 """
 
 from __future__ import annotations
@@ -563,6 +565,20 @@ def _scalar(name, v, dev):
     return torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(1)
 
 
+def _run_stages(name, dev, entry, args, split_event):
+    """entry(*args, stage, stream) for stage 0 (A), then stage 1 (B), on
+    the current stream, each launch checked before the next (the error
+    names the stage); ``split_event`` is recorded between them."""
+    from .._build import check
+    with torch.cuda.device(dev):
+        cuda_stream = torch.cuda.current_stream(dev)
+        for stage in (0, 1):
+            if stage == 1 and split_event is not None:
+                split_event.record(cuda_stream)
+            check(entry(*args, stage, cuda_stream.cuda_stream),
+                  f'{name} stage {"AB"[stage]}')
+
+
 def _launch_reflected(name, stream, taugas, tauray, cld_opd, cld_w0, cld_g0,
                       rf, surf_reflect, ubar0, ubar1, cos_theta, F0PI,
                       controls=ScatteringControls(), b_top=0.0,
@@ -570,8 +586,7 @@ def _launch_reflected(name, stream, taugas, tauray, cld_opd, cld_w0, cld_g0,
                       psingle_form=0, w_single_rayleigh=1,
                       w_multi_rayleigh=1, psingle_rayleigh=1, single_form=0,
                       split_event=None):
-    """Stage 0 (A), then stage 1 (B), each launch checked before the next;
-    ``split_event`` is recorded between them."""
+    """The two stages of reflected_sh{4,2} (:func:`_run_stages`)."""
     _check_options(stream, w_single_form, w_multi_form, psingle_form,
                    single_form)
     strips = dict(zip(_STRIPS, (taugas, tauray, cld_opd, cld_w0, cld_g0,
@@ -584,7 +599,7 @@ def _launch_reflected(name, stream, taugas, tauray, cld_opd, cld_w0, cld_g0,
     ng, nt = ubar0.shape
     nang = ng * nt
 
-    from .._build import check, library
+    from .._build import library
     lib = library()
     out = torch.empty((nang, nwno), dtype=torch.float32, device=dev)
     scratch = torch.empty((lib.sh_reflected_scratch_slots(stream, nang),
@@ -602,20 +617,15 @@ def _launch_reflected(name, stream, taugas, tauray, cld_opd, cld_w0, cld_g0,
         int(psingle_rayleigh), int(single_form), c.frac_a, c.frac_b,
         c.frac_c, c.constant_back, c.constant_forward, float(b_top),
         c.constant_forward ** stream, c.constant_back ** stream)
-    with torch.cuda.device(dev):
-        cuda_stream = torch.cuda.current_stream(dev)
-        for stage in (0, 1):
-            if stage == 1 and split_event is not None:
-                split_event.record(cuda_stream)
-            check(lib.sh_reflected_launch(*args, stage,
-                                          cuda_stream.cuda_stream),
-                  f'{name} stage {"AB"[stage]}')
+    _run_stages(name, dev, lib.sh_reflected_launch, args, split_event)
     return out.reshape(ng, nt, nwno)
 
 
 def _launch_thermal(name, stream, all_b, taugas, tauray, cld_opd, cld_w0,
                     cld_g0, rf, ptfac, surf_reflect, ubar1,
-                    hard_surface=False, delta_eddington=True):
+                    hard_surface=False, delta_eddington=True,
+                    split_event=None):
+    """The two stages of thermal_sh{4,2} (:func:`_run_stages`)."""
     _check_options(stream)
     strips = dict(zip(_STRIPS, (taugas, tauray, cld_opd, cld_w0, cld_g0,
                                 rf)))
@@ -627,22 +637,19 @@ def _launch_thermal(name, stream, all_b, taugas, tauray, cld_opd, cld_w0,
     ng, nt = ubar1.shape
     nang = ng * nt
 
-    from .._build import check, library
+    from .._build import library
     lib = library()
     out = torch.empty((nang, nwno), dtype=torch.float32, device=dev)
     scratch = torch.empty((lib.sh_thermal_scratch_slots(stream),
                            nlayer + 1, nwno), dtype=torch.float32,
                           device=dev)
-    with torch.cuda.device(dev):
-        code = lib.sh_thermal_launch(
-            stream, all_b.data_ptr(), taugas.data_ptr(), tauray.data_ptr(),
+    args = (stream, all_b.data_ptr(), taugas.data_ptr(), tauray.data_ptr(),
             cld_opd.data_ptr(), cld_w0.data_ptr(), cld_g0.data_ptr(),
             rf.data_ptr(), surf_reflect.data_ptr(),
             ubar1.reshape(-1).data_ptr(), pt.data_ptr(), out.data_ptr(),
             scratch.data_ptr(), nlayer, nwno, nang,
-            int(bool(delta_eddington)), int(bool(hard_surface)),
-            torch.cuda.current_stream(dev).cuda_stream)
-    check(code, name)
+            int(bool(delta_eddington)), int(bool(hard_surface)))
+    _run_stages(name, dev, lib.sh_thermal_launch, args, split_event)
     return out.reshape(ng, nt, nwno)
 
 
@@ -694,25 +701,38 @@ def reflected_sh2(taugas, tauray, cld_opd, cld_w0, cld_g0, rf, surf_reflect,
 
 
 def thermal_sh4(all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, rf, ptfac,
-                surf_reflect, ubar1, **kwargs):
+                surf_reflect, ubar1, split_event=None, **kwargs):
     """SH4 thermal TOA flux [ng, nt, nwno]; same contract as
     ``thermal_sh4_pallas`` (``hard_surface``, ``delta_eddington``); the
     solve uses the delta-scaled dtau/w0.  CPU tensors take the twin, CUDA
-    tensors ``csrc/sh_spectrum.cu``."""
+    tensors ``csrc/sh_spectrum.cu`` (two stages; ``split_event`` is
+    recorded between them).
+
+    Left out of the TPU kernel, with the reason: the wavelength blocks and
+    their VMEM staging (a thread owns a column in stage A, a column and an
+    angle in stage B; per-layer values in global scratch [slot, row,
+    nwno]); the staged A/B/C/D blocks (stage A builds each block row and
+    its source rows in registers from the coefficients of three layers,
+    each computed once); the per-angle sources of all layers at once (stage
+    B sweeps its angle layer by layer over the layer values stage A
+    stored); the triangular-matmul cumsum (not
+    needed: the thermal solve reads no cumulative depth); the SMEM angle
+    operands (small device arrays read by every thread).
+    """
     args = (all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, rf, ptfac,
             surf_reflect, ubar1)
     return _dispatch(thermal_sh4, thermal_sh4_plain, _launch_thermal, 4,
-                     taugas, args, kwargs)
+                     taugas, args, kwargs, split_event=split_event)
 
 
 def thermal_sh2(all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, rf, ptfac,
-                surf_reflect, ubar1, **kwargs):
+                surf_reflect, ubar1, split_event=None, **kwargs):
     """SH2 thermal TOA flux; :func:`thermal_sh4` with 2 x 2 blocks
     (``thermal_sh2_pallas``)."""
     args = (all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, rf, ptfac,
             surf_reflect, ubar1)
     return _dispatch(thermal_sh2, thermal_sh2_plain, _launch_thermal, 2,
-                     taugas, args, kwargs)
+                     taugas, args, kwargs, split_event=split_event)
 
 
 for _w in (reflected_sh4, reflected_sh2, thermal_sh4, thermal_sh2):

@@ -252,13 +252,14 @@ def test_sh_wrappers_reject_bad_inputs(dev, kind):
             wrapper(*args, single_form=3)
 
 
+@pytest.mark.parametrize('kind', ['reflected', 'thermal'])
 @pytest.mark.parametrize('nang', [5, 36])
 @pytest.mark.parametrize('stream', [2, 4])
-def test_sh_reflected_split_event_keeps_outputs(dev, stream, nang):
-    """The two stages with an event recorded between them give the same
-    bits as without, and the event splits the time."""
-    wrapper = getattr(cuda_sh, f'reflected_sh{stream}')
-    args = _sh_inputs(dev, 'reflected', 1000, nang)
+def test_sh_reflected_split_event_keeps_outputs(dev, stream, nang, kind):
+    """The two stages (reflected or thermal) with an event recorded between
+    them give the same bits as without, and the event splits the time."""
+    wrapper = getattr(cuda_sh, f'{kind}_sh{stream}')
+    args = _sh_inputs(dev, kind, 1000, nang)
     out = wrapper(*args)
     start, mid, end = (torch.cuda.Event(enable_timing=True)
                        for _ in range(3))
@@ -272,8 +273,8 @@ def test_sh_reflected_split_event_keeps_outputs(dev, stream, nang):
 
 def test_sh_failed_launch_raises(dev, monkeypatch):
     """An entry that refuses its arguments returns a nonzero code, which
-    `check` raises on; the wrapper raises when either stage fails and does
-    not count the call."""
+    `check` raises on; the wrapper raises when either stage fails, names
+    the stage and does not count the call (reflected and thermal)."""
     from picaso_tpu_torch._build import check, library
     lib = library()
     null = [None] * 13
@@ -285,17 +286,26 @@ def test_sh_failed_launch_raises(dev, monkeypatch):
         assert code != 0
         with pytest.raises(RuntimeError):
             check(code, 'sh_reflected_launch')
+        code = lib.sh_thermal_launch(stream, *null[:12], 91, 300, 5, 1, 0,
+                                     stage, None)
+        assert code != 0
+        with pytest.raises(RuntimeError):
+            check(code, 'sh_thermal_launch')
     assert lib.sh_reflected_scratch_slots(3, 5) < 0
-    entry = lib.sh_reflected_launch
-    args = _sh_inputs(dev, 'reflected', 300, 5)
-    for bad_stage in (0, 1):
-        def refuse(*a, bad_stage=bad_stage):
-            return 1 if a[-2] == bad_stage else entry(*a)
-        monkeypatch.setattr(lib, 'sh_reflected_launch', refuse)
-        before = cuda_sh.reflected_sh4.launches
-        with pytest.raises(RuntimeError, match='stage ' + 'AB'[bad_stage]):
-            cuda_sh.reflected_sh4(*args)
-        assert cuda_sh.reflected_sh4.launches == before
+    assert lib.sh_thermal_scratch_slots(3) < 0
+    for kind in ('reflected', 'thermal'):
+        entry = getattr(lib, f'sh_{kind}_launch')
+        wrapper = getattr(cuda_sh, f'{kind}_sh4')
+        args = _sh_inputs(dev, kind, 300, 5)
+        for bad_stage in (0, 1):
+            def refuse(*a, bad_stage=bad_stage, entry=entry):
+                return 1 if a[-2] == bad_stage else entry(*a)
+            monkeypatch.setattr(lib, f'sh_{kind}_launch', refuse)
+            before = wrapper.launches
+            with pytest.raises(RuntimeError, match='stage ' + 'AB'[bad_stage]):
+                wrapper(*args)
+            assert wrapper.launches == before
+        monkeypatch.setattr(lib, f'sh_{kind}_launch', entry)
 
 
 @pytest.mark.parametrize('stream', [2, 4])

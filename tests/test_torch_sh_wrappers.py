@@ -1,9 +1,9 @@
 """The SH wrappers' contract on the CPU, and the SH forwards' memory.
 
-The reflected SH kernels run in two launches on the card (stage A per
-column, stage B per column and angle) and take ``split_event``, an event
-recorded between them; on CPU tensors the wrappers run their twins, which
-take no event.  A forward through the plain SH path or through the twins
+The SH kernels, reflected and thermal, run in two launches on the card
+(stage A per column, stage B per column and angle) and take
+``split_event``, an event recorded between them; on CPU tensors the
+wrappers run their twins, which take no event.  A forward through the plain SH path or through the twins
 leaves nothing for the garbage collector: every tensor it made is freed
 when its last reference goes, so a peak measured after a forward is not
 inflated by the forward before it.
@@ -18,6 +18,7 @@ import torch
 
 from picaso_tpu_torch import pipeline
 from picaso_tpu_torch.rt import cuda_sh
+from picaso_tpu_torch.rt.toon import blackbody
 
 
 def _reflected_args(nwno=64, nlayer=12, nang=3, seed=4):
@@ -45,6 +46,25 @@ def test_reflected_wrapper_ignores_split_event_on_cpu(stream):
     before = wrapper.launches
     out = wrapper(*args, split_event=object(), **kw)
     assert wrapper.launches == before
+    assert torch.equal(out, twin(*args, **kw))
+    with pytest.raises(TypeError):
+        twin(*args, split_event=None)
+
+
+@pytest.mark.parametrize('stream', [2, 4])
+def test_thermal_wrapper_ignores_split_event_on_cpu(stream):
+    wrapper = getattr(cuda_sh, f'thermal_sh{stream}')
+    twin = getattr(cuda_sh, f'thermal_sh{stream}_plain')
+    tlevel = torch.tensor(np.linspace(400.0, 1600.0, 13))
+    wno = torch.tensor(np.linspace(300.0, 20000.0, 64))
+    all_b = blackbody(tlevel, 1.0 / wno).float()
+    strips = _reflected_args(nang=4)
+    args = [all_b] + strips[:6] + [0.7, strips[6], strips[8]]
+    kw = dict(hard_surface=True)
+    before = wrapper.launches
+    out = wrapper(*args, split_event=object(), **kw)
+    assert wrapper.launches == before
+    assert out.shape == (4, 1, 64) and torch.isfinite(out).all()
     assert torch.equal(out, twin(*args, **kw))
     with pytest.raises(TypeError):
         twin(*args, split_event=None)
