@@ -47,8 +47,8 @@ Phases (any failure raises, so the exit code is nonzero):
     (reflected) with Pollack Raman, K4 (thermal) without and with a hard
     surface, K5/K6 (from RTProps) on the unfused props and on the
     test_mode='rayleigh' props (max rel <= 1e-3, median rel <= 1e-5);
-    each timed against its twin, K3's and K5's two stages apart; then K3
-    alone at the phase curve's 36 angles against its twin, timed
+    each timed against its twin, its two stages apart; then K3 and K4
+    alone at the phase curve's 36 angles against their twins, timed
 14. the split Toon paths, counted over 4 forwards each: reflected-only
     (K1 + K3), thermal-only (K1 + K4), unfused optics (K1 + K5 + K6), and
     forward_batch of 4 phase-curve scenes at 0, 45, 90, 120 degrees
@@ -620,32 +620,37 @@ def main():
                        'ms': cuda_ms(lambda: kern(*args, **kw), 10),
                        'plain_ms': cuda_ms(lambda: twin(*args, **kw), 3),
                        'bytes': sizes[0][0], 'ops': sizes[0][1]}
-        if name.startswith('reflected'):
-            split[name]['stages_ms'] = stages_ms(kern, args, kw, 10)
+        split[name]['stages_ms'] = stages_ms(kern, args, kw, 10)
         log(f'     {name} {split[name]["ms"]:.3f} ms '
-            f'(stages {split[name].get("stages_ms")}) vs twin '
+            f'(stages {split[name]["stages_ms"]}) vs twin '
             f'{split[name]["plain_ms"]:.3f} ms')
     del runs, props
-    # K3 alone at the phase curve's 6 x 6 disk (36 angles, 45 degrees)
-    scene_36 = pipeline.with_geometry(scene_p, disco.make_geometry(
-        math.radians(45.0), num_gangle=6, num_tangle=6))
-    r36_args, r36_kw = pipeline.reflected_args(
-        scene_36, config_p, *pipeline.rt_sources(scene_36, grid, config_p))
-    out = cuda_toon.reflected_toon(*r36_args, **r36_kw)
-    ref = cuda_toon.reflected_toon_plain(*r36_args, **r36_kw)
-    torch.cuda.synchronize()
-    err = check_twin('reflected_toon 36 angles', out, ref)
-    del out, ref
-    split['reflected_toon'].update(
-        phase_curve_max_abs_err=err,
-        phase_curve_ms=cuda_ms(
-            lambda: cuda_toon.reflected_toon(*r36_args, **r36_kw), 10),
-        phase_curve_stages_ms=stages_ms(cuda_toon.reflected_toon, r36_args,
-                                        r36_kw, 10))
-    log(f'     reflected_toon at 36 angles '
-        f'{split["reflected_toon"]["phase_curve_ms"]:.3f} ms (stages '
-        f'{split["reflected_toon"]["phase_curve_stages_ms"]})')
-    del r36_args
+    # K3 and K4 alone at the phase curve's 6 x 6 disk (36 angles, 45
+    # degrees)
+    geom_36 = disco.make_geometry(math.radians(45.0), num_gangle=6,
+                                  num_tangle=6)
+    scene_36 = pipeline.with_geometry(scene_p, geom_36)
+    runs_36 = {
+        'reflected_toon': pipeline.reflected_args(
+            scene_36, config_p,
+            *pipeline.rt_sources(scene_36, grid, config_p)),
+        'thermal_toon': pipeline.thermal_args(
+            pipeline.with_geometry(scene, geom_36), grid, config, tg, tr),
+    }
+    for name, (args, kw) in runs_36.items():
+        kern = getattr(cuda_toon, name)
+        out = kern(*args, **kw)
+        ref = getattr(cuda_toon, f'{name}_plain')(*args, **kw)
+        torch.cuda.synchronize()
+        err = check_twin(f'{name} 36 angles', out, ref)
+        del out, ref
+        split[name].update(
+            phase_curve_max_abs_err=err,
+            phase_curve_ms=cuda_ms(lambda: kern(*args, **kw), 10),
+            phase_curve_stages_ms=stages_ms(kern, args, kw, 10))
+        log(f'     {name} at 36 angles {split[name]["phase_curve_ms"]:.3f} '
+            f'ms (stages {split[name]["phase_curve_stages_ms"]})')
+    del runs_36, scene_36
 
     # phase 14: the split Toon paths, counted
     paths = {

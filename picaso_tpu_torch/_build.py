@@ -67,8 +67,9 @@ _SIGNATURES = {
     'toon_reflected_launch': [_P] * 13 + [_I] * 6 + [_F] * 6 + [_I] * 3
                              + [_P],
     # all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, ptfac, surf_reflect,
-    # ubar1, thermal, scratch, nlayer, nwno, nang, hard_surface, cuda stream
-    'toon_thermal_launch': [_P] * 11 + [_I] * 4 + [_P],
+    # ubar1, thermal, scratch, nlayer, nwno, nang, hard_surface,
+    # stage (0: A, 1: B), cuda stream
+    'toon_thermal_launch': [_P] * 11 + [_I] * 5 + [_P],
     # dtau, tau, w0, cosb, gcos2, ftau_cld, ftau_ray, dtau_og, tau_og,
     # w0_og, cosb_og, surf_reflect, F0PI, ubar0, ubar1, cos_theta, xint,
     # scratch, nlayer, nwno, nang, single_phase, multi_phase,
@@ -77,8 +78,8 @@ _SIGNATURES = {
     'toon_reflected_props_launch': [_P] * 18 + [_I] * 6 + [_F] * 6 + [_I]
                                    + [_P],
     # all_b, dtau, w0, cosb, tau_top, surf_reflect, ubar1, thermal, scratch,
-    # nlayer, nwno, nang, hard_surface, cuda stream
-    'toon_thermal_props_launch': [_P] * 9 + [_I] * 4 + [_P],
+    # nlayer, nwno, nang, hard_surface, stage (0: A, 1: B), cuda stream
+    'toon_thermal_props_launch': [_P] * 9 + [_I] * 5 + [_P],
     # number of [nlayer + 1, nwno] scratch slots each Toon kernel expects
     # at nang disk angles
     'toon_spectrum_scratch_slots': [_I],

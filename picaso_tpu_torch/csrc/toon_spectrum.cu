@@ -1,13 +1,12 @@
 // Toon89 reflected and thermal spectra for every wavenumber column.
 //
 // Replaces five TPU kernels of picaso_tpu/rt/pallas_toon.py, all built from
-// the same column routines (the reflected ones in two launches, stage A then
-// stage B):
+// the same column routines, each in two launches (stage A, then stage B):
 //   K2 spectrum_pallas_fused  <- toon_spectrum_kernel + reflected_angles_kernel
 //   K3 reflected_pallas_fused <- toon_reflected_kernel<0> + reflected_angles_kernel
-//   K4 thermal_pallas_fused   <- toon_thermal_kernel<0>
+//   K4 thermal_pallas_fused   <- toon_thermal_columns<0> + toon_thermal_angles_kernel
 //   K5 reflected_pallas       <- toon_reflected_kernel<1> + reflected_angles_kernel
-//   K6 thermal_pallas         <- toon_thermal_kernel<1>
+//   K6 thermal_pallas         <- toon_thermal_columns<1> + toon_thermal_angles_kernel
 // (_optics_block, _reflected_core, _thermal_core, _solve_two_stream_scratch).
 // Per wavenumber column the reflected pass takes the delta-Eddington and OG
 // optics of each layer (built from the six source strips, or read from the
@@ -24,31 +23,37 @@
 // up); only the wavenumber axis and, for the reflected beam, the disk-angle
 // axis are parallel.  The first design ran everything of a column in one
 // thread and was bounded by three things: the angles ran one after another
-// (three dependent 90-step sweeps per angle after the shared factorisation:
-// 15 chained sweeps per thread at 5 angles, 108 at a phase curve's 36, where
-// the TPU kernel advances all angles in one loop step on its lane axis);
+// (reflected: three dependent 90-step sweeps per angle after the shared
+// factorisation, 15 chained sweeps per thread at 5 angles, 108 at a phase
+// curve's 36; thermal: one source-function sweep per angle after the
+// column's solve, each layer step an expf and about eight divisions), where
+// the TPU kernel advances all angles in one loop step on its lane axis;
 // 50 000 threads are about 12 warps per SM of 64, too few to hide the
 // latency of those chains; and each angle re-read the column's
-// angle-independent layer state from global scratch (about 28 of 40 accesses
-// per layer and angle), about 3.6 GB per launch at the production shape from
-// a 437 MB scratch that does not fit the 50 MB L2.
+// angle-independent layer state from global scratch (reflected: about 28 of
+// 40 accesses per layer and angle, about 3.6 GB per launch at the
+// production shape from a 437 MB scratch; thermal: 11 rows, 200 MB), which
+// does not fit the 50 MB L2.
 //
-// Design: the reflected pass is split in two launches on one stream.
-//  Stage A, one thread per column (toon_spectrum_kernel,
-//  toon_reflected_kernel): the layer optics and the angle-independent
-//  factorisation into the kReflSlots rows; in K2 also the whole thermal
-//  column, in the same thread.
-//  Stage B, one thread per (column, angle) (reflected_angles_kernel): a
-//  block is 32 consecutive columns by up to 8 angles, one warp per angle, so
-//  every access still coalesces and the warps of one column tile read the
-//  same angle-independent rows at about the same time (from L1 or L2, not
-//  from HBM once per angle); more angles are cut into chunks of at most 8,
-//  the chunks of one tile in neighbouring blocks.  The angles' sweeps run in
-//  parallel on nang times as many threads, and the stage has its own
-//  register budget.  Only the right-hand side DSE/DSO is kept per angle
-//  (kAngleSlots); the beam sources c+up, c-up and e_u0dt are computed again
-//  in the ascent by the same expressions, so the outputs are bitwise those
-//  of the one-thread design.
+// Design: both passes are split in two launches on one stream.
+//  Stage A, one thread per column: the reflected layer optics and the
+//  angle-independent factorisation into the kReflSlots rows
+//  (toon_spectrum_kernel, toon_reflected_kernel), or the thermal layer
+//  values and the thermal solve, which leaves positive/negative in the
+//  kThermSlots rows (toon_thermal_columns).  K2's stage A also runs the
+//  whole thermal pass, solve and angles, in the same thread.
+//  Stage B, one thread per (column, angle) (reflected_angles_kernel,
+//  toon_thermal_angles_kernel): a block is 32 consecutive columns by up to 8
+//  angles, one warp per angle, so every access still coalesces and the
+//  warps of one column tile read the same angle-independent rows at about
+//  the same time (from L1 or L2, not from HBM once per angle); more angles
+//  are cut into chunks of at most 8, the chunks of one tile in neighbouring
+//  blocks.  The angles' sweeps run in parallel on nang times as many
+//  threads, and the stage has its own register budget.  Only the reflected
+//  right-hand side DSE/DSO is kept per angle (kAngleSlots); the beam sources
+//  c+up, c-up and e_u0dt are computed again in the ascent by the same
+//  expressions, and each thermal angle sweeps the rows stage A wrote, so the
+//  outputs are bitwise those of the one-thread design.
 //
 // Per-layer intermediates go to global scratch laid out [slot, row, nwno],
 // so the 32 threads of a warp touch 128 contiguous bytes per access; the
@@ -61,12 +66,30 @@
 // 1e-6 sign-preserving clamp.  Expressions keep the twin's (and the TPU
 // kernel's) order of operations; built with -fmad=false, each operation
 // rounds as the eager PyTorch twin's does.
+//
+// Without nvcc (__CUDACC__ undefined) the file compiles as host C++
+// (g++ -std=c++17 -ffp-contract=off -x c++): the qualifiers are empty, the
+// thread indices are globals, and toon_thermal_host runs the thermal stages'
+// threads as loops (tests/test_torch_toon_thermal_host.py).
 
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#else
+#include <math.h>
+#define __device__
+#define __global__
+#define __launch_bounds__(...)
+namespace {
+struct HostDim3 {
+  unsigned x = 0, y = 0, z = 0;
+};
+HostDim3 blockIdx, blockDim, threadIdx;
+}  // namespace
+#endif
 
 namespace {
 
-constexpr int kThreads = 128;                         // stage A, thermal
+constexpr int kThreads = 128;   // stage A: one thread per column
 constexpr int kTileCols = 32;   // stage B: one warp = 32 columns, one angle
 constexpr int kMaxAngles = 8;   // stage B: angles per block
 constexpr float kClip = 10.0f;                        // _exp_clip(f32)
@@ -643,20 +666,19 @@ __device__ void reflected_column(const Col& c) {
   reflected_factor(c, c.p.sr[c.w]);
 }
 
+// stage A of the thermal pass: the column's layer values and its solve
 template <bool kProps>
 __device__ void thermal_column(const Col& c) {
   const Params& p = c.p;
-  const float sr = p.sr[c.w];
   thermal_layers<kProps>(c);
   // fake isothermal layer above the model top (fluxes.py:1797-1800)
   const float tau_top =
       kProps ? p.tau_top[c.w] : c.t(T_DTAU, 0) * p.ptfac[0];
-  thermal_solve(c, sr, tau_top);
-  for (int a = 0; a < p.nang; ++a)
-    p.therm[(long long)a * p.nwno + c.w] = thermal_angle(c, p.u1[a], sr);
+  thermal_solve(c, p.sr[c.w], tau_top);
 }
 
-// stage A of K2: reflected optics and factorisation, then the thermal pass
+// stage A of K2: reflected optics and factorisation, then the whole thermal
+// pass in the same thread (the column, then each angle's sweep)
 __global__ void __launch_bounds__(kThreads)
     toon_spectrum_kernel(const Params p) {
   const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -664,6 +686,9 @@ __global__ void __launch_bounds__(kThreads)
   const Col c{p, w, 0};
   reflected_column<false>(c);
   thermal_column<false>(c);
+  const float sr = p.sr[w];
+  for (int a = 0; a < p.nang; ++a)
+    p.therm[(long long)a * p.nwno + w] = thermal_angle(c, p.u1[a], sr);
 }
 
 // stage A of K3 (optics from the strips) and K5 (optics given)
@@ -675,9 +700,10 @@ __global__ void __launch_bounds__(kThreads)
   reflected_column<kProps>(Col{p, w, 0});
 }
 
+// stage A of K4 (optics from the strips) and K6 (optics given)
 template <bool kProps>
 __global__ void __launch_bounds__(kThreads)
-    toon_thermal_kernel(const Params p) {
+    toon_thermal_columns(const Params p) {
   const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (w >= p.nwno) return;
   thermal_column<kProps>(Col{p, w, 0});
@@ -695,6 +721,22 @@ __global__ void __launch_bounds__(kTileCols * kMaxAngles, 4)
   if (w >= p.nwno || a >= p.nang) return;
   p.xint[(long long)a * p.nwno + w] =
       reflected_angle(Col{p, w, a}, p.u0[a], p.u1[a], p.sr[w], p.f0pi[w]);
+}
+
+// stage B of K4 and K6: one thread per (column, angle), blocks as
+// reflected_angles_kernel; the source-function up-sweep of its angle over
+// the rows stage A wrote.  No minimum-blocks bound: 40 registers unbounded
+// and under (256, 4) alike; (256, 8) held it to 32 with a 4 B spill.
+// Stage A storing G, H, alpha1 and alpha2 for it instead made K4 17 %
+// slower at 5 angles (stage A +0.09 ms, stage B no faster).
+__global__ void __launch_bounds__(kTileCols * kMaxAngles)
+    toon_thermal_angles_kernel(const Params p, int chunks) {
+  const long long w =
+      (long long)(blockIdx.x / chunks) * kTileCols + threadIdx.x;
+  const int a = (blockIdx.x % chunks) * blockDim.y + threadIdx.y;
+  if (w >= p.nwno || a >= p.nang) return;
+  p.therm[(long long)a * p.nwno + w] =
+      thermal_angle(Col{p, w, a}, p.u1[a], p.sr[w]);
 }
 
 Params column_params(const void* surf_reflect, const void* ubar0,
@@ -737,31 +779,93 @@ void set_strips(Params& p, const void* taugas, const void* tauray,
   p.rf = (const float*)rf;
 }
 
+// the thermal entries' common fields (K4 and K6); scratch holds the
+// thermal slots
+Params thermal_params(const void* all_b, const void* surf_reflect,
+                      const void* ubar1, void* therm, void* scratch,
+                      int nlayer, int nwno, int nang, int hard_surface) {
+  Params p = column_params(surf_reflect, nullptr, ubar1, nullptr, nlayer,
+                           nwno, nang);
+  p.tscr = (float*)scratch;
+  p.all_b = (const float*)all_b;
+  p.therm = (float*)therm;
+  p.hard_surface = hard_surface;
+  return p;
+}
+
+void set_thermal_props(Params& p, const void* dtau, const void* w0,
+                       const void* cosb, const void* tau_top) {
+  p.dtau = (const float*)dtau;
+  p.w0 = (const float*)w0;
+  p.cosb = (const float*)cosb;
+  p.tau_top = (const float*)tau_top;
+}
+
 int blocks(int nwno) { return (nwno + kThreads - 1) / kThreads; }
 
-// launch stage 0 (A: ``columns``, one thread per column) or stage 1 (B:
-// reflected_angles_kernel) of a reflected kernel; the cudaError_t
-int launch_stage(const Params& p, int stage, void (*columns)(const Params),
-                 void* cuda_stream) {
-  const cudaStream_t s = (cudaStream_t)cuda_stream;
-  if (stage == 0) {
-    columns<<<blocks(p.nwno), kThreads, 0, s>>>(p);
-  } else if (stage == 1) {
-    if (p.nang < 1) return (int)cudaSuccess;  // no angle to solve
-    const int chunks = (p.nang + kMaxAngles - 1) / kMaxAngles;
-    const int per_chunk = (p.nang + chunks - 1) / chunks;
-    const int tiles = (p.nwno + kTileCols - 1) / kTileCols;
-    reflected_angles_kernel<<<tiles * chunks, dim3(kTileCols, per_chunk), 0,
-                              s>>>(p, chunks);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+// stage B's grid: tiles of kTileCols columns times chunks of at most
+// kMaxAngles angles, per_chunk angles (blockDim.y) each
+struct AngleGrid {
+  int chunks, per_chunk, blocks;
+};
+
+AngleGrid angle_grid(const Params& p) {
+  const int chunks = (p.nang + kMaxAngles - 1) / kMaxAngles;
+  const int per_chunk = (p.nang + chunks - 1) / chunks;
+  const int tiles = (p.nwno + kTileCols - 1) / kTileCols;
+  return {chunks, per_chunk, tiles * chunks};
 }
 
 long long refl_slots(int nang) {
   return kReflSlots + (long long)kAngleSlots * nang;
 }
+
+#ifdef __CUDACC__
+// launch stage 0 (A: ``columns``, one thread per column) or stage 1 (B:
+// ``angles``, one thread per column and angle) of a kernel; the cudaError_t
+int launch_stage(const Params& p, int stage, void (*columns)(const Params),
+                 void (*angles)(const Params, int), void* cuda_stream) {
+  const cudaStream_t s = (cudaStream_t)cuda_stream;
+  if (stage == 0) {
+    columns<<<blocks(p.nwno), kThreads, 0, s>>>(p);
+  } else if (stage == 1) {
+    if (p.nang < 1) return (int)cudaSuccess;  // no angle to solve
+    const AngleGrid g = angle_grid(p);
+    angles<<<g.blocks, dim3(kTileCols, g.per_chunk), 0, s>>>(p, g.chunks);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+#else
+// the thermal stages on the host: stage A's threads, then stage B's
+template <bool kProps>
+int run_thermal_host(const Params& p) {
+  blockDim = {kThreads, 1, 1};
+  threadIdx.y = 0;
+  for (int b = 0; b < blocks(p.nwno); ++b) {
+    blockIdx.x = b;
+    for (int t = 0; t < kThreads; ++t) {
+      threadIdx.x = t;
+      toon_thermal_columns<kProps>(p);
+    }
+  }
+  if (p.nang < 1) return 0;
+  const AngleGrid g = angle_grid(p);
+  blockDim = {kTileCols, (unsigned)g.per_chunk, 1};
+  for (int b = 0; b < g.blocks; ++b) {
+    blockIdx.x = b;
+    for (int y = 0; y < g.per_chunk; ++y) {
+      threadIdx.y = y;
+      for (int x = 0; x < kTileCols; ++x) {
+        threadIdx.x = x;
+        toon_thermal_angles_kernel(p, g.chunks);
+      }
+    }
+  }
+  return 0;
+}
+#endif
 
 }  // namespace
 
@@ -775,9 +879,10 @@ extern "C" int toon_reflected_scratch_slots(int nang) {
 }
 extern "C" int toon_thermal_scratch_slots(int) { return kThermSlots; }
 
-// Each reflected entry launches one stage (0: A, 1: B) and returns its
-// cudaError_t; the wrapper calls it for stage 0, then stage 1, on one
-// stream.
+#ifdef __CUDACC__
+// Each entry launches one stage (0: A, 1: B) and returns its cudaError_t
+// (cudaErrorInvalidValue for another stage); the wrapper calls it for
+// stage 0, then stage 1, on one stream.
 
 // spectrum_pallas_fused: scratch holds the reflected slots, then the
 // thermal ones
@@ -806,7 +911,8 @@ extern "C" int toon_spectrum_launch(
   p.stream = stream;
   p.dedd = delta_eddington;
   p.hard_surface = hard_surface;
-  return launch_stage(p, stage, toon_spectrum_kernel, cuda_stream);
+  return launch_stage(p, stage, toon_spectrum_kernel, reflected_angles_kernel,
+                      cuda_stream);
 }
 
 // reflected_pallas_fused
@@ -829,27 +935,23 @@ extern "C" int toon_reflected_launch(
   p.xint = (float*)xint;
   p.stream = stream;
   p.dedd = delta_eddington;
-  return launch_stage(p, stage, toon_reflected_kernel<false>, cuda_stream);
+  return launch_stage(p, stage, toon_reflected_kernel<false>,
+                      reflected_angles_kernel, cuda_stream);
 }
 
-// thermal_pallas_fused: scratch holds the thermal slots
+// thermal_pallas_fused
 extern "C" int toon_thermal_launch(
     const void* all_b, const void* taugas, const void* tauray,
     const void* cld_opd, const void* cld_w0, const void* cld_g0,
     const void* ptfac, const void* surf_reflect, const void* ubar1,
     void* therm, void* scratch, int nlayer, int nwno, int nang,
-    int hard_surface, void* cuda_stream) {
-  Params p = column_params(surf_reflect, nullptr, ubar1, nullptr, nlayer, nwno,
-                             nang);
-  p.tscr = (float*)scratch;
+    int hard_surface, int stage, void* cuda_stream) {
+  Params p = thermal_params(all_b, surf_reflect, ubar1, therm, scratch,
+                            nlayer, nwno, nang, hard_surface);
   set_strips(p, taugas, tauray, cld_opd, cld_w0, cld_g0, nullptr);
-  p.all_b = (const float*)all_b;
   p.ptfac = (const float*)ptfac;
-  p.therm = (float*)therm;
-  p.hard_surface = hard_surface;
-  toon_thermal_kernel<false><<<blocks(nwno), kThreads, 0,
-                               (cudaStream_t)cuda_stream>>>(p);
-  return (int)cudaGetLastError();
+  return launch_stage(p, stage, toon_thermal_columns<false>,
+                      toon_thermal_angles_kernel, cuda_stream);
 }
 
 // reflected_pallas: the optics come as the 11 RTProps fields it reads
@@ -881,7 +983,8 @@ extern "C" int toon_reflected_props_launch(
   p.f0pi = (const float*)F0PI;
   p.cos_theta = (const float*)cos_theta;
   p.xint = (float*)xint;
-  return launch_stage(p, stage, toon_reflected_kernel<true>, cuda_stream);
+  return launch_stage(p, stage, toon_reflected_kernel<true>,
+                      reflected_angles_kernel, cuda_stream);
 }
 
 // thermal_pallas: dtau, w0, cosb [nlayer, nwno] and tau_top [nwno] given
@@ -889,18 +992,33 @@ extern "C" int toon_thermal_props_launch(
     const void* all_b, const void* dtau, const void* w0, const void* cosb,
     const void* tau_top, const void* surf_reflect, const void* ubar1,
     void* therm, void* scratch, int nlayer, int nwno, int nang,
-    int hard_surface, void* cuda_stream) {
-  Params p = column_params(surf_reflect, nullptr, ubar1, nullptr, nlayer, nwno,
-                             nang);
-  p.tscr = (float*)scratch;
-  p.all_b = (const float*)all_b;
-  p.dtau = (const float*)dtau;
-  p.w0 = (const float*)w0;
-  p.cosb = (const float*)cosb;
-  p.tau_top = (const float*)tau_top;
-  p.therm = (float*)therm;
-  p.hard_surface = hard_surface;
-  toon_thermal_kernel<true><<<blocks(nwno), kThreads, 0,
-                              (cudaStream_t)cuda_stream>>>(p);
-  return (int)cudaGetLastError();
+    int hard_surface, int stage, void* cuda_stream) {
+  Params p = thermal_params(all_b, surf_reflect, ubar1, therm, scratch,
+                            nlayer, nwno, nang, hard_surface);
+  set_thermal_props(p, dtau, w0, cosb, tau_top);
+  return launch_stage(p, stage, toon_thermal_columns<true>,
+                      toon_thermal_angles_kernel, cuda_stream);
 }
+#else
+// K4's and K6's stages on host memory, run to completion: the arguments of
+// toon_thermal_launch without stage and stream, with K6's dtau, w0, cosb
+// and tau_top after ptfac; props picks what stage A reads (0: the strips
+// and ptfac, as K4; 1: the given optics, as K6).  0, or -1 for another
+// props.
+extern "C" int toon_thermal_host(
+    int props, const void* all_b, const void* taugas, const void* tauray,
+    const void* cld_opd, const void* cld_w0, const void* cld_g0,
+    const void* ptfac, const void* dtau, const void* w0, const void* cosb,
+    const void* tau_top, const void* surf_reflect, const void* ubar1,
+    void* therm, void* scratch, int nlayer, int nwno, int nang,
+    int hard_surface) {
+  Params p = thermal_params(all_b, surf_reflect, ubar1, therm, scratch,
+                            nlayer, nwno, nang, hard_surface);
+  set_strips(p, taugas, tauray, cld_opd, cld_w0, cld_g0, nullptr);
+  p.ptfac = (const float*)ptfac;
+  set_thermal_props(p, dtau, w0, cosb, tau_top);
+  if (props == 0) return run_thermal_host<false>(p);
+  if (props == 1) return run_thermal_host<true>(p);
+  return -1;
+}
+#endif

@@ -14,10 +14,11 @@ It uses only the wrappers' public contract, which the two-stage Toon
 kernels kept, so it runs on a checkout from before them too.  Per run it
 prints one JSON line (and appends it to ``chiprun_out/toon_ab.jsonl``):
 the card's name and power limit; each Toon kernel's time by CUDA events
-(K2-K6, and K3 at a phase curve's 6 x 6 disk of 36 angles); a SHA-256 of
-the reflected kernels' outputs, equal between two checkouts exactly when
-their outputs are bitwise equal; K2's, K3's and K5's max abs difference
-from their plain twins; and the wall time and peak device memory
+(K2-K6, and K3 and K4 at a phase curve's 6 x 6 disk of 36 angles), and
+each stage's where the tree's wrapper takes ``split_event``; a SHA-256 of
+every kernel's outputs, equal between two checkouts exactly when their
+outputs are bitwise equal; K2-K6's max abs difference from their plain
+twins; and the wall time and peak device memory
 (``max_memory_allocated``) of the Toon, reflected-only (Pollack Raman),
 thermal-only and unfused-optics forwards and of a 4-scene phase curve
 through ``forward_batch``.
@@ -26,6 +27,7 @@ through ``forward_batch``.
 import argparse
 import dataclasses
 import hashlib
+import inspect
 import json
 import math
 import os
@@ -96,6 +98,7 @@ def main(argv=None):
     import picaso_tpu_torch
     from picaso_tpu_torch import disco, pipeline
     from picaso_tpu_torch.optics import combine_optics
+    from picaso_tpu_torch.probes.sh_ab import _stages_ms
     from picaso_tpu_torch.rt import cuda_toon
     if not os.path.abspath(picaso_tpu_torch.__file__).startswith(tree):
         raise SystemExit(f'toon_ab: imported {picaso_tpu_torch.__file__}, '
@@ -112,8 +115,9 @@ def main(argv=None):
     tg_p, tr_p, rf_p = pipeline.rt_sources(scene_p, grid, config_p)
     props = combine_optics(tg, tr, scene.cld_opd, scene.cld_w0,
                            scene.cld_g0, rf)
-    scene_36 = pipeline.with_geometry(scene_p, disco.make_geometry(
-        math.radians(45.0), num_gangle=6, num_tangle=6))
+    geom_36 = disco.make_geometry(math.radians(45.0), num_gangle=6,
+                                  num_tangle=6)
+    scene_36 = pipeline.with_geometry(scene_p, geom_36)
     calls = {  # kernel -> (wrapper, args, kwargs)
         'spectrum_toon': (cuda_toon.spectrum_toon, *pipeline.spectrum_args(
             scene, grid, config, tg, tr, rf)),
@@ -131,22 +135,29 @@ def main(argv=None):
             cuda_toon.reflected_toon, *pipeline.reflected_args(
                 scene_36, config_p,
                 *pipeline.rt_sources(scene_36, grid, config_p))),
+        'thermal_toon 36 angles': (
+            cuda_toon.thermal_toon, *pipeline.thermal_args(
+                pipeline.with_geometry(scene, geom_36), grid, config, tg,
+                tr)),
     }
     result = {'tree': args.tree, 'card': smi[0], 'kernel_ms': {},
-              'sha256': {}, 'max_abs_err': {}}
+              'stages_ms': {}, 'sha256': {}, 'max_abs_err': {}}
     for name, (fn, a, kw) in calls.items():
         result['kernel_ms'][name] = _cuda_ms(torch, lambda: fn(*a, **kw), 10)
-        if name.startswith(('spectrum', 'reflected')):
-            out = fn(*a, **kw)
-            out = out if isinstance(out, tuple) else (out,)
-            result['sha256'][name] = _digest(*out)
-            if '36' not in name:
-                twin = getattr(cuda_toon, f'{fn.__name__}_plain')
-                ref = twin(*a, **kw)
-                ref = ref if isinstance(ref, tuple) else (ref,)
-                result['max_abs_err'][name] = max(
-                    (o - r).abs().max().item() for o, r in zip(out, ref))
-            del out
+        if 'split_event' in inspect.signature(fn).parameters:
+            result['stages_ms'][name] = _stages_ms(
+                torch, lambda split_event: fn(*a, split_event=split_event,
+                                              **kw), 10)
+        out = fn(*a, **kw)
+        out = out if isinstance(out, tuple) else (out,)
+        result['sha256'][name] = _digest(*out)
+        if '36' not in name:
+            twin = getattr(cuda_toon, f'{fn.__name__}_plain')
+            ref = twin(*a, **kw)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            result['max_abs_err'][name] = max(
+                (o - r).abs().max().item() for o, r in zip(out, ref))
+        del out
     del calls, props
 
     paths = {

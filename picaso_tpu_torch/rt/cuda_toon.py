@@ -17,11 +17,13 @@ replaces its five TPU kernels, one wrapper each here:
 Each builds (or reads) the per-layer optics, solves the Toon89 eqn-44
 system (one factorisation shared by every disk angle, one right-hand side
 per angle) and runs the TOA intensity recursion or the per-angle thermal
-source-function up-sweep.  The reflected kernels (K2, K3, K5) are two
-launches on the current stream: stage A, one thread per wavenumber column,
-builds the optics and the shared factorisation (and, in K2, runs the
-thermal pass); stage B, one thread per (column, disk angle), solves each
-angle's right-hand side and intensity sweep.
+source-function up-sweep.  Every kernel is two launches on the current
+stream: stage A, one thread per wavenumber column, builds the optics and
+the shared factorisation (reflected; in K2 it also runs the whole thermal
+pass) or the layer values and the thermal solve (K4, K6); stage B, one
+thread per (column, disk angle), solves each angle's right-hand side and
+intensity sweep (reflected) or runs its source-function up-sweep
+(thermal).
 
 Each ``*_plain`` function is the kernel's plain PyTorch twin with the TPU
 kernel's arithmetic (stable ``gama = g2/(g1+lamda)``, ``exptrm_minus =
@@ -29,9 +31,9 @@ kernel's arithmetic (stable ``gama = g2/(g1+lamda)``, ``exptrm_minus =
 exps, product-form resonant limits, exp clip 10 in f32, beam dither 1e-3
 in f32).  Each wrapper runs its twin for CPU tensors and launches its
 kernel for CUDA tensors, or raises; ``wrapper.launches`` counts the
-wrapper's launches (one per call, both stages).  The two-stage wrappers
-take ``split_event``, a ``torch.cuda.Event`` recorded between the stages,
-so a caller can time them apart.
+wrapper's launches (one per call, both stages).  Every wrapper takes
+``split_event``, a ``torch.cuda.Event`` recorded between the stages, so a
+caller can time them apart (ignored on the CPU).
 """
 
 from __future__ import annotations
@@ -393,13 +395,12 @@ def _controls_args(c, b_top):
 
 
 def _launch(fn, entry, dev, slots_entry, nlayer, nwno, nouts, nang, args,
-            two_stage=False, split_event=None):
+            split_event=None):
     """Allocate the outputs ([nang, nwno] each) and the scratch (its slot
-    count at ``nang`` angles from ``slots_entry``), launch ``entry`` on the
-    current stream with ``args(outs, scratch)`` and check the launch.  A
-    ``two_stage`` entry is called for stage 0 (A), then stage 1 (B), each
-    launch checked before the next; ``split_event`` is recorded between
-    them."""
+    count at ``nang`` angles from ``slots_entry``), then call ``entry`` on
+    the current stream with ``args(outs, scratch)`` for stage 0 (A), then
+    stage 1 (B), each launch checked before the next (a refused one raises
+    and names the stage); ``split_event`` is recorded between them."""
     from .._build import check, library
     lib = library()
     f32 = torch.float32
@@ -409,15 +410,12 @@ def _launch(fn, entry, dev, slots_entry, nlayer, nwno, nouts, nang, args,
                           dtype=f32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev)
-        if not two_stage:
-            check(getattr(lib, entry)(*args(outs, scratch),
-                                      stream.cuda_stream), fn)
-            return outs
         for stage in (0, 1):
             if stage == 1 and split_event is not None:
                 split_event.record(stream)
             check(getattr(lib, entry)(*args(outs, scratch), stage,
-                                      stream.cuda_stream), fn)
+                                      stream.cuda_stream),
+                  f'{fn} stage {"AB"[stage]}')
     return outs
 
 
@@ -455,8 +453,10 @@ def spectrum_toon(all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, rf, ptfac,
       depths): a running sum in the thread;
     - the SMEM/VMEM operand split (angles and scalars in SMEM): angles,
       cos_theta and ptfac are small device arrays read by every thread;
-    - the angle-stacked RHS buffers: stage B gives each (column, angle)
-      its own thread, which reads the shared factorisation from scratch.
+    - the angle-stacked RHS buffers and per-angle sources: stage B gives
+      each (column, angle) its own thread, which reads the shared
+      factorisation (reflected) or the solved layer rows (thermal) from
+      scratch.
     """
     fn = 'spectrum_toon'
     if _on_cpu(fn, taugas):
@@ -484,7 +484,7 @@ def spectrum_toon(all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, rf, ptfac,
                    surf_reflect, F0PI, u0, u1, ct, pt, o[0], o[1], scr),
             nlayer, nwno, ng * nt, *_controls_args(controls, b_top),
             int(stream), int(bool(delta_eddington)),
-            int(bool(hard_surface))), two_stage=True, split_event=split_event)
+            int(bool(hard_surface))), split_event=split_event)
     spectrum_toon.launches += 1
     return xint.reshape(ng, nt, nwno), therm.reshape(ng, nt, nwno)
 
@@ -519,7 +519,7 @@ def reflected_toon(taugas, tauray, cld_opd, cld_w0, cld_g0, rf,
             *_ptrs(taugas, tauray, cld_opd, cld_w0, cld_g0, rf,
                    surf_reflect, F0PI, u0, u1, ct, o[0], scr),
             nlayer, nwno, ng * nt, *_controls_args(controls, b_top),
-            int(stream), int(bool(delta_eddington))), two_stage=True,
+            int(stream), int(bool(delta_eddington))),
         split_event=split_event)
     reflected_toon.launches += 1
     return xint.reshape(ng, nt, nwno)
@@ -529,10 +529,12 @@ _THERM_STRIPS = ('taugas', 'tauray', 'cld_opd', 'cld_w0', 'cld_g0')
 
 
 def thermal_toon(all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, ptfac,
-                 surf_reflect, ubar1, hard_surface: bool = False):
+                 surf_reflect, ubar1, hard_surface: bool = False,
+                 split_event=None):
     """Thermal TOA flux [ng, nt, nwno] from the strips (K4).  Same contract
     as ``thermal_pallas_fused``; CPU tensors take the twin, CUDA tensors
-    launch the kernel or raise."""
+    launch the kernel (stage A solves each column, stage B sweeps each
+    angle) or raise."""
     fn = 'thermal_toon'
     if _on_cpu(fn, taugas):
         return thermal_toon_plain(all_b, taugas, tauray, cld_opd, cld_w0,
@@ -553,7 +555,8 @@ def thermal_toon(all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, ptfac,
         nlayer, nwno, 1, ng * nt, lambda o, scr: (
             *_ptrs(all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, pt,
                    surf_reflect, u1, o[0], scr),
-            nlayer, nwno, ng * nt, int(bool(hard_surface))))
+            nlayer, nwno, ng * nt, int(bool(hard_surface))),
+        split_event=split_event)
     thermal_toon.launches += 1
     return therm.reshape(ng, nt, nwno)
 
@@ -592,17 +595,17 @@ def reflected_toon_props(dtau, tau, w0, cosb, gcos2, ftau_cld, ftau_ray,
         lambda o, scr: (
             *_ptrs(*fields, surf_reflect, F0PI, u0, u1, ct, o[0], scr),
             nlayer, nwno, ng * nt, *_controls_args(controls, b_top)),
-        two_stage=True, split_event=split_event)
+        split_event=split_event)
     reflected_toon_props.launches += 1
     return xint.reshape(ng, nt, nwno)
 
 
 def thermal_toon_props(all_b, dtau, w0, cosb, tau_top, surf_reflect, ubar1,
-                       hard_surface: bool = False):
+                       hard_surface: bool = False, split_event=None):
     """Thermal TOA flux [ng, nt, nwno] from the precomputed OG dtau, the
     no-Raman w0, cosb and tau_top [nwno] (K6).  Same contract as
     ``thermal_pallas``; CPU tensors take the twin, CUDA tensors launch the
-    kernel or raise."""
+    kernel (two stages, as K4) or raise."""
     fn = 'thermal_toon_props'
     if _on_cpu(fn, dtau):
         return thermal_toon_props_plain(all_b, dtau, w0, cosb, tau_top,
@@ -621,7 +624,8 @@ def thermal_toon_props(all_b, dtau, w0, cosb, tau_top, surf_reflect, ubar1,
         nlayer, nwno, 1, ng * nt, lambda o, scr: (
             *_ptrs(all_b, dtau, w0, cosb, tau_top, surf_reflect, u1, o[0],
                    scr),
-            nlayer, nwno, ng * nt, int(bool(hard_surface))))
+            nlayer, nwno, ng * nt, int(bool(hard_surface))),
+        split_event=split_event)
     thermal_toon_props.launches += 1
     return therm.reshape(ng, nt, nwno)
 

@@ -414,6 +414,56 @@ def test_spectrum_and_reflected_kernels_agree_bitwise(dev, nang, multi_phase):
     assert start.elapsed_time(mid) > 0 and mid.elapsed_time(end) > 0
 
 
+@pytest.mark.parametrize('nang', [5, 36])
+@pytest.mark.parametrize('name', ['thermal_toon', 'thermal_toon_props'])
+def test_toon_thermal_split_event_keeps_outputs(dev, name, nang):
+    """K4's and K6's two stages with an event recorded between them give
+    the same bits as without, and the event splits the time."""
+    wrapper = getattr(cuda_toon, name)
+    args = _split_inputs(dev, name, 1000, nang)
+    for kw in _SPLIT_CASES[name]:
+        out = wrapper(*args, **kw)
+        start, mid, end = (torch.cuda.Event(enable_timing=True)
+                           for _ in range(3))
+        start.record()
+        split = wrapper(*args, split_event=mid, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all() and torch.equal(out, split), kw
+        assert start.elapsed_time(mid) > 0 and mid.elapsed_time(end) > 0
+
+
+def test_toon_thermal_failed_launch_raises(dev, monkeypatch):
+    """K4's and K6's entries refuse a stage other than 0 or 1 with a
+    nonzero code, which `check` raises on; the wrapper raises when either
+    stage fails, names the stage and does not count the call."""
+    from picaso_tpu_torch._build import check, library
+    lib = library()
+    for stage in (-1, 2, 5):
+        code = lib.toon_thermal_launch(*[None] * 11, 91, 300, 5, 0, stage,
+                                       None)
+        assert code != 0
+        with pytest.raises(RuntimeError):
+            check(code, 'toon_thermal_launch')
+        assert lib.toon_thermal_props_launch(*[None] * 9, 91, 300, 5, 1,
+                                             stage, None) != 0
+    for name, entry_name in (('thermal_toon', 'toon_thermal_launch'),
+                             ('thermal_toon_props',
+                              'toon_thermal_props_launch')):
+        entry = getattr(lib, entry_name)
+        wrapper = getattr(cuda_toon, name)
+        args = _split_inputs(dev, name, 300, 5)
+        for bad_stage in (0, 1):
+            def refuse(*a, bad_stage=bad_stage, entry=entry):
+                return 1 if a[-2] == bad_stage else entry(*a)
+            monkeypatch.setattr(lib, entry_name, refuse)
+            before = wrapper.launches
+            with pytest.raises(RuntimeError, match='stage ' + 'AB'[bad_stage]):
+                wrapper(*args)
+            assert wrapper.launches == before
+        monkeypatch.setattr(lib, entry_name, entry)
+
+
 @pytest.mark.parametrize('name', _SPLIT)
 def test_toon_split_wrappers_reject_bad_inputs(dev, name):
     wrapper = getattr(cuda_toon, name)
