@@ -18,7 +18,9 @@ Phases (any failure raises, so the exit code is nonzero):
  1. the card's name and power limit (nvidia-smi); no CUDA device -> error
  2. build the kernels from picaso_tpu_torch/csrc with nvcc (sm_90a)
  3. build the production problem on the card
- 4. gather kernel vs its twin at the production shape (max rel <= 1e-5)
+ 4. gather kernel vs its twin at the production shape (max rel <= 1e-5),
+    on the production profile and on a scattered one (every layer of a
+    chunk reads 4 rows no other layer of it reads: the most a chunk needs)
  5. spectrum kernel vs its twin at the production shape
     (max rel <= 1e-3, median rel <= 1e-5)
  6. forward on 4 temperature-perturbed scenes: finite outputs, each
@@ -62,7 +64,7 @@ Phases (any failure raises, so the exit code is nonzero):
 17. the int16 table: quantize the production table on the card (bytes,
     seconds)
 18. K8, the int16 gather, vs its twin at the production shape (max rel <=
-    1e-5), timed against its twin
+    1e-5), on both profiles of phase 4, timed against its twin
 19. forward on the 4 perturbed scenes with the int16 grid: finite outputs,
     K8 and K2 once per forward, K1 never
 20. nwno = 5000 oracle: the int16 f32 kernel path against the f64 plain
@@ -166,11 +168,15 @@ def check(name, value, limit):
 
 
 def cuda_ms(fn, n):
-    """Mean device time of fn() over n calls, by CUDA events."""
+    """Mean device time of fn() over n calls, by CUDA events.  The stream
+    first sleeps ~25 ms, so the n calls are queued before the card reaches
+    them: a kernel shorter than its wrapper's host time is timed, not the
+    host."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(n):
         fn()
@@ -346,7 +352,8 @@ def main():
                                                         interp_tau_q_plain)
     from picaso_tpu_torch.opacities.db import load_opacity_db
     from picaso_tpu_torch.optics import combine_optics
-    from picaso_tpu_torch.probes import gather_probe, sweep_layout_probe
+    from picaso_tpu_torch.probes import (gather_ab, gather_probe,
+                                         sweep_layout_probe)
     from picaso_tpu_torch.rt import cuda_sh, cuda_toon
     from picaso_tpu_torch.rt.cuda_toon import (spectrum_toon,
                                                spectrum_toon_plain)
@@ -397,6 +404,16 @@ def main():
     log(f'[4] gather kernel vs twin {tuple(k1.shape)}: median rel '
         f'{k1_med:.3e}, max abs {k1_abs:.3e}')
     check('gather max rel', k1_max, TOL['gather_max_rel'])
+    sc_scene = gather_ab.scattered_scene(scene, grid.pt)
+    sc_args = pipeline.gather_args(sc_scene, grid, config)
+    k1_sc = interp_tau(*sc_args)
+    k1_sc_ref = interp_tau_plain(*sc_args)
+    k1_abs = max(k1_abs, (k1_sc - k1_sc_ref).abs().max().item())
+    log(f'[4] gather kernel vs twin, scattered profile '
+        f'({torch.unique(sc_args[1]).numel()} distinct rows)')
+    check('gather scattered max rel', rel_stats(k1_sc, k1_sc_ref)[0],
+          TOL['gather_max_rel'])
+    del k1_sc, k1_sc_ref
 
     # phase 5: spectrum kernel vs twin
     tg, tr, rf = pipeline.rt_sources(scene, grid, config)
@@ -467,10 +484,12 @@ def main():
         f'({1e3 / plain_ms:.2f} forwards/s), peak {plain_peak} bytes')
     k1_ms = cuda_ms(lambda: interp_tau(*g_args), 20)
     k1_plain_ms = cuda_ms(lambda: interp_tau_plain(*g_args), 5)
+    k1_sc_ms = cuda_ms(lambda: interp_tau(*sc_args), 20)
     k2_ms = cuda_ms(lambda: spectrum_toon(*s_args, **s_kw), 10)
     k2_plain_ms = cuda_ms(lambda: spectrum_toon_plain(*s_args, **s_kw), 3)
     k2_stages = stages_ms(spectrum_toon, s_args, s_kw, 10)
-    log(f'    interp_tau {k1_ms:.3f} ms vs twin {k1_plain_ms:.3f} ms; '
+    log(f'    interp_tau {k1_ms:.3f} ms (scattered profile {k1_sc_ms:.3f}) '
+        f'vs twin {k1_plain_ms:.3f} ms; '
         f'spectrum_toon {k2_ms:.3f} ms (stage A + thermal '
         f'{k2_stages[0]:.3f}, stage B {k2_stages[1]:.3f}) vs twin '
         f'{k2_plain_ms:.3f} ms')
@@ -770,9 +789,19 @@ def main():
         f'{k8_med:.3e}, max abs {k8_abs:.3e}; vs the float gather max rel '
         f'{rel_stats(k8, k1)[0]:.3e}')
     check('int16 gather max rel', k8_max, TOL['gather_max_rel'])
+    sc_q_args = pipeline.gather_args(sc_scene, g16, config)
+    k8_sc = interp_tau_q(*sc_q_args)
+    k8_sc_ref = interp_tau_q_plain(*sc_q_args)
+    k8_abs = max(k8_abs, (k8_sc - k8_sc_ref).abs().max().item())
+    log('[18] int16 gather kernel vs twin, scattered profile')
+    check('int16 gather scattered max rel', rel_stats(k8_sc, k8_sc_ref)[0],
+          TOL['gather_max_rel'])
+    del k8_sc, k8_sc_ref
     k8_ms = cuda_ms(lambda: interp_tau_q(*q_args), 20)
+    k8_sc_ms = cuda_ms(lambda: interp_tau_q(*sc_q_args), 20)
     k8_plain_ms = cuda_ms(lambda: interp_tau_q_plain(*q_args), 5)
-    log(f'     interp_tau_q {k8_ms:.3f} ms vs twin {k8_plain_ms:.3f} ms')
+    log(f'     interp_tau_q {k8_ms:.3f} ms (scattered profile '
+        f'{k8_sc_ms:.3f}) vs twin {k8_plain_ms:.3f} ms')
     del k8, k8_ref
 
     # phase 19: the int16 path, counted
@@ -900,14 +929,15 @@ def main():
     log(smi[0])
     stats = {
         'interp_tau': dict(max_abs_err=k1_abs, ms=k1_ms,
-                           plain_ms=k1_plain_ms, bytes=k1_bytes, ops=k1_ops),
+                           plain_ms=k1_plain_ms, bytes=k1_bytes, ops=k1_ops,
+                           scattered_ms=k1_sc_ms),
         'spectrum_toon': dict(max_abs_err=k2_abs, ms=k2_ms,
                               plain_ms=k2_plain_ms, bytes=k2_bytes,
                               ops=k2_ops, stages_ms=k2_stages),
         **sh, **split,
         'interp_tau_q': dict(max_abs_err=k8_abs, ms=k8_ms,
                              plain_ms=k8_plain_ms, bytes=k8_bytes,
-                             ops=k8_ops),
+                             ops=k8_ops, scattered_ms=k8_sc_ms),
         'interp_tau_layer_inner': dict(
             max_abs_err=li_abs, ms=g_rep['ms']['layer-inner (stabilized)'],
             plain_ms=li_plain_ms, bytes=li_bytes, ops=li_ops),

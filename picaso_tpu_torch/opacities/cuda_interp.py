@@ -102,11 +102,13 @@ def interp_tau(log_kappa, idx, t_w, p_w, mixcol):
       are already contiguous, and the repack would cost a second 3.4 GB
       copy of the table;
     - ``_parity_slots``: it let Mosaic elide re-fetches of rows shared by
-      consecutive layers; here such rows are re-read from L2 (the gather
-      probe, ``probes/gather_probe.py``, measures the alternative);
+      consecutive layers; here each block takes a chunk of consecutive
+      layers and its prologue numbers the chunk's distinct rows, so each
+      is read from device memory once per chunk and tile (the CUDA
+      counterpart of that DMA elision; no host sync, no extra launch);
     - the (8, 128) unit axes: a TPU tiling rule with no CUDA counterpart;
     - the SMEM scalar-prefetch of idx/weights: each block loads its own
-      layer's row ids and weights into shared memory.
+      chunk's row ids and weights into shared memory.
     """
     if log_kappa.device.type == 'cpu':
         return interp_tau_plain(log_kappa, idx, t_w, p_w, mixcol)
@@ -183,8 +185,8 @@ def interp_tau_q(q, idx, t_w, p_w, mixcol, qparams=None):
     ``interp_tau_pallas_blocked`` on an int16 table.
 
     CPU tensors take :func:`interp_tau_q_plain`; CUDA tensors launch
-    ``interp_tau_q_launch`` of ``csrc/interp_tau.cu`` (K1's grid with
-    int16 loads) and raise on anything it does not take.  A missing
+    ``interp_tau_q_launch`` of ``csrc/interp_tau.cu`` (K1's kernel staging
+    int16 rows) and raise on anything it does not take.  A missing
     ``qparams`` raises ``ValueError``, as in the JAX package.
     """
     if qparams is None:

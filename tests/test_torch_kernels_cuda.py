@@ -10,7 +10,8 @@ port need not have).
 
 Tolerances, float32 on both sides with the same arithmetic order (the
 kernels are built with -fmad=false): the gathers (K1, K8, the gather
-probe's layer-inner kernel) and the sweep probe's two layouts to rtol
+probe's layer-inner kernel; K1 and K8 on a random-temperature, a
+scattered and a clamped profile) and the sweep probe's two layouts to rtol
 1e-5; the Toon (K2-K6) and SH spectrum kernels to max rel 1e-3 and median
 rel 1e-5 (the recursions amplify the few-ulp differences of expf/cumsum
 between the two).  The int16 forward is held against the float plain path
@@ -33,7 +34,8 @@ from picaso_tpu_torch.opacities.cuda_interp import (interp_tau,
 from picaso_tpu_torch.opacities.db import _find_indices
 from picaso_tpu_torch.opacities.factory import synthetic_opacity_grid
 from picaso_tpu_torch.optics import combine_optics
-from picaso_tpu_torch.probes import gather_probe, sweep_layout_probe
+from picaso_tpu_torch.probes import (gather_ab, gather_probe,
+                                     sweep_layout_probe)
 from picaso_tpu_torch.rt import cuda_sh, cuda_toon
 from picaso_tpu_torch.rt.cuda_toon import spectrum_toon, spectrum_toon_plain
 from picaso_tpu_torch.rt.toon import ScatteringControls, blackbody
@@ -54,30 +56,51 @@ def _rel(a, b):
     return (a - b).abs() / scale
 
 
-def _gather_inputs(dev, nwno, nlayer=12, seed=3):
+def _gather_inputs(dev, nwno, nlayer=12, seed=3, profile='random T'):
+    """The gather's arguments on a 16 x 10 (T, P) grid of 3 molecules.
+    Profiles: 'random T' (random temperatures, log-spaced pressures);
+    'scattered' (every layer of a chunk reads 4 rows no other layer of it
+    reads: the most distinct rows a chunk can need, for which the kernels
+    size their shared memory); 'clamped' (beyond the grid's edges, some
+    layers with one row in all four corners or two corners on one row)."""
     wno = np.linspace(1000.0, 15000.0, nwno)
     grid = synthetic_opacity_grid(wno, molecules=('H2O', 'CH4', 'CO'),
-                                  ntemp=6, npress=5, dtype=torch.float32,
+                                  ntemp=16, npress=10, dtype=torch.float32,
                                   device=dev)
     rng = np.random.default_rng(seed)
     f32 = dict(dtype=torch.float32, device=dev)
-    tlayer = torch.tensor(rng.uniform(200.0, 2400.0, nlayer), **f32)
-    player = torch.tensor(np.logspace(-5, 2, nlayer), **f32)
+    if profile == 'scattered':
+        t, p = gather_ab.scattered_layers(grid.pt, nlayer, seed)
+    elif profile == 'clamped':
+        t = np.where(np.arange(nlayer) % 2 == 0, 70.0, 3450.0)
+        p = np.where(np.arange(nlayer) % 3 == 0, 5e-7, 2e3)
+    else:
+        t, p = rng.uniform(200.0, 2400.0, nlayer), np.logspace(-5, 2, nlayer)
     mixcol = torch.tensor(rng.uniform(1e-6, 1e-3, (3, nlayer))
                           * rng.uniform(1.0, 100.0, nlayer), **f32)
-    t_w, p_w, idx = _find_indices(grid.pt, tlayer, player)
+    t_w, p_w, idx = _find_indices(grid.pt, torch.tensor(t, **f32),
+                                  torch.tensor(p, **f32))
+    if profile == 'clamped':
+        idx[:, 1::4] = idx[0, 1::4].clone()
+        idx[2, 2::4] = idx[1, 2::4].clone()
     return grid.log_kappa, idx, t_w, p_w, mixcol
 
 
+_GATHER_PROFILES = ['random T', 'scattered', 'clamped']
+
+
+@pytest.mark.parametrize('profile', _GATHER_PROFILES)
+@pytest.mark.parametrize('nlayer', [12, 17])
 @pytest.mark.parametrize('nwno', [256, 700, 37])
-def test_interp_kernel_matches_twin(dev, nwno):
-    args = _gather_inputs(dev, nwno)
+def test_interp_kernel_matches_twin(dev, nwno, nlayer, profile):
+    args = _gather_inputs(dev, nwno, nlayer, profile=profile)
     before = interp_tau.launches
     out = interp_tau(*args)
     torch.cuda.synchronize()
     assert interp_tau.launches == before + 1
     ref = interp_tau_plain(*args)
-    assert out.shape == ref.shape == (12, nwno)
+    assert out.shape == ref.shape == (nlayer, nwno)
+    assert torch.isfinite(out).all()
     assert _rel(out, ref).max().item() <= 1e-5
 
 
@@ -517,20 +540,63 @@ def test_toon_split_forwards_match_plain_path(dev, case):
         assert rel.max().item() <= 5e-3 and rel.median().item() <= 2e-4, key
 
 
+@pytest.mark.parametrize('profile', _GATHER_PROFILES)
+@pytest.mark.parametrize('nlayer', [12, 17])
 @pytest.mark.parametrize('nwno', [256, 700, 37])
-def test_interp_q_kernel_matches_twin(dev, nwno):
-    log_kappa, idx, t_w, p_w, mixcol = _gather_inputs(dev, nwno)
+def test_interp_q_kernel_matches_twin(dev, nwno, nlayer, profile):
+    log_kappa, idx, t_w, p_w, mixcol = _gather_inputs(dev, nwno, nlayer,
+                                                      profile=profile)
     q, qp = quantize_table(log_kappa)
     before = interp_tau_q.launches
     out = interp_tau_q(q, idx, t_w, p_w, mixcol, qparams=qp)
     torch.cuda.synchronize()
     assert interp_tau_q.launches == before + 1
     ref = interp_tau_q_plain(q, idx, t_w, p_w, mixcol, qp)
-    assert out.shape == ref.shape == (12, nwno)
+    assert out.shape == ref.shape == (nlayer, nwno)
+    assert torch.isfinite(out).all()
     assert _rel(out, ref).max().item() <= 1e-5
     # the int16 gather stays within its quantization of the float one
     assert _rel(out, interp_tau(log_kappa, idx, t_w, p_w, mixcol)
                 ).max().item() <= 5e-3
+
+
+def test_interp_failed_launch_raises(dev, monkeypatch):
+    """A launch whose dynamic shared memory the card refuses (the column
+    weights of 5000 molecules do not fit beside the staging ring) returns
+    a nonzero code: both wrappers raise and do not count the call, and the
+    next launch is not charged with the error.  An entry that reports a
+    failure makes them raise as well."""
+    from picaso_tpu_torch._build import library
+    nmol, nlayer = 5000, 12
+    f32 = dict(dtype=torch.float32, device=dev)
+    table = torch.zeros((nmol, 2, 8), **f32)
+    idx = torch.zeros((4, nlayer), dtype=torch.int64, device=dev)
+    t_w = p_w = torch.full((nlayer,), 0.5, **f32)
+    mixcol = torch.zeros((nmol, nlayer), **f32)
+    qp = torch.tensor([1e-3, 0.0], **f32)
+    calls = ((interp_tau, 'interp_tau_launch', (table, idx, t_w, p_w, mixcol)),
+             (interp_tau_q, 'interp_tau_q_launch',
+              (table.to(torch.int16), idx, t_w, p_w, mixcol, qp)))
+    for wrapper, _, args in calls:
+        before = wrapper.launches
+        with pytest.raises(RuntimeError, match='CUDA error'):
+            wrapper(*args)
+        assert wrapper.launches == before
+    args = _gather_inputs(dev, 300)
+    ref = interp_tau(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(ref).all()
+    lib = library()
+    for wrapper, entry_name, _ in calls:
+        monkeypatch.setattr(lib, entry_name, lambda *a: 1)
+        q, qp = quantize_table(args[0])
+        good = args if wrapper is interp_tau else (q,) + args[1:] + (qp,)
+        before = wrapper.launches
+        with pytest.raises(RuntimeError, match='CUDA error 1'):
+            wrapper(*good)
+        assert wrapper.launches == before
+    monkeypatch.undo()
+    assert torch.equal(interp_tau(*args), ref)
 
 
 def test_interp_q_wrapper_rejects_bad_inputs(dev):
