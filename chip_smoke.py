@@ -8,9 +8,15 @@ continua, Rayleigh, reflected + thermal + transit -- with the Toon solver
 Pollack) and with the spherical-harmonics solver at 4 and 2 streams, a
 4-point reflected phase curve through ``forward_batch``, the int16 opacity
 table, and a sqlite database written, loaded and run on the card; then
-the gather and sweep-layout probes.  It goes through the 14 hand-written
-CUDA kernels, and checks each kernel against its plain PyTorch twin and
-each forward against a float64 oracle.
+the gather and sweep-layout probes; then the radiative-convective climate
+solve, ``climate.api.run_climate`` in chemical equilibrium at the
+production shape of bench.py's climate modes (91 levels, the 196- and
+661-bin synthetic CK tables, a 700 K brown dwarf).  It goes through the 14
+hand-written CUDA kernels, and checks each kernel against its plain
+PyTorch twin, each forward against a float64 oracle on the card, and each
+climate solve against the JAX package's float64 solve
+(tests/climate_reference.json; the climate path runs none of the kernels:
+plain torch).
 
     python3 chip_smoke.py
 
@@ -78,11 +84,38 @@ Phases (any failure raises, so the exit code is nonzero):
     gather max rel <= 1e-5 against its twin, <= 1e-4 against K1 on
     stabilised slots; both sweep layouts <= 1e-5), then each probe's
     report with its kernels counted
-23. the card, one JSON line with every kernel's summary (launches on its
-    path, times, max abs error, and the bound: the larger of the bytes
-    its inputs and outputs need over 3.35 TB/s and the float32
-    operations its twin performs on these inputs, counted per aten call,
-    over 67 TFLOP/s), then the result line.
+23. climate at the production shape (bench.py's: 91 levels, 196 bins x 8
+    gauss points, a 700 K brown dwarf): one flux evaluation and one
+    Jacobian (all perturbations in one evaluation, the default, and 8 at a
+    time) in f64 (run_climate's default) and in f32, timed by CUDA events
+    behind a stream sleep and by the host clock, their device launches
+    counted by the profiler and their aten calls by a dispatch counter,
+    the Jacobians' peak memory; the level fluxes F+ and F- of the thermal
+    and the reflected (flat stellar flux) solves at the guess: f64 on the
+    card against f64 on the CPU (the path the tests hold against the JAX
+    package) within phase 7's gates (max rel <= 5e-3, median rel <= 2e-4),
+    f32 against f64 on the card reported (the f32 opt-in's thin-layer
+    fault, ROADMAP Queue 3)
+24. climate, 196 bins: run_climate with its defaults (f64) at 91 levels:
+    converged, finite, flux balance max |flux_net| / (sigma Teff^4) <= 1e-3
+    over the radiative zone (tests/test_climate.py), the JAX package's f64
+    solve of tests/climate_reference.json reproduced (the same converged
+    and cvz_locs, max |dT| <= 2 K, TPU_PARITY.json's climate_max_dT), the
+    level fluxes at the solution on the card against the CPU (phase 23's
+    gates); then the f32 opt-in against f64 at the depth
+    scripts/tpu_parity.py validated the JAX package's f32 at (41 levels):
+    both converge, flux balance, max |dT| <= 2 K, the level fluxes at the
+    f64 solution f32 against f64 within phase 7's gates; each run's wall
+    seconds, profile steps, Newton iterations, Jacobians, flux
+    evaluations, cvz_locs, flux balance and peak memory; no kernel
+    launched
+25. climate, 661 bins: the same runs and gates on the 661-bin table (the
+    level fluxes at the 91-level solution, card against CPU)
+26. the card, one JSON line with the climate numbers, one with every
+    kernel's summary (launches on its path, times, max abs error, and the
+    bound: the larger of the bytes its inputs and outputs need over 3.35
+    TB/s and the float32 operations its twin performs on these inputs,
+    counted per aten call, over 67 TFLOP/s), then the result line.
 """
 
 import dataclasses
@@ -133,6 +166,21 @@ KERNELS = {
 PHASES_DEG = (0.0, 45.0, 90.0, 120.0)
 INT16_TOL = {'max_rel': 5e-3, 'median_rel': 20 * 2e-4}
 DB_NWNO = 2_000
+# the climate problem of bench.py:492-513: 700 K, 100 m/s^2, no star,
+# 91 levels from 1e-4 to 10^2.5 bar, the convective zone guessed 20 levels
+# above the bottom
+CLIMATE_NLEVEL = 91
+CLIMATE_TEFF = 700.0
+CLIMATE_DT_MAX = 2.0         # K, TPU_PARITY.json:9 climate_max_dT
+# the depth at which the JAX package's f32 climate was validated against
+# its f64 oracle (scripts/tpu_parity.py: 41 levels, rcb_guess 31); at 91
+# levels an f32 solve ends hundreds of K from the f64 one, the JAX
+# package's on the CPU as the port's (tests/climate_f32_record.py, ROADMAP
+# Queue 3), so the port's f32 is an opt-in checked at 41 levels
+CLIMATE_PARITY_NLEVEL = 41
+CLIMATE_BALANCE = 1e-3       # tests/test_climate.py:97-104
+# the JAX package's f64 solves at 91 levels (tests/climate_f32_record.py)
+CLIMATE_REFERENCE = 'tests/climate_reference.json'
 # one H100 SXM at its 700 W limit (NVIDIA data sheet): memory rate and
 # float32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -265,14 +313,17 @@ def check_twin(label, out, ref, phase=13):
 
 class OpCounter(TorchDispatchMode):
     """Counts the floating-point operations of the aten calls made inside
-    it: the operation count of a kernel's twin, which repeats the kernel's
-    arithmetic, on the same inputs."""
+    it (the operation count of a kernel's twin, which repeats the kernel's
+    arithmetic, on the same inputs) and the calls themselves (the host
+    dispatches of eager PyTorch)."""
 
     def __init__(self):
         super().__init__()
         self.ops = 0
+        self.calls = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.calls += 1
         out = func(*args, **(kwargs or {}))
         name = func.overloadpacket.__name__.rstrip('_')
         if isinstance(out, torch.Tensor) and out.is_floating_point():
@@ -925,8 +976,11 @@ def main():
     staged_ms, staged_label = min((v, k) for k, v in s_rep['ms'].items()
                                   if k != 'rows')
 
-    # phase 23: summary
+    climate = climate_phases(dev, reset_counts, counts)
+
+    # phase 26: summary
     log(smi[0])
+    print(json.dumps({'climate': climate}))
     stats = {
         'interp_tau': dict(max_abs_err=k1_abs, ms=k1_ms,
                            plain_ms=k1_plain_ms, bytes=k1_bytes, ops=k1_ops,
@@ -963,6 +1017,261 @@ def main():
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)
+
+
+def device_launches(fn):
+    """(device kernels, their summed device ms, aten calls) of one fn():
+    the kernels and memory operations the profiler records on the card,
+    and the aten calls a dispatch counter sees."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    with OpCounter() as counter:
+        fn()
+    torch.cuda.synchronize()
+    return (len(on_card), sum(e.device_time for e in on_card) / 1e3,
+            counter.calls)
+
+
+def climate_inputs(nlevel, F0PI=None, rfacv=0.0):
+    """bench.py:492-513's brown dwarf at ``nlevel`` levels; at the
+    TPU-parity depth the convective-zone guess of scripts/tpu_parity.py
+    (rcb_guess 31 of 41), else nlevel - 20."""
+    from picaso_tpu_torch.climate.api import ClimateInputs
+    pressure = np.logspace(-4, 2.5, nlevel)
+    guess = np.clip(CLIMATE_TEFF * (pressure / 10.0) ** 0.12, 250.0, 2800.0)
+    rcb = 31 if nlevel == CLIMATE_PARITY_NLEVEL else nlevel - 20
+    return ClimateInputs(t_eff=CLIMATE_TEFF, gravity=1e4, pressure=pressure,
+                         guess=guess, nstr=(0, rcb, nlevel - 2, 0, 0, 0),
+                         rfacv=rfacv, F0PI=F0PI)
+
+
+def climate_level_fluxes(ck, nlevel, temp, where):
+    """{label: [thermal F+, F-, reflected F+, F-]} ([nlevel, nwno] each, in
+    f64 on the card) at temperature ``temp`` (the opacities of
+    build_opacities there), for each (label, device, dtype) of ``where``;
+    the reflected half under a flat stellar flux."""
+    from picaso_tpu_torch.climate import api, core, fused
+    inputs = climate_inputs(nlevel, F0PI=np.ones(ck.nwno), rfacv=1.0)
+    card = ck.arrays.wno.device
+    level = {}
+    for label, dev, dtype in where:
+        st = api.climate_state(inputs, ck, device=dev, dtype=dtype,
+                               verbose=False)
+        a, d = st.ck.arrays, st.data
+        t = torch.as_tensor(np.asarray(temp), dtype=dtype, device=dev)
+        config = st.fused_config(10, False)
+        props = fused.build_opacities(t, d, st.chem_grid, a, config)
+        thermal = core.thermal_level_fluxes(t[None], props, d.plevel,
+                                            st.geom, a.wno, a.delta_wno,
+                                            a.gauss_wts, d.surf_reflect)
+        fluxes = [x[:, 0] for x in thermal[:2]] + list(
+            core.visible_level_fluxes(props, d.plevel, d.F0PI, a.gauss_wts,
+                                      d.surf_reflect, config.controls)[:2])
+        level[label] = [x.to(card, torch.float64) for x in fluxes]
+    torch.cuda.synchronize()
+    return level
+
+
+LEVEL_NAMES = ('thermal F+', 'thermal F-', 'reflected F+', 'reflected F-')
+
+
+def report_level_fluxes(label, x_fluxes, y_fluxes, gated):
+    """Each level flux of x against y: max and median rel, the levels whose
+    max rel exceeds the forward gate and the largest flux there over the
+    largest overall; ``gated``: each within phase 7's gates.  Returns
+    {name: numbers}."""
+    out = {}
+    for name, x, y in zip(LEVEL_NAMES, x_fluxes, y_fluxes):
+        mx, med = rel_stats(x, y)
+        top = y.abs().max().item()
+        rel = (x - y).abs() / torch.clamp(y.abs(), min=top * 1e-9)
+        over = torch.nonzero(rel.amax(1) > TOL['forward_max_rel'])[:, 0]
+        scale = (y[over].abs().max().item() / top) if over.numel() else 0.0
+        log(f'{label} {name}: max rel {mx:.3e}, median rel {med:.3e}; '
+            f'levels over {TOL["forward_max_rel"]:.0e}: {over.tolist()} '
+            f'(largest flux there {scale:.1e} of the largest)')
+        out[name] = dict(max_rel=mx, median_rel=med, levels_over=over.tolist(),
+                         largest_there=scale)
+        if gated:
+            check(f'{name} max rel', mx, TOL['forward_max_rel'])
+            check(f'{name} median rel', med, TOL['forward_median_rel'])
+    return out
+
+
+def climate_run(label, inputs, ck, dtype, dev, reset_counts, counts):
+    """run_climate on the card with its defaults but ``dtype``: finite
+    temperatures, no kernel launched, converged, and the flux balance
+    max |flux_net| / (sigma Teff^4) over the radiative zone within
+    tests/test_climate.py's 1e-3.  Returns (its output, its numbers)."""
+    from picaso_tpu_torch.climate import api, core, fused
+    solve = fused.ClimateCounts()
+    reset_counts()
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = api.run_climate(inputs, ck, verbose=False, counts=solve,
+                          device=dev, **({} if dtype is None
+                                         else dict(dtype=dtype)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launched = {k: v for k, v in counts().items() if v}
+    temp = out['temperature']
+    nstr = [int(i) for i in out['cvz_locs']]
+    resid = out['flux_balance']['flux_net'][:max(nstr[1], 1)]
+    balance = float(np.abs(resid).max()
+                    / (core.SIGMA_SB * CLIMATE_TEFF ** 4))
+    numbers = dict(wall_s=wall, converged=int(out['converged']),
+                   cvz_locs=nstr, flux_balance=balance, peak_bytes=peak,
+                   nlevel=len(temp), nwno=ck.nwno,
+                   **dataclasses.asdict(solve))
+    log(f'     {label}: {json.dumps(numbers)}; T top {temp[0]:.3f} K, '
+        f'bottom {temp[-1]:.3f} K')
+    if launched:
+        raise AssertionError(f'{label}: the climate path launched {launched}')
+    if not np.isfinite(temp).all():
+        raise AssertionError(f'{label}: non-finite temperatures')
+    if out['converged'] != 1:
+        raise AssertionError(f'{label}: did not converge')
+    check(f'{label} flux balance', balance, CLIMATE_BALANCE)
+    return out, numbers
+
+
+def climate_phases(dev, reset_counts, counts):
+    """Phases 23-25: the climate fluxes and full solves on the card."""
+    from picaso_tpu_torch.climate import api, core, fused
+    from picaso_tpu_torch.opacities.ck import synthetic_ck_table
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           CLIMATE_REFERENCE)) as f:
+        reference = json.load(f)
+    nl, nl_parity = CLIMATE_NLEVEL, CLIMATE_PARITY_NLEVEL
+    cpu = torch.device('cpu')
+    f32, f64 = torch.float32, torch.float64
+    summary = {}
+    # phase 23: the costs at the production shape in both dtypes, and the
+    # level fluxes at the guess
+    t0 = time.perf_counter()
+    ck196 = synthetic_ck_table(device=dev)
+    log(f'[23] 196-bin CK table on the card in '
+        f'{time.perf_counter() - t0:.2f} s: ln_kappa '
+        f'{tuple(ck196.arrays.ln_kappa.shape)}')
+    inputs = climate_inputs(nl)
+    zones = core.zone_maps(inputs.nstr, 1, nl)
+    costs = {}
+    for dtype in (f64, f32):
+        st = api.climate_state(inputs, ck196, device=dev, dtype=dtype,
+                               verbose=False)
+        a, d = st.ck.arrays, st.data
+        temp = core.reconstruct_profile(
+            torch.tensor(inputs.guess, dtype=dtype, device=dev), zones,
+            d.plevel, st.adiabat)
+        props = fused.build_opacities(temp, d, st.chem_grid, a,
+                                      st.fused_config(10, False))
+
+        def flux_eval():
+            return core.thermal_fluxes(temp, props, d.plevel, st.geom, a.wno,
+                                       a.delta_wno, a.gauss_wts,
+                                       d.surf_reflect)
+
+        fni, fnil, _ = flux_eval()
+        for label, fn in [('flux_eval', flux_eval)] + [
+                (f'jacobian_{jb or "all"}', (lambda c: lambda: fused.jacobian(
+                    temp, temp, fni, fnil, props, zones, d, st.geom, a,
+                    st.adiabat, c))(st.fused_config(10, False, jb)))
+                for jb in (None, 8)]:
+            label = f'{label}_{str(dtype)[6:]}'
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ev_ms = cuda_ms(fn, 3)
+            peak = torch.cuda.max_memory_allocated()
+            host_ms = wall_ms(fn, 3)
+            kernels, device_ms, aten = device_launches(fn)
+            costs[label] = dict(event_ms=ev_ms, wall_ms=host_ms,
+                                device_launches=kernels,
+                                device_busy_ms=device_ms, aten_calls=aten,
+                                peak_bytes=peak)
+            log(f'[23] {label}: {json.dumps(costs[label])}')
+        del props, fni, fnil, st, temp
+    summary['costs'] = costs
+    level = climate_level_fluxes(ck196, nl, inputs.guess, (
+        ('card', dev, f64), ('cpu', cpu, f64), ('card f32', dev, f32)))
+    summary[f'level_fluxes_{nl}_guess'] = report_level_fluxes(
+        f'[23] level fluxes at {nl} levels, the guess, f64 card vs CPU:',
+        level['card'], level['cpu'], gated=True)
+    summary[f'level_fluxes_{nl}_guess_f32'] = report_level_fluxes(
+        f'[23] level fluxes at {nl} levels, the guess, f32 vs f64 on the '
+        f'card (reported: the f32 opt-in, ROADMAP Queue 3):',
+        level['card f32'], level['card'], gated=False)
+    del level
+
+    # phases 24 (196 bins) and 25 (661 bins): the default (f64) solve at
+    # the production depth against the JAX package's, then the f32 opt-in
+    # against f64 at the TPU-parity depth
+    runs = {}
+    for table, phase in (('196', 24), ('661', 25)):
+        if table == '196':
+            ck = ck196
+        else:
+            t0 = time.perf_counter()
+            ck = synthetic_ck_table(grid661=True, device=dev)
+            log(f'[25] 661-bin CK table on the card in '
+                f'{time.perf_counter() - t0:.2f} s')
+        key = f'{table}_{nl}'
+        out, runs[key] = climate_run(
+            f'[{phase}] {table} bins, {nl} levels, defaults (f64)',
+            climate_inputs(nl), ck, None, dev, reset_counts, counts)
+        ref = reference[key]
+        d_t = float(np.abs(out['temperature']
+                           - np.asarray(ref['temperature'])).max())
+        runs[key]['max_dT_to_jax'] = d_t
+        log(f'[{phase}] {table} bins, {nl} levels, against the JAX '
+            f'package\'s f64 solve: converged {ref["converged"]}, cvz_locs '
+            f'{ref["cvz_locs"]}')
+        if (runs[key]['converged'], runs[key]['cvz_locs']) != (
+                ref['converged'], ref['cvz_locs']):
+            raise AssertionError(f'{key}: converged / cvz_locs differ from '
+                                 f'the JAX package\'s')
+        check(f'{table}-bin climate max |dT| to the JAX package (K)', d_t,
+              CLIMATE_DT_MAX)
+        level = climate_level_fluxes(ck, nl, out['temperature'], (
+            ('card', dev, f64), ('cpu', cpu, f64)))
+        summary[f'level_fluxes_{key}_solution'] = report_level_fluxes(
+            f'[{phase}] level fluxes at the {nl}-level solution, f64 card '
+            f'vs CPU:', level['card'], level['cpu'], gated=True)
+        del level, out
+        temps = {}
+        for label, dtype in (('f64', f64), ('f32', f32)):
+            k = f'{table}_{nl_parity}_{label}'
+            out, runs[k] = climate_run(
+                f'[{phase}] {table} bins, {nl_parity} levels, {label}',
+                climate_inputs(nl_parity), ck, dtype, dev, reset_counts,
+                counts)
+            temps[label] = out['temperature']
+        d_t = float(np.abs(temps['f32'] - temps['f64']).max())
+        runs[f'{table}_{nl_parity}_max_dT'] = d_t
+        log(f'[{phase}] {table} bins, {nl_parity} levels, f32 vs f64')
+        check(f'{table}-bin climate f32 max |dT| (K)', d_t, CLIMATE_DT_MAX)
+        if table == '196':
+            level = climate_level_fluxes(ck, nl_parity, temps['f64'], (
+                ('f64', dev, f64), ('f32', dev, f32)))
+            summary[f'level_fluxes_{nl_parity}_solution_f32'] = (
+                report_level_fluxes(
+                    f'[24] level fluxes at the {nl_parity}-level f64 '
+                    f'solution, f32 vs f64:', level['f32'], level['f64'],
+                    gated=True))
+            del level
+        del ck
+    summary['runs'] = runs
+    return summary
 
 
 def profile_scene(pipeline, grid, nlevel=NLEVEL):

@@ -1,9 +1,10 @@
-"""Carry the JAX package's grids and scenes across to the port.
+"""Carry the JAX package's grids, scenes and climate tables across to the
+port.
 
 The inputs are plain numpy arrays (for example
 ``{k: np.asarray(v) for k, v in scene._asdict().items()}`` of a
-``picaso_tpu`` SceneTensors) plus the static tuples, so nothing here
-imports jax.  The outputs are the port's objects on ``device`` (default
+``picaso_tpu`` SceneTensors, or of its CK table's ``CKArrays``) plus the
+static tuples, so nothing here imports jax.  The outputs are the port's objects on ``device`` (default
 ``'cuda'``; raises where there is no card) in ``dtype`` (default: float64
 on the CPU, float32 on CUDA).
 """
@@ -14,10 +15,14 @@ import numpy as np
 import torch
 
 from . import checked_device, default_dtype
+from .chemistry import ChemGrid
+from .climate.adiabat import AdiabatGrid
+from .opacities.ck import CKArrays, CKTable
 from .opacities.db import OpacityGrid, PTGrid
 from .pipeline import SceneTensors
 
-__all__ = ['grid_from_numpy', 'scene_from_numpy']
+__all__ = ['grid_from_numpy', 'scene_from_numpy', 'ck_table_from_numpy',
+           'chem_grid_from_numpy', 'adiabat_from_numpy']
 
 _INT_FIELDS = {'nc_p', 't_offset', 'raman_ji'}
 
@@ -54,3 +59,39 @@ def scene_from_numpy(arrays, device='cuda', dtype=None) -> SceneTensors:
     return SceneTensors(**{name: _tensor(name, arrays[name], device, dtype)
                            for name in SceneTensors._fields})
 
+
+def ck_table_from_numpy(arrays, molecules, full_abunds, gauss_pts, temps,
+                        pressures, device='cuda', dtype=None) -> CKTable:
+    """CKTable from numpy arrays.
+
+    ``arrays`` holds the CKArrays fields (wno, delta_wno, gauss_wts,
+    ln_kappa, p_log_grid, t_inv_grid, nc_p, cont_opa, cia_temps) and
+    continuum_molecules; ``full_abunds`` maps column name -> numpy array
+    (a pandas frame's columns, in order).
+    """
+    device = checked_device(device)
+    dtype = default_dtype(device) if dtype is None else dtype
+    ck = CKArrays(*(_tensor(name, arrays[name], device, dtype)
+                    for name in CKArrays._fields[:-1]),
+                  tuple(arrays['continuum_molecules']))
+    return CKTable(ck, molecules, full_abunds, gauss_pts, temps, pressures,
+                   wno=arrays['wno'], delta_wno=arrays['delta_wno'],
+                   gauss_wts=arrays['gauss_wts'])
+
+
+def chem_grid_from_numpy(arrays, species, device='cuda',
+                         dtype=None) -> ChemGrid:
+    """ChemGrid from numpy arrays (log_abunds, t_inv_grid, p_log_grid,
+    nc_p, t_offset) and the species tuple."""
+    device = checked_device(device)
+    dtype = default_dtype(device) if dtype is None else dtype
+    return ChemGrid(*(_tensor(name, arrays[name], device, dtype)
+                      for name in ChemGrid._fields[:-1]), tuple(species))
+
+
+def adiabat_from_numpy(arrays, device='cuda', dtype=None) -> AdiabatGrid:
+    """AdiabatGrid from numpy arrays (t_table, p_table, grad, cp)."""
+    device = checked_device(device)
+    dtype = default_dtype(device) if dtype is None else dtype
+    return AdiabatGrid(*(_tensor(name, arrays[name], device, dtype)
+                         for name in AdiabatGrid._fields))

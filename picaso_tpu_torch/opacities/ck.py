@@ -1,0 +1,294 @@
+"""Correlated-k opacity tables (premixed), on the device.
+
+Port of the premixed half of ``picaso_tpu/opacities/ck.py`` (reference
+picaso ``RetrieveCKs``, optics.py:654-1875): the premixed ln-kappa cube
+[npress, ntemp, nwno, ngauss] sits on the device, and the bilinear
+(1/T, log10 P) interpolation (``get_pre_mix_ck``, optics.py:1081-1161) and
+the CIA log-interpolation in inverse temperature (``get_continuum``,
+optics.py:1398-1498) are torch operations on it, so a climate iteration's
+opacity update is device work.
+
+The chemistry table (``full_abunds``) rides along with the table as in the
+reference; here it is a dict of numpy columns in table order (the JAX
+package keeps a pandas frame, which the port does not import).
+
+Not ported yet (ROADMAP Queue 1): the real-file loaders (``load_ck_db``:
+premixed hdf5, the legacy 1460-grid ASCII directory, the per-gas
+resort-rebin tables) and ``ck_taugas`` of the spectrum path.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import checked_device
+from .db import connect
+from .factory import synthetic_cross_sections
+
+__all__ = ['CKArrays', 'CKTable', 'synthetic_ck_table', 'interp_premix',
+           'ck_continuum', 'double_gauss_points']
+
+AVOGADRO = 6.02214086e+23
+
+REFDATA_OPACITIES = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), 'picaso_tpu', 'refdata', 'opacities')
+CONTINUUM_DB = os.path.join(REFDATA_OPACITIES, 'ck_cx_cont_opacities.db')
+
+
+class CKArrays(NamedTuple):
+    """Device-resident CK data."""
+    wno: torch.Tensor            # [nwno]
+    delta_wno: torch.Tensor      # [nwno]
+    gauss_wts: torch.Tensor      # [ngauss]
+    ln_kappa: torch.Tensor       # [npress, ntemp, nwno, ngauss] (premixed)
+    p_log_grid: torch.Tensor     # [npress] log10 bar
+    t_inv_grid: torch.Tensor     # [ntemp] 1/K
+    nc_p: torch.Tensor           # [ntemp] int32
+    cont_opa: torch.Tensor       # [ncont, ntcia, nwno]
+    cia_temps: torch.Tensor      # [ntcia] sorted
+    continuum_molecules: tuple
+
+    def to(self, device, dtype):
+        """The arrays on ``device``, the float ones in ``dtype``."""
+        return CKArrays(*(x.to(device, dtype) if x.is_floating_point()
+                          else x.to(device) for x in self[:-1]),
+                        self.continuum_molecules)
+
+
+class CKTable:
+    """A CK table: the device arrays, host copies of the grids, and the
+    chemistry table (``full_abunds``: column name -> numpy array, rows
+    temperature-major as in the reference grids)."""
+
+    def __init__(self, arrays: CKArrays, molecules, full_abunds, gauss_pts,
+                 temps, pressures, wno, delta_wno, gauss_wts):
+        self.arrays = arrays
+        self.molecules = tuple(molecules)
+        self.full_abunds = dict(full_abunds)
+        self.gauss_pts = np.asarray(gauss_pts)
+        self.temps = np.asarray(temps)
+        self.pressures = np.asarray(pressures)
+        self.wno = np.asarray(wno)
+        self.delta_wno = np.asarray(delta_wno)
+        self.gauss_wts = np.asarray(gauss_wts)
+        self.nwno = len(self.wno)
+        self.ngauss = len(self.gauss_wts)
+        self.continuum_molecules = arrays.continuum_molecules
+
+    def to(self, device, dtype):
+        """The same table with its arrays on ``device`` in ``dtype``."""
+        return CKTable(self.arrays.to(device, dtype), self.molecules,
+                       self.full_abunds, self.gauss_pts, self.temps,
+                       self.pressures, self.wno, self.delta_wno,
+                       self.gauss_wts)
+
+
+def double_gauss_points(order=4, gfrac=0.95):
+    """8-point double-Gauss quadrature used by the CK tables: two
+    Gauss-Legendre sets over [0, gfrac] and [gfrac, 1]
+    (opacity_factory.py:1474 g_w_2gauss semantics)."""
+    x, w = np.polynomial.legendre.leggauss(order)
+    pts1 = gfrac * 0.5 * (x + 1.0)
+    wts1 = gfrac * 0.5 * w
+    pts2 = gfrac + (1 - gfrac) * 0.5 * (x + 1.0)
+    wts2 = (1 - gfrac) * 0.5 * w
+    return np.concatenate([pts1, pts2]), np.concatenate([wts1, wts2])
+
+
+def _db_wno(continuum_db):
+    cur, conn = connect(continuum_db)
+    try:
+        cur.execute('SELECT wavenumber_grid FROM header')
+        return cur.fetchone()[0]
+    finally:
+        conn.close()
+
+
+def _load_continuum(continuum_db, wno, dtype=np.float32):
+    """Continuum table [ncont, ntemp, nwno] from the CK continuum sqlite
+    (ck.py:102-125 of the JAX package): (table, temperatures, molecules)."""
+    cur, conn = connect(continuum_db)
+    try:
+        cur.execute('SELECT wavenumber_grid FROM header')
+        db_wno = cur.fetchone()[0]
+        if not (len(db_wno) == len(wno) and np.allclose(db_wno, wno)):
+            raise ValueError('continuum DB wavenumber grid does not match '
+                             f'the CK table grid ({len(db_wno)} vs '
+                             f'{len(wno)} pts)')
+        cur.execute('SELECT molecule FROM continuum')
+        mols = sorted(set(x[0] for x in cur.fetchall()))
+        cur.execute('SELECT temperature FROM continuum')
+        temps = np.unique([x[0] for x in cur.fetchall()])
+        # floored at the DB's own 1e-33: exact zeros would give log(0) in
+        # the 1/T log-interpolation (see the JAX module)
+        cont = np.zeros((len(mols), len(temps), len(wno)), dtype)
+        for im, mol in enumerate(mols):
+            cur.execute('SELECT temperature, opacity FROM continuum '
+                        'WHERE molecule = ?', (mol,))
+            for t, op in cur.fetchall():
+                cont[im, int(np.searchsorted(temps, t))] = op
+    finally:
+        conn.close()
+    return np.maximum(cont, np.asarray(1e-33, dtype)), temps, tuple(mols)
+
+
+def synthetic_ck_table(continuum_db=None,
+                       molecules=('H2O', 'CH4', 'CO', 'NH3'), ntemp=10,
+                       npress=10, seed=7, grid661=False,
+                       dtype=torch.float64, device='cuda') -> CKTable:
+    """Synthetic premixed CK table (ck.py:268-372 of the JAX package) on
+    ``device`` (default ``'cuda'``; raises where there is none) in
+    ``dtype`` (default float64, the climate solve's).
+
+    The 196-point EGP grid of the bundled CK continuum database, or with
+    ``grid661=True`` the 661-bin climate grid (``climate_INPUTS/wvno_661``)
+    with the 196-grid CIA row-interpolated onto it.  Band-structured
+    synthetic cross sections (the monochromatic factory's), a weak spread
+    across the 8 gauss points, and a solar-ish chemistry table at every
+    (T, P) grid point.  The per-gas tables (``with_per_gas``) wait for the
+    disequilibrium port.
+    """
+    device = checked_device(device)
+    np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+    if continuum_db is None:
+        continuum_db = CONTINUUM_DB
+    wno = _db_wno(continuum_db)
+    if grid661:
+        from ..wavelength import get_cld_input_grid
+        wno = np.sort(np.asarray(get_cld_input_grid(grid661=True),
+                                 np.float64))
+    delta_wno = np.zeros(len(wno))
+    delta_wno[1:-1] = 0.5 * (wno[2:] - wno[:-2])
+    delta_wno[0] = wno[1] - wno[0]
+    delta_wno[-1] = wno[-1] - wno[-2]
+
+    temps = np.linspace(100, 3200, ntemp)
+    pressures = np.logspace(-6, 3, npress)
+    gauss_pts, gauss_wts = double_gauss_points()
+    ngauss = len(gauss_pts)
+
+    # premixed kappa: solar-ish abundance-weighted sum of synthetic sigmas
+    mix_solar = {'H2O': 1e-3, 'CH4': 5e-4, 'CO': 3e-4, 'NH3': 1e-4,
+                 'CO2': 1e-7, 'H2S': 3e-5}
+    sigma_sum = 0.0
+    for mol in molecules:
+        sig = synthetic_cross_sections(mol, wno, temps, pressures, seed=seed)
+        sigma_sum = sigma_sum + mix_solar.get(mol, 1e-5) * sig
+    # [ntemp, npress, nwno] -> [npress, ntemp, nwno, ngauss]
+    base = np.log(np.maximum(sigma_sum, 1e-50)).transpose(1, 0, 2)
+    spread = np.linspace(-1.5, 2.5, ngauss)
+    ln_kappa = base[..., None] + spread[None, None, None, :]
+
+    # chemistry table at every (T, P) grid point, T-major
+    columns = {k: [] for k in ('H2', 'He', 'H2O', 'CH4', 'CO', 'NH3', 'N2',
+                               'temperature', 'pressure')}
+    for T in temps:
+        for P in pressures:
+            row = {'H2': 0.837, 'He': 0.155,
+                   'H2O': mix_solar['H2O'] * min(1.0, (T / 1500.0)),
+                   'CH4': mix_solar['CH4'] * min(1.0, (2000.0 / T)),
+                   'CO': mix_solar['CO'] * min(1.0, (T / 1300.0) ** 2),
+                   'NH3': mix_solar['NH3'] * min(1.0, (900.0 / T) ** 2),
+                   'N2': 1e-5, 'temperature': T, 'pressure': P}
+            for k, v in row.items():
+                columns[k].append(v)
+    abunds = {k: np.asarray(v, np.float64) for k, v in columns.items()}
+
+    if grid661:
+        wno196 = _db_wno(continuum_db)
+        cont196, cia_temps, cont_mols = _load_continuum(
+            continuum_db, wno196, np_dtype)
+        cont = np.zeros(cont196.shape[:2] + (len(wno),), np_dtype)
+        for im in range(cont196.shape[0]):
+            for it in range(cont196.shape[1]):
+                cont[im, it] = np.interp(wno, wno196, cont196[im, it])
+    else:
+        cont, cia_temps, cont_mols = _load_continuum(continuum_db, wno,
+                                                     np_dtype)
+
+    def dev(x, dt=dtype):
+        return torch.tensor(np.asarray(x), dtype=dt, device=device)
+
+    arrays = CKArrays(
+        wno=dev(wno), delta_wno=dev(delta_wno), gauss_wts=dev(gauss_wts),
+        ln_kappa=dev(ln_kappa), p_log_grid=dev(np.log10(pressures)),
+        t_inv_grid=dev(1.0 / temps),
+        nc_p=dev(np.full(ntemp, npress), torch.int32), cont_opa=dev(cont),
+        cia_temps=dev(cia_temps), continuum_molecules=cont_mols)
+    return CKTable(arrays, molecules, abunds, gauss_pts, temps, pressures,
+                   wno=wno, delta_wno=delta_wno, gauss_wts=gauss_wts)
+
+
+# ---------------------------------------------------------------------------
+# on-device interpolation
+# ---------------------------------------------------------------------------
+
+def _last_true(mask):
+    """Index of the last True along axis 1, 0 where there is none: the
+    reversed-argmax search of the JAX package (argmax takes the first of
+    equal maxima, in torch as in jax)."""
+    n = mask.shape[1]
+    m = mask.to(torch.int32)
+    any_true = m.sum(dim=1) > 0
+    last = n - 1 - torch.argmax(torch.flip(m, dims=(1,)), dim=1)
+    return torch.where(any_true, last, torch.zeros_like(last))
+
+
+def _neighbours(t_inv_grid, p_log_grid, nc_p, tlayer, player_bar):
+    """Shared (1/T, log10 P) neighbour search (optics.py:1098-1152;
+    ck.py:379-402 of the JAX package)."""
+    t_inv = 1.0 / tlayer
+    p_log = torch.log10(player_bar)
+    ntemp = t_inv_grid.shape[0]
+
+    t_low = _last_true(t_inv_grid[None, :] > t_inv[:, None])
+    t_low = torch.clamp(t_low, max=ntemp - 2)
+    t_hi = t_low + 1
+
+    p_low = _last_true(p_log_grid[None, :] <= p_log[:, None])
+    p_low = torch.clamp(torch.minimum(p_low, nc_p[t_hi].long() - 3), min=0)
+    p_hi = p_low + 1
+
+    t_w = (t_inv - t_inv_grid[t_low]) / (t_inv_grid[t_hi]
+                                         - t_inv_grid[t_low])
+    p_w = (p_log - p_log_grid[p_low]) / (p_log_grid[p_hi]
+                                         - p_log_grid[p_low])
+    return t_low, t_hi, p_low, p_hi, t_w, p_w
+
+
+def interp_premix(ck: CKArrays, tlayer, player_bar):
+    """Premixed molecular opacity [nlayer, nwno, ngauss] x Avogadro:
+    bilinear in (1/T, log10 P) on ln kappa (optics.py:1151-1161)."""
+    t_low, t_hi, p_low, p_hi, t_w, p_w = _neighbours(
+        ck.t_inv_grid, ck.p_log_grid, ck.nc_p, tlayer, player_bar)
+    tw = t_w[:, None, None]
+    pw = p_w[:, None, None]
+    k = ck.ln_kappa
+    ln_k = ((1 - tw) * (1 - pw) * k[p_low, t_low]
+            + tw * (1 - pw) * k[p_low, t_hi]
+            + tw * pw * k[p_hi, t_hi]
+            + (1 - tw) * pw * k[p_hi, t_low])
+    return torch.exp(ln_k) * AVOGADRO
+
+
+def ck_continuum(ck: CKArrays, tlayer):
+    """CIA at the layer temperatures, log-interpolated in 1/T
+    (optics.py:1474-1497): [ncont, nlayer, nwno].  The bracketing index
+    is a left-side search, clipped to [1, n - 1]."""
+    temps = ck.cia_temps
+    n = temps.shape[0]
+    ihi = torch.clamp(torch.searchsorted(temps, tlayer.contiguous()), 1,
+                      n - 1)
+    ilo = ihi - 1
+    t_lo = temps[ilo]
+    t_hi = temps[ihi]
+    t_w = ((1.0 / tlayer - 1.0 / t_lo) / (1.0 / t_hi - 1.0 / t_lo))
+    lo = torch.log(ck.cont_opa[:, ilo, :])
+    hi = torch.log(ck.cont_opa[:, ihi, :])
+    return torch.exp((1 - t_w)[None, :, None] * lo
+                     + t_w[None, :, None] * hi)

@@ -246,8 +246,9 @@ def _check_controls(controls, stream=2):
         raise ValueError(f'unknown single_phase {controls.single_phase}')
     if controls.multi_phase not in (0, 1):
         raise NotImplementedError(
-            f'multi_phase={controls.multi_phase} (isotropic) is not ported '
-            'yet: ROADMAP Queue 1 item 14')
+            f'multi_phase={controls.multi_phase} (isotropic) is not ported: '
+            'the reference never implemented it (its branch dies with '
+            'UnboundLocalError); ROADMAP Queue 1, "multi_phase=2"')
     if controls.toon_coefficients not in (0, 1):
         raise ValueError(
             f'unknown toon_coefficients {controls.toon_coefficients}')

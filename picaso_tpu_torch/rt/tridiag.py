@@ -21,6 +21,8 @@ def tridiag_solve(a, b, c, d):
     All inputs are [L, ...]; fluxes.py:289-323.
     """
     L = a.shape[0]
+    # per-row views, taken once (each index would be a dispatch)
+    a, b, c, d = a.unbind(0), b.unbind(0), c.unbind(0), d.unbind(0)
     AS = [None] * L
     DS = [None] * L
     AS[-1] = a[-1] / b[-1]

@@ -37,7 +37,9 @@ def _imported_roots(path):
 def test_port_has_modules_to_check():
     names = {p.name for p in _sources()}
     assert {'pipeline.py', 'cuda_interp.py', 'cuda_toon.py', 'sh.py',
-            'cuda_sh.py', 'raman.py', 'chip_smoke.py'} <= names
+            'cuda_sh.py', 'raman.py', 'chip_smoke.py', 'ck.py',
+            'chemistry.py', 'wavelength.py', 'adiabat.py', 'core.py',
+            'fused.py', 'api.py'} <= names
 
 
 @pytest.mark.parametrize('path', _sources(),

@@ -404,7 +404,8 @@ def test_unported_configurations_raise(jax_problem, change):
     grid, scene, config = _port_problem(jgrid, jscene, jconfig)
     config = dataclasses.replace(
         config, controls=ScatteringControls(multi_phase=2), **change)
-    with pytest.raises(NotImplementedError, match='item 14'):
+    with pytest.raises(NotImplementedError,
+                       match='ROADMAP Queue 1, "multi_phase=2"'):
         tpipeline.forward(scene, grid, config)
     out = tpipeline.forward(scene, grid, dataclasses.replace(
         config, reflected=False, thermal=True))
