@@ -11,12 +11,14 @@ table, and a sqlite database written, loaded and run on the card; then
 the gather and sweep-layout probes; then the radiative-convective climate
 solve, ``climate.api.run_climate`` in chemical equilibrium at the
 production shape of bench.py's climate modes (91 levels, the 196- and
-661-bin synthetic CK tables, a 700 K brown dwarf).  It goes through the 14
-hand-written CUDA kernels, and checks each kernel against its plain
-PyTorch twin, each forward against a float64 oracle on the card, and each
-climate solve against the JAX package's float64 solve
-(tests/climate_reference.json; the climate path runs none of the kernels:
-plain torch).
+661-bin synthetic CK tables, a 700 K brown dwarf); then the front door,
+``justdoit`` as a user calls it (``inputs`` ... ``spectrum``,
+``phase_curve``) on the production table: 1D spectra, a 36-facet 3D
+spectrum and two phase curves.  It goes through the 14 hand-written CUDA
+kernels, and checks each kernel against its plain PyTorch twin, each
+forward against a float64 oracle, and each climate solve against the JAX
+package's float64 solve (tests/climate_reference.json; the climate path
+runs none of the kernels: plain torch).
 
     python3 chip_smoke.py
 
@@ -54,7 +56,8 @@ Phases (any failure raises, so the exit code is nonzero):
 13. the split Toon kernels vs their twins at the production shape: K3
     (reflected) with Pollack Raman, K4 (thermal) without and with a hard
     surface, K5/K6 (from RTProps) on the unfused props and on the
-    test_mode='rayleigh' props (max rel <= 1e-3, median rel <= 1e-5);
+    test_mode='rayleigh' props, K3 and K5 also at multi_phase=2
+    (isotropic) (max rel <= 1e-3, median rel <= 1e-5);
     each timed against its twin, its two stages apart; then K3 and K4
     alone at the phase curve's 36 angles against their twins, timed
 14. the split Toon paths, counted over 4 forwards each: reflected-only
@@ -111,11 +114,36 @@ Phases (any failure raises, so the exit code is nonzero):
     launched
 25. climate, 661 bins: the same runs and gates on the 661-bin table (the
     level fluxes at the 91-level solution, card against CPU)
-26. the card, one JSON line with the climate numbers, one with every
-    kernel's summary (launches on its path, times, max abs error, and the
-    bound: the larger of the bytes its inputs and outputs need over 3.35
-    TB/s and the float32 operations its twin performs on these inputs,
-    counted per aten call, over 67 TFLOP/s), then the result line.
+26. the front door, 1D, on the production table (nwno 50 000, 16
+    molecules) wrapped as ``justdoit.Opacity``: inputs, phase_angle (10
+    angles), gravity, a 5700 K blackbody star, the 91-level profile, the
+    cloud deck as an EGP-grid table, approx, then
+    spectrum('reflected+thermal+transmission'), 4 calls (the last at
+    approx(multi_phase='isotropic')): finite outputs, K1, K5 and K6 each
+    launched once per call and no other kernel, each call's wall ms and
+    peak bytes over the bytes alive before it
+27. the 1D oracle: the same calls at nwno 5000, float32 on the card
+    against float64 on the CPU (device='cpu', the kernels' twins), at N=2
+    and isotropic (max rel <= 5e-3, median rel <= 2e-4)
+28. 3D: the 91-level hot-spot map (12 lon x 8 lat, 16 molecules) on a
+    6 x 6 disk, spectrum(dimension='3d') reflected + thermal: K1, K5 and K6
+    each launched 36 times, finite outputs, peak over alive <= 2 GB; a
+    uniform map's 3D thermal against the 1D thermal (max rel <= 1e-5); the
+    oracle of phase 27 on a 3 x 3 disk
+29. phase curves: the map rotated by atmosphere_4d over 4 phases, thermal
+    (4 x 36 facets: K1 and K6 144 times each), and a 4-scene batched
+    reflected curve of the 1D profile at 0, 45, 90, 120 degrees (6 x 6
+    disks, through scene_from_case and forward_batch: K1 and K3 4 times
+    each), each timed and held against its float64 CPU oracle at nwno 5000
+    (the thermal curve on 3 x 3 disks)
+30. the card, one JSON line with the climate numbers, one with the front
+    door's (each path's launches, wall times, peaks, oracle and uniform-map
+    deviations), one with every kernel's summary (launches on the paths
+    counted above, the front door's included and also apart, times, max
+    abs error, and the bound: the larger of the bytes its inputs and
+    outputs need over 3.35 TB/s and the float32 operations its twin
+    performs on these inputs, counted per aten call, over 67 TFLOP/s),
+    then the result line.
 """
 
 import dataclasses
@@ -408,6 +436,7 @@ def main():
     from picaso_tpu_torch.rt import cuda_sh, cuda_toon
     from picaso_tpu_torch.rt.cuda_toon import (spectrum_toon,
                                                spectrum_toon_plain)
+    from picaso_tpu_torch.rt.toon import ScatteringControls
     dev = torch.device('cuda')
     wrappers = {'interp_tau': interp_tau, 'spectrum_toon': spectrum_toon}
     wrappers.update({name: getattr(cuda_sh, name) for name in SH_REPLACES})
@@ -660,18 +689,24 @@ def main():
         'reflected_toon': [('reflected_toon pollack', *pipeline.
                             reflected_args(scene_p, config_p, tg_p, tr_p,
                                            rf_p))],
-        'thermal_toon': [
-            (f'thermal_toon hard_surface={hs}', t_args,
-             dict(t_kw, hard_surface=hs)) for hs in (False, True)],
         'reflected_toon_props': [
             (f'reflected_toon_props {mode or "unfused"}', *pipeline.
              reflected_args(scene, config, tg, tr, rf, props[mode]))
             for mode in props],
+        'thermal_toon': [
+            (f'thermal_toon hard_surface={hs}', t_args,
+             dict(t_kw, hard_surface=hs)) for hs in (False, True)],
         'thermal_toon_props': [
             (f'thermal_toon_props {mode or "unfused"}', *pipeline.
              thermal_args(scene, grid, config, tg, tr, props[mode]))
             for mode in props],
     }
+    # the reflected kernels at multi_phase=2 (isotropic) too
+    iso = ScatteringControls(multi_phase=2)
+    for name in ('reflected_toon', 'reflected_toon_props'):
+        label, args, kw = runs[name][0]
+        runs[name].append((f'{label} isotropic', args,
+                           dict(kw, controls=iso)))
     split = {}
     for name, cases in runs.items():
         kern = getattr(cuda_toon, name)
@@ -977,10 +1012,15 @@ def main():
                                   if k != 'rows')
 
     climate = climate_phases(dev, reset_counts, counts)
+    front_door = front_door_phases(dev, grid, reset_counts, counts)
+    for path in front_door['launches'].values():
+        for name, count in path.items():
+            launches[name] += count
 
-    # phase 26: summary
+    # phase 30: summary
     log(smi[0])
     print(json.dumps({'climate': climate}))
+    print(json.dumps({'front_door': front_door}))
     stats = {
         'interp_tau': dict(max_abs_err=k1_abs, ms=k1_ms,
                            plain_ms=k1_plain_ms, bytes=k1_bytes, ops=k1_ops,
@@ -1011,6 +1051,9 @@ def main():
             'name': name, 'route': 'cuda',
             'source': f'picaso_tpu_torch/csrc/{source}',
             'replaces': replaces, 'launches': launches[name],
+            'front_door_launches': sum(
+                path.get(name, 0)
+                for path in front_door['launches'].values()),
             **st, 'bound_ms': bound_ms, 'bound_by': bound_by,
             'bound_share': bound_ms / st['ms'], 'library_ms': None})
     print(json.dumps({'kernels': kernels}))
@@ -1271,6 +1314,229 @@ def climate_phases(dev, reset_counts, counts):
             del level
         del ck
     summary['runs'] = runs
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# the front door (picaso_tpu_torch.justdoit): phases 26-29
+# ---------------------------------------------------------------------------
+
+def oracle_connections(jdi, dev):
+    """The facade's connections at nwno = 5000 on the production layout
+    (16 molecules, the ragged grid): float32 on the card, float64 on the
+    CPU, the same table."""
+    from picaso_tpu_torch import pipeline
+    from picaso_tpu_torch.opacities import factory
+    from picaso_tpu_torch.opacities.db import PTGrid
+    wno = np.linspace(300.0, 33000.0, ORACLE_NWNO)
+    g64 = factory.synthetic_opacity_grid_ragged(
+        wno, molecules=pipeline.MOLECULES_16, dtype=torch.float64,
+        device=dev)
+
+    def moved(device, dtype):
+        def mv(x):
+            return (x.to(device, dtype) if x.is_floating_point()
+                    else x.to(device))
+        return g64._replace(wno=mv(g64.wno), log_kappa=mv(g64.log_kappa),
+                            pt=PTGrid(*(mv(x) for x in g64.pt)),
+                            cont_opa=mv(g64.cont_opa),
+                            cia_temps=mv(g64.cia_temps))
+    card = jdi.Opacity(wno, grid=moved(dev, torch.float32))
+    cpu = jdi.Opacity(wno, grid=moved(torch.device('cpu'), torch.float64))
+    return card, cpu
+
+
+def check_oracle(label, out, ref, keys):
+    """Each of ``keys`` of the card's f32 output against the CPU's f64
+    within phase 7's gates.  Returns {key: [max rel, median rel]}."""
+    stats = {}
+    for key in keys:
+        if isinstance(out, dict) and isinstance(next(iter(out.values())),
+                                                dict):
+            a = np.concatenate([o[key] for o in out.values()])
+            b = np.concatenate([r[key] for r in ref.values()])
+        else:
+            a, b = out[key], ref[key]
+        mx, med = rel_stats(torch.as_tensor(a), torch.as_tensor(b))
+        log(f'{label}: f32 card vs f64 CPU, {key}')
+        check(f'{key} max rel', mx, TOL['forward_max_rel'])
+        check(f'{key} median rel', med, TOL['forward_median_rel'])
+        stats[key] = [mx, med]
+    return stats
+
+
+def check_finite(label, out, keys):
+    for key in keys:
+        val = np.asarray(out[key])
+        if val.shape != (NWNO,) or not np.isfinite(val).all():
+            raise AssertionError(f'{label} {key}: shape {val.shape} or '
+                                 f'non-finite')
+
+
+def timed_call(fn):
+    """(fn(), wall ms to the end of the card's work, peak bytes over the
+    bytes alive before the call)."""
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    alive = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    return out, wall, torch.cuda.max_memory_allocated() - alive
+
+
+def front_door_phases(dev, grid, reset_counts, counts):
+    """Phases 26-29: the facade (justdoit) at full width on the production
+    table -- 1D spectra, a 36-facet 3D spectrum, a 144-facet thermal phase
+    curve and a 4-scene batched reflected phase curve -- with each path's
+    kernel launches counted, and each against the same facade in float64
+    on the CPU at nwno 5000."""
+    from picaso_tpu_torch import justdoit as jdi
+    from picaso_tpu_torch.probes.front_door import facade_case
+    summary = {'launches': {}}
+    opa = jdi.Opacity(grid.wno, grid=grid)
+    calc = 'reflected+thermal+transmission'
+    keys = ('albedo', 'thermal', 'transit_depth')
+
+    def counted_path(label, fn, expected, calls=1):
+        """fn() with the launch counts set to 0 just before and read just
+        after: each kernel of ``expected`` launched as often as it says,
+        no other kernel."""
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in counts().items() if v}
+        log(f'{label}: launches {got}')
+        if got != expected:
+            raise AssertionError(f'{label}: launches {got}, expected '
+                                 f'{expected}')
+        summary['launches'][label] = got
+        return out
+
+    # phase 26: 1D at full width, 4 calls (the last at multi_phase=2)
+    walls, peaks = [], []
+    settings = [dict(scale=1 + 0.001 * i) for i in range(N_SCENES - 1)] + [
+        dict(multi_phase='isotropic')]
+
+    def four_calls():
+        outs = []
+        for kw in settings:
+            out, wall, peak = timed_call(
+                lambda: facade_case(opa, **kw).spectrum(
+                    opa, calculation=calc))
+            outs.append(out)
+            walls.append(wall)
+            peaks.append(peak)
+        return outs
+    n = len(settings)
+    outs = counted_path('[26] 1D spectrum (4 calls)', four_calls, {
+        'interp_tau': n, 'reflected_toon_props': n, 'thermal_toon_props': n})
+    for i, out in enumerate(outs):
+        check_finite(f'[26] call {i}', out, keys)
+    iso_change = rel_stats(torch.as_tensor(outs[-1]['albedo']),
+                           torch.as_tensor(outs[0]['albedo']))[0]
+    log(f'[26] 1D wall ms {walls}, peak bytes over alive {peaks}; '
+        f'albedo mean {outs[0]["albedo"].mean():.6g}, thermal mean '
+        f'{outs[0]["thermal"].mean():.6g}, isotropic vs N=2 albedo max rel '
+        f'{iso_change:.3e}')
+    summary['1d'] = dict(wall_ms=walls, peak_bytes=peaks,
+                         isotropic_vs_n2_max_rel=iso_change)
+    del outs
+
+    # phase 27: the 1D oracle, nwno 5000
+    t0 = time.perf_counter()
+    o_card, o_cpu = oracle_connections(jdi, dev)
+    log(f'[27] oracle connections in {time.perf_counter() - t0:.2f} s')
+    summary['1d_oracle'] = {}
+    for mp in ('N=2', 'isotropic'):
+        out = facade_case(o_card, multi_phase=mp).spectrum(
+            o_card, calculation=calc)
+        ref = facade_case(o_cpu, multi_phase=mp).spectrum(
+            o_cpu, calculation=calc)
+        summary['1d_oracle'][mp] = check_oracle(
+            f'[27] 1D multi_phase={mp}', out, ref, keys)
+
+    # phase 28: 3D at full width, 36 facets
+    nfacet = 36
+    kw3 = dict(disk=(6, 6), atmosphere='3d')
+    out3, wall3, peak3 = counted_path(
+        '[28] 3D spectrum (36 facets)', lambda: timed_call(
+            lambda: facade_case(opa, **kw3).spectrum(
+                opa, calculation='reflected+thermal', dimension='3d')),
+        {'interp_tau': nfacet, 'reflected_toon_props': nfacet,
+         'thermal_toon_props': nfacet})
+    check_finite('[28] 3D', out3, ('albedo', 'thermal'))
+    log(f'[28] 3D wall {wall3:.1f} ms, peak {peak3} bytes over alive; '
+        f'albedo mean {out3["albedo"].mean():.6g}, thermal mean '
+        f'{out3["thermal"].mean():.6g}')
+    check('3D peak over alive (GB)', peak3 / 1e9, 2.0)
+    uniform = dict(case='browndwarf', disk=(6, 6))
+    u3 = facade_case(opa, atmosphere='uniform', **uniform).spectrum(
+        opa, calculation='thermal', dimension='3d')
+    u1 = facade_case(opa, clouds=False, **uniform).spectrum(
+        opa, calculation='thermal')
+    u_rel = rel_stats(torch.as_tensor(u3['thermal']),
+                      torch.as_tensor(u1['thermal']))[0]
+    log('[28] uniform map, 3D thermal vs 1D thermal')
+    check('uniform 3D vs 1D max rel', u_rel, 1e-5)
+    kw_o = dict(disk=(3, 3), atmosphere='3d')
+    summary['3d'] = dict(
+        wall_ms=wall3, peak_bytes=peak3, uniform_max_rel=u_rel,
+        oracle=check_oracle(
+            '[28] 3D, 3 x 3 disk',
+            facade_case(o_card, **kw_o).spectrum(
+                o_card, calculation='reflected+thermal', dimension='3d'),
+            facade_case(o_cpu, **kw_o).spectrum(
+                o_cpu, calculation='reflected+thermal', dimension='3d'),
+            ('albedo', 'thermal')))
+    del out3, u3, u1
+
+    # phase 29: phase curves
+    phases4 = np.linspace(0, 2 * np.pi, 4, endpoint=False)
+    kw_t = dict(case='browndwarf', phase_grid=phases4, calculation='thermal',
+                atmosphere='4d')
+    curve, wall_t, peak_t = counted_path(
+        '[29] thermal phase curve (4 phases x 36 facets)',
+        lambda: timed_call(lambda: facade_case(
+            opa, disk=(6, 6), **kw_t).phase_curve(opa, verbose=False)),
+        {'interp_tau': 4 * nfacet, 'thermal_toon_props': 4 * nfacet})
+    for ph, out in curve.items():
+        check_finite(f'[29] thermal phase {ph:.3f}', out, ('thermal',))
+    means = [float(out['thermal'].mean()) for out in curve.values()]
+    log(f'[29] thermal phase curve wall {wall_t:.1f} ms, peak {peak_t} '
+        f'bytes over alive; disk means {means}')
+    phases_r = np.radians(PHASES_DEG)
+    kw_r = dict(phase_grid=phases_r, calculation='reflected')
+    batch, wall_r, peak_r = counted_path(
+        '[29] batched reflected phase curve (4 scenes)',
+        lambda: timed_call(lambda: facade_case(
+            opa, disk=(6, 6), **kw_r).phase_curve(opa, verbose=False)),
+        {'interp_tau': N_SCENES, 'reflected_toon': N_SCENES})
+    for ph, out in batch.items():
+        check_finite(f'[29] reflected phase {ph:.3f}', out, ('albedo',))
+    log(f'[29] batched reflected phase curve wall {wall_r:.1f} ms, peak '
+        f'{peak_r} bytes over alive; albedo means '
+        f'{[float(o["albedo"].mean()) for o in batch.values()]}')
+    summary['phase_curves'] = dict(
+        thermal_wall_ms=wall_t, thermal_peak_bytes=peak_t,
+        thermal_disk_means=means, reflected_wall_ms=wall_r,
+        reflected_peak_bytes=peak_r,
+        thermal_oracle=check_oracle(
+            '[29] thermal phase curve, 3 x 3 disks',
+            facade_case(o_card, disk=(3, 3), **kw_t).phase_curve(
+                o_card, verbose=False),
+            facade_case(o_cpu, disk=(3, 3), **kw_t).phase_curve(
+                o_cpu, verbose=False), ('thermal',)),
+        reflected_oracle=check_oracle(
+            '[29] batched reflected phase curve',
+            facade_case(o_card, disk=(6, 6), **kw_r).phase_curve(
+                o_card, verbose=False),
+            facade_case(o_cpu, disk=(6, 6), **kw_r).phase_curve(
+                o_cpu, verbose=False), ('albedo',)))
+    del curve, batch, o_card, o_cpu
     return summary
 
 

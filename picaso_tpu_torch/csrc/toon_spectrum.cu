@@ -496,9 +496,12 @@ __device__ float reflected_angle(const Col& c, float u0, float u1, float sr,
                    + gcos2 * (kUbar2Fac * u1 * u1 - 1.0f) / 2.0f;
       multi_minus = 1.0f - 1.5f * ftc * cosb * u1
                     + gcos2 * (kUbar2Fac * u1 * u1 - 1.0f) / 2.0f;
-    } else {
+    } else if (p.multi_phase == 1) {
       multi_plus = 1.0f + 1.5f * ftc * cosb * u1;
       multi_minus = 1.0f - 1.5f * ftc * cosb * u1;
+    } else {  // isotropic (picaso_tpu/rt/toon.py:276-282)
+      multi_plus = 1.0f;
+      multi_minus = 1.0f;
     }
     const float G =
         positive * (multi_plus + gama * multi_minus) * w0 * kHalfInvPi;

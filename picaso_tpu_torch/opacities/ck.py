@@ -12,9 +12,10 @@ The chemistry table (``full_abunds``) rides along with the table as in the
 reference; here it is a dict of numpy columns in table order (the JAX
 package keeps a pandas frame, which the port does not import).
 
-Not ported yet (ROADMAP Queue 1): the real-file loaders (``load_ck_db``:
-premixed hdf5, the legacy 1460-grid ASCII directory, the per-gas
-resort-rebin tables) and ``ck_taugas`` of the spectrum path.
+``ck_taugas`` gives the spectrum path's molecular and continuum optical
+depths from the premixed table.  Not ported yet (ROADMAP Queue 1): the
+real-file loaders (``load_ck_db``: premixed hdf5, the legacy 1460-grid
+ASCII directory; item 4.7) and the per-gas resort-rebin tables (item 4.2).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from .db import connect
 from .factory import synthetic_cross_sections
 
 __all__ = ['CKArrays', 'CKTable', 'synthetic_ck_table', 'interp_premix',
-           'ck_continuum', 'double_gauss_points']
+           'ck_continuum', 'ck_taugas', 'double_gauss_points']
 
 AVOGADRO = 6.02214086e+23
 
@@ -292,3 +293,48 @@ def ck_continuum(ck: CKArrays, tlayer):
     hi = torch.log(ck.cont_opa[:, ihi, :])
     return torch.exp((1 - t_w)[None, :, None] * lo
                      + t_w[None, :, None] * hi)
+
+
+def ck_taugas(ck_table: CKTable, atm):
+    """TAUGAS [ngauss, nlayer, nwno] of the spectrum path from the premixed
+    table (ck.py:442-497 of the JAX package): the premixed kappa needs no
+    mixing-ratio weighting (optics.py:257-262), the continuum follows the
+    CK CIA log-interpolation.  ``atm`` is an ``atmosphere.Atmosphere``;
+    the result lies on the table's device in its dtype.  (The per-gas
+    resort-rebin mixing of the JAX function is ROADMAP Queue 1 item 4.2:
+    the port's tables are premixed.)"""
+    from . import assemble
+    from ..constants import PCONV
+
+    a = ck_table.arrays
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), dtype=a.ln_kappa.dtype,
+                               device=a.ln_kappa.device)
+
+    kappa = interp_premix(a, t(atm.t_layer), t(atm.p_layer / PCONV))
+    taugas = (kappa * t(atm.colden / atm.mmw_layer)[:, None, None]
+              ).permute(2, 0, 1)
+
+    specs = assemble.classify_continuum(
+        atm.continuum_pairs(ck_table.continuum_molecules))
+    if specs:
+        nlayer = atm.nlayer
+        cont = ck_continuum(a, t(atm.t_layer))
+        cont_kappa = {
+            s.name: cont[list(ck_table.continuum_molecules).index(s.name)]
+            for s in specs}
+        coef1 = assemble.amagat_coef1(
+            t(atm.temperature), t(atm.pressure / PCONV), t(atm.t_layer),
+            t(atm.p_layer / PCONV), atm.gravity, t(atm.mmw_layer))
+        mix = {m: t(atm.mixing_ratio_layer(m)) for m in atm.molecules}
+        for s in specs:
+            for m in (s.mol1, s.mol2):
+                if m and m not in mix:
+                    mix[m] = t(np.zeros(nlayer))
+        elec = t(atm.electrons_layer if atm.electrons_layer is not None
+                 else np.zeros(nlayer))
+        taugas = taugas + assemble.continuum_tau(
+            specs, cont_kappa, mix, elec, coef1, t(atm.p_layer),
+            t(atm.t_layer), t(atm.colden), t(atm.mmw_layer))[None]
+    return taugas

@@ -35,6 +35,10 @@ class RTProps(NamedTuple):
     w0_no_raman: torch.Tensor
     f_deltaM: torch.Tensor
 
+    def slice_gauss(self, ig):
+        """Select one correlated-k gauss point (leading axis)."""
+        return RTProps(*(x[ig] for x in self))
+
 
 def _cumtau(dtau):
     """Cumulative tau from the top: [..., nlayer, nwno] -> [..., nlevel, nwno]."""

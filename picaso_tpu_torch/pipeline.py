@@ -32,13 +32,16 @@ the counterpart of the JAX scan path.  Everything between the kernels
 PyTorch.  :func:`forward_batch` runs a stacked batch of scenes
 (:func:`stack_scenes`) one scene after another.
 
-``multi_phase=2`` with the Toon reflected solve raises
-``NotImplementedError`` naming the ROADMAP item that will bring it.
+Every Toon route takes ``multi_phase`` 0 (N=2), 1 (N=1) and 2 (isotropic:
+unit Legendre terms, as the JAX scan path; the JAX Pallas kernel takes N=1
+there instead).  :func:`scene_from_case` builds a scene from the front
+door's ``justdoit.inputs`` bundle.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -61,8 +64,8 @@ __all__ = ['SceneTensors', 'SpectrumConfig', 'forward', 'forward_batch',
            'stack_scenes', 'with_geometry', 'with_raman',
            'stellar_shifts_5700k', 'gather_args', 'gather_taugas',
            'rt_sources', 'spectrum_args', 'reflected_args', 'thermal_args',
-           'sh_args', 'scene_from_arrays', 'build_problem', 'MOLECULES_16',
-           'MIX_16']
+           'sh_args', 'scene_from_arrays', 'scene_from_case', 'build_problem',
+           'MOLECULES_16', 'MIX_16']
 
 
 class SceneTensors(NamedTuple):
@@ -565,6 +568,86 @@ def scene_from_arrays(profile_bar, t_level, mix_named, grid: OpacityGrid,
     config = SpectrumConfig(mol_indices=mol_indices, continuum_specs=specs,
                             cont_indices=cont_indices, mix_index=mix_index,
                             transmission=bool(np.isfinite(rstar)))
+    return scene, config
+
+
+def scene_from_case(case, opa):
+    """(SceneTensors, SpectrumConfig) from a ``justdoit.inputs`` bundle and
+    its ``justdoit.Opacity`` connection (picaso_tpu/pipeline.py:573-656):
+    the profile and the clouds (regridded onto the connection's
+    wavenumbers), the planet, the star, the geometry and the surface, and
+    the whole approx tree (Toon/SH and stream, the phase-function
+    controls, delta-Eddington, the Raman mode) in the config, so
+    ``forward`` runs the physics of the stepwise facade.  The scene lies on
+    the connection's device, in its dtype."""
+    from .refdata import refdata_path
+    from .wavelength import regrid
+
+    prof = case.inputs['atmosphere']['profile']
+    mix = {c: np.asarray(prof[c]) for c in prof.keys()
+           if c not in ('pressure', 'temperature')}
+    wno = np.asarray(opa.wno)
+    cld = None
+    if case.inputs['clouds'].get('profile') is not None:
+        cp = case.inputs['clouds']['profile']
+        nlayer = len(prof['pressure']) - 1
+        cld_wno = case.inputs['clouds']['wavenumber']
+        cld = {k: regrid(np.reshape(np.asarray(cp[k]),
+                                    (nlayer, len(cld_wno))),
+                         cld_wno, wno).ravel()
+               for k in ('opd', 'g0', 'w0')}
+    planet = case.inputs['planet']
+    approx = case.inputs['approx']
+    common = approx['rt_params']['common']
+    toon_p = approx['rt_params']['toon']
+    sh_p = approx['rt_params']['SH']
+    raman = common['raman']
+
+    raman_shifts = raman_db = pollack_row = None
+    if raman == 0:
+        if getattr(opa, 'raman_stellar_shifts', None) is None:
+            raise ValueError("raman='oklopcic' needs star() run first")
+        raman_shifts = np.asarray(opa.raman_stellar_shifts)
+        raman_db = opa.raman_db
+    elif raman == 1:
+        pollack_row = raman_mod.raman_factor_pollack(
+            1, 1e4 / wno, refdata_dir=os.path.dirname(os.path.dirname(
+                refdata_path('opacities', 'raman.txt'))))[0]
+
+    rstar = case.inputs['star'].get('radius', np.nan)
+    scene, config = scene_from_arrays(
+        np.asarray(prof['pressure']), np.asarray(prof['temperature']), mix,
+        opa.grid, gravity=planet['gravity'] or np.nan,
+        radius=planet['radius'] or np.nan, mass=planet['mass'] or np.nan,
+        p_reference=approx['p_reference'], cld=cld,
+        F0PI=(np.asarray(opa.relative_flux)
+              if opa.relative_flux is not None else None),
+        rstar=rstar if isinstance(rstar, float) else np.nan,
+        geom=case.inputs.get('disco'),
+        surf_reflect=case.inputs.get('surface_reflect', 0.0),
+        raman_shifts=raman_shifts, raman_db=raman_db,
+        raman_pollack_row=pollack_row)
+
+    frac = common['TTHG_params']['fraction']
+    controls = toon.ScatteringControls(
+        single_phase=toon_p['single_phase'],
+        multi_phase=toon_p['multi_phase'],
+        toon_coefficients=toon_p.get('toon_coefficients', 0),
+        frac_a=frac[0], frac_b=frac[1], frac_c=frac[2],
+        constant_back=common['TTHG_params']['constant_back'],
+        constant_forward=common['TTHG_params']['constant_forward'])
+    config = dataclasses.replace(
+        config, controls=controls, raman=raman,
+        delta_eddington=common['delta_eddington'], stream=common['stream'],
+        rt_method=1 if approx['rt_method'] == 'SH' else 0,
+        sh_w_single_form=sh_p['w_single_form'],
+        sh_w_multi_form=sh_p['w_multi_form'],
+        sh_psingle_form=sh_p['psingle_form'],
+        sh_w_single_rayleigh=sh_p['w_single_rayleigh'],
+        sh_w_multi_rayleigh=sh_p['w_multi_rayleigh'],
+        sh_psingle_rayleigh=sh_p['psingle_rayleigh'],
+        sh_single_form=sh_p['single_form'],
+        hard_surface=bool(case.inputs.get('hard_surface', 0)))
     return scene, config
 
 

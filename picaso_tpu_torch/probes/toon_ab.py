@@ -16,8 +16,8 @@ prints one JSON line (and appends it to ``chiprun_out/toon_ab.jsonl``):
 the card's name and power limit; each Toon kernel's time by CUDA events
 (K2-K6, and K3 and K4 at a phase curve's 6 x 6 disk of 36 angles), and
 each stage's where the tree's wrapper takes ``split_event``; a SHA-256 of
-every kernel's outputs, equal between two checkouts exactly when their
-outputs are bitwise equal; K2-K6's max abs difference from their plain
+every kernel's outputs (K2, K3 and K5 also at ``multi_phase=1``), equal
+between two checkouts exactly when their outputs are bitwise equal; K2-K6's max abs difference from their plain
 twins; and the wall time and peak device memory
 (``max_memory_allocated``) of the Toon, reflected-only (Pollack Raman),
 thermal-only and unfused-optics forwards and of a 4-scene phase curve
@@ -140,6 +140,11 @@ def main(argv=None):
                 pipeline.with_geometry(scene, geom_36), grid, config, tg,
                 tr)),
     }
+    # the reflected kernels' column routine at multi_phase=1 (N=1) too
+    for name in ('spectrum_toon', 'reflected_toon', 'reflected_toon_props'):
+        fn, a, kw = calls[name]
+        calls[f'{name} N=1'] = (fn, a, dict(kw, controls=dataclasses.replace(
+            kw['controls'], multi_phase=1)))
     result = {'tree': args.tree, 'card': smi[0], 'kernel_ms': {},
               'stages_ms': {}, 'sha256': {}, 'max_abs_err': {}}
     for name, (fn, a, kw) in calls.items():

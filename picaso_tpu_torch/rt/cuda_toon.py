@@ -214,9 +214,12 @@ def _reflected_plain(u0, u1, cos_theta, dtau, tau, w0, cosb, gcos2,
         multi_minus = (1.0 - 1.5 * ftc * cb * u1
                        + gcos2[:, None] * (3.0 * ubar2 * ubar2 * u1 * u1
                                            - 1.0) / 2.0)
-    else:
+    elif controls.multi_phase == 1:
         multi_plus = 1.0 + 1.5 * ftc * cb * u1
         multi_minus = 1.0 - 1.5 * ftc * cb * u1
+    else:  # isotropic: unit Legendre terms (picaso_tpu/rt/toon.py:276-282)
+        multi_plus = torch.ones_like(ftc * cb * u1)
+        multi_minus = multi_plus
     gm = gama[:, None]
     G = positive * (multi_plus + gm * multi_minus) * w0[:, None] * (0.5 / PI)
     H = negative * (gm * multi_plus + multi_minus) * w0[:, None] * (0.5 / PI)
@@ -244,11 +247,8 @@ def _reflected_plain(u0, u1, cos_theta, dtau, tau, w0, cosb, gcos2,
 def _check_controls(controls, stream=2):
     if controls.single_phase not in (0, 1, 2, 3):
         raise ValueError(f'unknown single_phase {controls.single_phase}')
-    if controls.multi_phase not in (0, 1):
-        raise NotImplementedError(
-            f'multi_phase={controls.multi_phase} (isotropic) is not ported: '
-            'the reference never implemented it (its branch dies with '
-            'UnboundLocalError); ROADMAP Queue 1, "multi_phase=2"')
+    if controls.multi_phase not in (0, 1, 2):
+        raise ValueError(f'unknown multi_phase {controls.multi_phase}')
     if controls.toon_coefficients not in (0, 1):
         raise ValueError(
             f'unknown toon_coefficients {controls.toon_coefficients}')

@@ -75,7 +75,7 @@ class ScatteringControls:
     """Phase-function / scheme options (reference justdoit.py:5512-5658).
 
     single_phase: 0=cahoy 1=OTHG 2=TTHG 3=TTHG_ray
-    multi_phase:  0=N=2   1=N=1
+    multi_phase:  0=N=2   1=N=1   2=isotropic
     toon_coefficients: 0=quadrature 1=eddington
     """
     single_phase: int = 3
@@ -255,11 +255,12 @@ def reflected_1d(dtau, tau, w0, cosb, gcos2, ftau_cld, ftau_ray,
     elif controls.multi_phase == 1:  # N=1
         multi_plus = 1.0 + 1.5 * L(ftau_cld) * L(cosb) * u1
         multi_minus = 1.0 - 1.5 * L(ftau_cld) * L(cosb) * u1
+    elif controls.multi_phase == 2:  # isotropic: unit Legendre terms, as
+        # the JAX scan path (picaso_tpu/rt/toon.py:276-282)
+        multi_plus = torch.ones_like(L(cosb) * u1)
+        multi_minus = multi_plus
     else:
-        raise NotImplementedError(
-            f'multi_phase={controls.multi_phase} (isotropic) is not ported: '
-            'the reference never implemented it (its branch dies with '
-            'UnboundLocalError); ROADMAP Queue 1, "multi_phase=2"')
+        raise ValueError(f'unknown multi_phase {controls.multi_phase}')
 
     G = positive * (multi_plus + L(gama) * multi_minus) * L(w0) * (0.5 / PI)
     H = negative * (L(gama) * multi_plus + multi_minus) * L(w0) * (0.5 / PI)

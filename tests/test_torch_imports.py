@@ -39,7 +39,8 @@ def test_port_has_modules_to_check():
     assert {'pipeline.py', 'cuda_interp.py', 'cuda_toon.py', 'sh.py',
             'cuda_sh.py', 'raman.py', 'chip_smoke.py', 'ck.py',
             'chemistry.py', 'wavelength.py', 'adiabat.py', 'core.py',
-            'fused.py', 'api.py'} <= names
+            'fused.py', 'api.py', 'justdoit.py', 'three_d.py', 'units.py',
+            'refdata.py', 'fits_lite.py', 'stellar.py'} <= names
 
 
 @pytest.mark.parametrize('path', _sources(),

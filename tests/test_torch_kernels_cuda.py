@@ -140,6 +140,7 @@ _CASES = [
     dict(controls=ScatteringControls(single_phase=0, toon_coefficients=1)),
     dict(controls=ScatteringControls(single_phase=1, multi_phase=1)),
     dict(controls=ScatteringControls(single_phase=2, frac_c=1.5)),
+    dict(controls=ScatteringControls(multi_phase=2)),
 ]
 
 
@@ -378,10 +379,12 @@ _SPLIT_CASES = {
                                          toon_coefficients=1)),
         dict(controls=ScatteringControls(single_phase=1, multi_phase=1)),
         dict(controls=ScatteringControls(single_phase=2, frac_c=1.5)),
-        dict(controls=ScatteringControls(single_phase=3))],
+        dict(controls=ScatteringControls(single_phase=3)),
+        dict(controls=ScatteringControls(multi_phase=2))],
     'thermal_toon': [dict(), dict(hard_surface=True)],
     'reflected_toon_props': [
-        dict(), dict(controls=ScatteringControls(single_phase=0))],
+        dict(), dict(controls=ScatteringControls(single_phase=0)),
+        dict(controls=ScatteringControls(multi_phase=2))],
     'thermal_toon_props': [dict(), dict(hard_surface=True)],
 }
 _SPLIT = list(_SPLIT_CASES)
@@ -414,7 +417,7 @@ def test_toon_split_kernels_match_twins(dev, name, nwno, nang):
 
 
 @pytest.mark.parametrize('nang', [1, 5, 9, 36])
-@pytest.mark.parametrize('multi_phase', [0, 1])
+@pytest.mark.parametrize('multi_phase', [0, 1, 2])
 def test_spectrum_and_reflected_kernels_agree_bitwise(dev, nang, multi_phase):
     """K2's reflected half and K3 on the same strips (no Raman factor
     between them) run the same stage A rows and stage B: equal bit for
@@ -501,8 +504,14 @@ def test_toon_split_wrappers_reject_bad_inputs(dev, name):
         with pytest.raises(error):
             wrapper(*bad)
     if name.startswith('reflected'):
-        with pytest.raises(NotImplementedError):
-            wrapper(*args, controls=ScatteringControls(multi_phase=2))
+        # multi_phase=2 (isotropic) runs and matches the twin; 3 is unknown
+        kw = dict(controls=ScatteringControls(multi_phase=2))
+        twin = getattr(cuda_toon, f'{name}_plain')
+        out = wrapper(*args, **kw)
+        torch.cuda.synchronize()
+        _assert_matches_twin(out, twin(*args, **kw), 300, 5)
+        with pytest.raises(ValueError):
+            wrapper(*args, controls=ScatteringControls(multi_phase=3))
 
 
 _SPLIT_FORWARDS = {

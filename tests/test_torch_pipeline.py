@@ -397,19 +397,37 @@ def test_forward_batch_matches_jax(jax_problem, geometry):
     dict(), dict(thermal=False), dict(fuse_optics=False),
     dict(test_mode='rayleigh'), dict(use_kernels=False)])
 def test_unported_configurations_raise(jax_problem, change):
-    """multi_phase=2 (isotropic) is what the Toon reflected solve still
-    lacks: every Toon route raises, naming its ROADMAP item; a
-    thermal-only spectrum, which does not read it, runs."""
+    """multi_phase=2 (isotropic), which every Toon route raised on until
+    it was ported, now runs on each of them: K2's, K3's and K5's twins
+    (the fused, reflected-only, unfused and test-mode routes) and the plain
+    path, each against the JAX scan path (use_pallas=False) at the same
+    setting: rtol 2e-5 for the twins, 1e-10 for the plain path, transit
+    1e-8.  An unknown multi_phase raises."""
     jgrid, jscene, jconfig, _ = jax_problem
     grid, scene, config = _port_problem(jgrid, jscene, jconfig)
     config = dataclasses.replace(
         config, controls=ScatteringControls(multi_phase=2), **change)
-    with pytest.raises(NotImplementedError,
-                       match='ROADMAP Queue 1, "multi_phase=2"'):
-        tpipeline.forward(scene, grid, config)
-    out = tpipeline.forward(scene, grid, dataclasses.replace(
-        config, reflected=False, thermal=True))
-    assert set(out) == {'thermal', 'transit_depth'}
+    jcfg = dataclasses.replace(
+        jconfig, controls=dataclasses.replace(jconfig.controls,
+                                              multi_phase=2),
+        **{k: v for k, v in change.items()
+           if k in ('thermal', 'test_mode')})
+    assert not jcfg.use_pallas
+    want = jpipeline.forward(jscene, jgrid, jcfg)
+    out = tpipeline.forward(scene, grid, config)
+    assert set(out) == set(want)
+    rtol = 1e-10 if change.get('use_kernels') is False else 2e-5
+    for key in out:
+        np.testing.assert_allclose(
+            out[key].numpy(), np.asarray(want[key]),
+            rtol=1e-8 if key == 'transit_depth' else rtol, err_msg=key)
+    # isotropic differs from N=2 (the default) where the clouds scatter
+    n2 = tpipeline.forward(scene, grid, dataclasses.replace(
+        config, controls=ScatteringControls()))
+    assert not torch.allclose(out['albedo'], n2['albedo'], rtol=1e-6)
+    with pytest.raises(ValueError, match='multi_phase'):
+        tpipeline.forward(scene, grid, dataclasses.replace(
+            config, controls=ScatteringControls(multi_phase=3)))
 
 
 @pytest.mark.parametrize('change', [dict(rt_method=1, stream=3),

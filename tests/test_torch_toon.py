@@ -133,7 +133,7 @@ def test_plain_rt_path_matches_jax_scan(inputs, hard_surface,
 
 def test_wrapper_takes_the_twin_on_cpu(inputs):
     """On CPU tensors the public wrapper runs the twin and launches
-    nothing; unsupported controls raise before any work."""
+    nothing; an unknown multi_phase raises before any work."""
     args = _args(inputs, torch.as_tensor)
     before = spectrum_toon.launches
     out = spectrum_toon(*args)
@@ -141,6 +141,6 @@ def test_wrapper_takes_the_twin_on_cpu(inputs):
     assert spectrum_toon.launches == before
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match='multi_phase'):
         spectrum_toon(*args, controls=ttoon.ScatteringControls(
-            multi_phase=2))
+            multi_phase=3))

@@ -196,9 +196,9 @@ def _wrapper_args(d, name):
                                   'reflected_toon_props',
                                   'thermal_toon_props'])
 def test_wrapper_takes_the_twin_on_cpu(inputs, name):
-    """On CPU tensors each new wrapper runs its twin and launches nothing;
-    the reflected ones reject the unported multi_phase=2 before any
-    work."""
+    """On CPU tensors each new wrapper runs its twin and launches nothing,
+    multi_phase=2 (isotropic) included; the reflected ones reject an
+    unknown multi_phase before any work."""
     wrapper = getattr(cuda_toon, name)
     twin = getattr(cuda_toon, f'{name}_plain')
     args = _wrapper_args(inputs, name)
@@ -206,5 +206,7 @@ def test_wrapper_takes_the_twin_on_cpu(inputs, name):
     assert torch.equal(wrapper(*args), twin(*args))
     assert wrapper.launches == before
     if name.startswith('reflected'):
-        with pytest.raises(NotImplementedError):
-            wrapper(*args, controls=ttoon.ScatteringControls(multi_phase=2))
+        iso = dict(controls=ttoon.ScatteringControls(multi_phase=2))
+        assert torch.equal(wrapper(*args, **iso), twin(*args, **iso))
+        with pytest.raises(ValueError, match='multi_phase'):
+            wrapper(*args, controls=ttoon.ScatteringControls(multi_phase=3))
