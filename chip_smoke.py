@@ -14,11 +14,15 @@ production shape of bench.py's climate modes (91 levels, the 196- and
 661-bin synthetic CK tables, a 700 K brown dwarf); then the front door,
 ``justdoit`` as a user calls it (``inputs`` ... ``spectrum``,
 ``phase_curve``) on the production table: 1D spectra, a 36-facet 3D
-spectrum and two phase curves.  It goes through the 14 hand-written CUDA
-kernels, and checks each kernel against its plain PyTorch twin, each
-forward against a float64 oracle, and each climate solve against the JAX
-package's float64 solve (tests/climate_reference.json; the climate path
-runs none of the kernels: plain torch).
+spectrum and two phase curves; then retrievals on the same table: the
+samplers (``sampler.nested_sample``, ``ensemble_sample``) over batched
+forwards (``forward_batch``), the TOML driver (``driver.log_likelihood``,
+``driver.run``) and a fit of the bundled WASP-17b spectrum (``ncio``).  It
+goes through the 14 hand-written CUDA kernels, and checks each kernel
+against its plain PyTorch twin, each forward against a float64 oracle, and
+each climate solve against the JAX package's float64 solve
+(tests/climate_reference.json; the climate path runs none of the kernels:
+plain torch).
 
     python3 chip_smoke.py
 
@@ -136,14 +140,38 @@ Phases (any failure raises, so the exit code is nonzero):
     disks, through scene_from_case and forward_batch: K1 and K3 4 times
     each), each timed and held against its float64 CPU oracle at nwno 5000
     (the thermal curve on 3 x 3 disks)
-30. the card, one JSON line with the climate numbers, one with the front
+30. batched free transmission retrieval at full width
+    (examples/retrieval_nested.py's isothermal T and log H2O at 91 levels,
+    probes/retrieval.py): nested_sample(nlive=16, max_iter=20, walks=3,
+    seed=2), each sampler batch one forward_batch of scene_from_arrays
+    scenes: K1 launched once per scene evaluated, no other kernel; finite
+    logz and samples; wall s, likelihoods/s, ms per batch
+31. the same scenes thermal-only (K1 + K4 per scene), ensemble_sample
+    with 8 walkers x 4 steps: launches, finite chain, spectra/s, peak
+    bytes over the bytes alive before the run
+32. the TOML driver: driver_example.toml at 91 levels on the production
+    table, log_likelihood at 4 parameter points per observation type
+    (transmission K1, thermal K1 + K6, reflected K1 + K5 per call), each
+    call's host ms, one call split into host functions and card busy time;
+    then driver.run end to end on a '1060'-layout sqlite database (H2O, CO,
+    nwno 2000) written by build_synthetic_db: spectrum mode, then retrieval
+    mode (nested, nlive=8, max_iter=5, walks=2), K1 once per likelihood
+33. WASP-17b: ncio.read_netcdf(justdoit.w17_data()), the full-width
+    transmission forward convolved onto the data's per-point R
+    (conv_non_uniform_R), ensemble_sample with 8 walkers x 3 steps: K1
+    once per scene, finite chi2; then the oracle of phases 30-33 at nwno
+    5000: the models and log-likelihoods f32 on the card against the same
+    calls f64 on the CPU (phase 27's gates on transit, thermal and albedo;
+    |d log L| <= 1e-3 |log L|)
+34. the card, one JSON line with the climate numbers, one with the front
     door's (each path's launches, wall times, peaks, oracle and uniform-map
-    deviations), one with every kernel's summary (launches on the paths
-    counted above, the front door's included and also apart, times, max
-    abs error, and the bound: the larger of the bytes its inputs and
-    outputs need over 3.35 TB/s and the float32 operations its twin
-    performs on these inputs, counted per aten call, over 67 TFLOP/s),
-    then the result line.
+    deviations), one with the retrievals' (launches, rates, host and card
+    times, oracle deviations), one with every kernel's summary (launches on
+    the paths counted above, the front door's and the retrievals' included
+    and also apart, times, max abs error, and the bound: the larger of the
+    bytes its inputs and outputs need over 3.35 TB/s and the float32
+    operations its twin performs on these inputs, counted per aten call,
+    over 67 TFLOP/s), then the result line.
 """
 
 import dataclasses
@@ -1013,14 +1041,17 @@ def main():
 
     climate = climate_phases(dev, reset_counts, counts)
     front_door = front_door_phases(dev, grid, reset_counts, counts)
-    for path in front_door['launches'].values():
-        for name, count in path.items():
-            launches[name] += count
+    retrieval = retrieval_phases(dev, grid, reset_counts, counts)
+    for paths in (front_door['launches'], retrieval['launches']):
+        for path in paths.values():
+            for name, count in path.items():
+                launches[name] += count
 
-    # phase 30: summary
+    # phase 34: summary
     log(smi[0])
     print(json.dumps({'climate': climate}))
     print(json.dumps({'front_door': front_door}))
+    print(json.dumps({'retrieval': retrieval}))
     stats = {
         'interp_tau': dict(max_abs_err=k1_abs, ms=k1_ms,
                            plain_ms=k1_plain_ms, bytes=k1_bytes, ops=k1_ops,
@@ -1054,6 +1085,9 @@ def main():
             'front_door_launches': sum(
                 path.get(name, 0)
                 for path in front_door['launches'].values()),
+            'retrieval_launches': sum(
+                path.get(name, 0)
+                for path in retrieval['launches'].values()),
             **st, 'bound_ms': bound_ms, 'bound_by': bound_by,
             'bound_share': bound_ms / st['ms'], 'library_ms': None})
     print(json.dumps({'kernels': kernels}))
@@ -1537,6 +1571,259 @@ def front_door_phases(dev, grid, reset_counts, counts):
             facade_case(o_cpu, disk=(6, 6), **kw_r).phase_curve(
                 o_cpu, verbose=False), ('albedo',)))
     del curve, batch, o_card, o_cpu
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# retrievals (sampler, driver, ncio; probes/retrieval.py): phases 30-33
+# ---------------------------------------------------------------------------
+
+LOGL_REL = 1e-3
+
+
+def check_loglike(label, got, ref):
+    """Log-likelihoods f32 on the card against f64 on the CPU: |d log L|
+    <= 1e-3 |log L| at each point.  Returns the largest ratio."""
+    got, ref = np.asarray(got, float), np.asarray(ref, float)
+    if not (np.isfinite(got).all() and np.isfinite(ref).all()):
+        raise AssertionError(f'{label}: non-finite log-likelihoods')
+    worst = float(np.max(np.abs(got - ref) / np.abs(ref)))
+    log(f'{label}: log L card {got.tolist()} vs CPU {ref.tolist()}')
+    check(f'{label} |d log L| / |log L|', worst, LOGL_REL)
+    return worst
+
+
+def retrieval_phases(dev, grid, reset_counts, counts):
+    """Phases 30-33: retrievals on the production table -- the batched
+    free retrieval (transmission with the nested sampler, thermal with the
+    ensemble sampler), the TOML driver's likelihood per observation type
+    and driver.run end to end, and the WASP-17b fit -- with each run's
+    kernel launches counted, then each model and log-likelihood f32 on the
+    card against f64 on the CPU at nwno 5000."""
+    from picaso_tpu_torch import driver
+    from picaso_tpu_torch import justdoit as jdi
+    from picaso_tpu_torch.opacities import factory
+    from picaso_tpu_torch.probes import retrieval as pr
+    from picaso_tpu_torch.probes.front_door import _profiled
+    from picaso_tpu_torch.sampler import ensemble_sample, nested_sample
+    from picaso_tpu_torch.wavelength import mean_regrid
+    summary = {'launches': {}}
+
+    def counted_path(label, fn, expected):
+        """fn() with the launch counts set to 0 just before and read just
+        after; ``expected(out)`` the launches it must show, no other."""
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in counts().items() if v}
+        want = expected(out)
+        log(f'{label}: launches {got}')
+        if got != want:
+            raise AssertionError(f'{label}: launches {got}, expected '
+                                 f'{want}')
+        summary['launches'][label] = got
+        return out
+
+    def finite(label, *arrays):
+        for a in arrays:
+            if not np.isfinite(np.asarray(a, float)).all():
+                raise AssertionError(f'{label}: non-finite values')
+
+    # phase 30: batched free transmission retrieval, nested sampler
+    free = pr.FreeRetrieval(grid, 'transmission')
+    t0 = time.perf_counter()
+    res = counted_path(
+        '[30] nested free transmission retrieval',
+        lambda: nested_sample(free.loglike, free.prior, 2, nlive=16,
+                              max_iter=20, walks=3, seed=2),
+        lambda _: {'interp_tau': free.scenes})
+    wall = time.perf_counter() - t0
+    finite('[30] logz and samples', res.logz, res.samples,
+           res.samples_equal)
+    med = np.median(res.samples_equal, axis=0)
+    log(f'[30] {free.scenes} scenes in {len(free.batch_ms)} batches, '
+        f'{wall:.2f} s, {free.scenes / wall:.2f} likelihoods/s, ms per '
+        f'batch median {np.median(free.batch_ms):.1f}; logz '
+        f'{res.logz:.3f}, medians {med.tolist()} (truth '
+        f'{free.truth.tolist()})')
+    summary['free_transmission'] = dict(
+        scenes=free.scenes, batches=len(free.batch_ms), wall_s=wall,
+        likelihoods_per_s=free.scenes / wall,
+        batch_ms_median=float(np.median(free.batch_ms)),
+        batch_ms_min=min(free.batch_ms), batch_ms_max=max(free.batch_ms),
+        ms_per_scene=wall * 1e3 / free.scenes, logz=res.logz,
+        niter=res.niter, medians=med.tolist())
+    del res
+
+    # phase 31: the same scenes thermal-only, ensemble sampler
+    therm = pr.FreeRetrieval(grid, 'thermal')
+    p0 = therm.prior(np.random.default_rng(3).random((8, 2)))
+    (chain, lps), wall_ms, peak = counted_path(
+        '[31] ensemble free emission retrieval (8 walkers x 4 steps)',
+        lambda: timed_call(lambda: ensemble_sample(therm.loglike, p0, 4,
+                                                   seed=1)),
+        lambda _: {'interp_tau': therm.scenes,
+                   'thermal_toon': therm.scenes})
+    finite('[31] chain and log-probabilities', chain, lps)
+    log(f'[31] {therm.scenes} scenes in {wall_ms:.0f} ms, '
+        f'{therm.scenes / wall_ms * 1e3:.2f} spectra/s, peak {peak} bytes '
+        f'over alive, ms per batch median {np.median(therm.batch_ms):.1f}')
+    summary['free_emission'] = dict(
+        scenes=therm.scenes, wall_ms=wall_ms,
+        spectra_per_s=therm.scenes / wall_ms * 1e3, peak_bytes=peak,
+        batch_ms_median=float(np.median(therm.batch_ms)),
+        final_log_probs=lps[-1].tolist())
+
+    # phase 32: the TOML driver at full width, per observation type
+    opa = jdi.Opacity(grid.wno, grid=grid)
+    thetas = [[900.0, -3.5], [1000.0, -3.0], [1100.0, -2.5], [1250.0, -4.0]]
+    summary['driver'] = {}
+    for obs, rt_kernel in (('transmission', None),
+                           ('thermal', 'thermal_toon_props'),
+                           ('reflected', 'reflected_toon_props')):
+        config = pr.driver_config(obs)
+        data = pr.driver_data(config, opa)
+        fit = driver.prior_finder(config)
+        walls = []
+
+        def likelihoods():
+            out = []
+            for th in thetas:
+                t0 = time.perf_counter()
+                out.append(driver.log_likelihood(th, config, opa, fit,
+                                                 *data))
+                walls.append((time.perf_counter() - t0) * 1e3)
+            return out
+        want = {'interp_tau': len(thetas)}
+        if rt_kernel:
+            want[rt_kernel] = len(thetas)
+        lls = counted_path(f'[32] driver log_likelihood, {obs} (4 calls)',
+                           likelihoods, lambda _: want)
+        finite(f'[32] {obs} log-likelihoods', lls)
+        split = _profiled(lambda: driver.log_likelihood(
+            thetas[1], config, opa, fit, *data))
+        log(f'[32] {obs}: ms per likelihood {[round(w, 1) for w in walls]}; '
+            f'one call {split["wall_ms"]:.1f} ms wall, card busy '
+            f'{split["device_busy_ms"]:.2f} ms in '
+            f'{split["device_launches"]} launches; host top '
+            f'{split["host_own_ms"][:4]}')
+        summary['driver'][obs] = dict(
+            ms_per_likelihood=walls, log_likelihood=lls,
+            split_wall_ms=split['wall_ms'],
+            device_busy_ms=split['device_busy_ms'],
+            device_launches=split['device_launches'],
+            host_own_ms=split['host_own_ms'][:6])
+
+    # driver.run end to end on a '1060'-layout database (H2O, CO)
+    db_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          'build', 'chip_smoke')
+    os.makedirs(db_dir, exist_ok=True)
+    db_path = os.path.join(db_dir, 'retrieval_1060.db')
+    if os.path.exists(db_path):
+        os.remove(db_path)
+    t0 = time.perf_counter()
+    factory.build_synthetic_db(db_path, np.linspace(300.0, 33000.0, DB_NWNO),
+                               molecules=('H2O', 'CO'), pt_layout='1060',
+                               device=dev)
+    write_s = time.perf_counter() - t0
+    config = pr.driver_config('transmission', opacity_files=db_path)
+    bg = config['chemistry']['free']['background']
+    config['chemistry']['free'] = {'H2O': {'value': 1e-3, 'unit': 'v/v'},
+                                   'CO': {'value': 1e-4, 'unit': 'v/v'},
+                                   'background': bg}
+    config['calc_type'] = 'spectrum'
+    t0 = time.perf_counter()
+    case, out = counted_path('[32] driver.run, spectrum mode',
+                             lambda: driver.run(config, device=dev),
+                             lambda _: {'interp_tau': 1})
+    spec_s = time.perf_counter() - t0
+    depth = np.asarray(out['transit_depth'])
+    if depth.shape != (DB_NWNO,):
+        raise AssertionError(f'[32] spectrum shape {depth.shape}')
+    finite('[32] driver.run spectrum', depth)
+    data_wno = np.sort(1e4 / np.linspace(1.0, 10.0, 30))
+    _, y = mean_regrid(out['wavenumber'], out['transit_depth'],
+                       newx=data_wno)
+    e = np.full(30, 0.01 * np.abs(y).mean())
+    config['calc_type'] = 'retrieval'
+    t0 = time.perf_counter()
+    run_res = counted_path(
+        '[32] driver.run, retrieval mode (nested, nlive=8)',
+        lambda: driver.run(config, data=(1e4 / data_wno, y, e), nlive=8,
+                           max_iter=5, walks=2, verbose=False, device=dev),
+        # no ellipsoid before iteration 20: each iteration walks 2 x 4
+        lambda r: {'interp_tau': 8 + (r['niter'] - 8) * 2 * 4})
+    run_s = time.perf_counter() - t0
+    finite('[32] driver.run retrieval', run_res['logz'],
+           run_res['samples'])
+    os.remove(db_path)
+    log(f'[32] driver.run: database written in {write_s:.2f} s, spectrum '
+        f'mode {spec_s:.2f} s, retrieval mode {run_s:.2f} s ({run_res["niter"]}'
+        f' dead points, logz {run_res["logz"]:.3f})')
+    summary['driver_run'] = dict(db_write_s=write_s, spectrum_s=spec_s,
+                                 retrieval_s=run_s, niter=run_res['niter'],
+                                 logz=run_res['logz'])
+    del case, out, run_res
+
+    # phase 33: WASP-17b, ensemble sampler
+    w17 = pr.W17Retrieval(grid)
+    t0 = time.perf_counter()
+    chain, lps = counted_path(
+        '[33] WASP-17b ensemble fit (8 walkers x 3 steps)',
+        lambda: ensemble_sample(w17.loglike, w17.walkers(8), 3, seed=1),
+        lambda _: {'interp_tau': w17.scenes})
+    wall = time.perf_counter() - t0
+    scenes = w17.scenes
+    best = chain.reshape(-1, 3)[int(np.argmax(lps.ravel()))]
+    chi2 = -2.0 * float(w17.loglike(best[None])[0]) / len(w17.y)
+    finite('[33] chi2', chi2)
+    log(f'[33] {len(w17.y)} points, {scenes} scenes in {wall:.2f} '
+        f's; best T={best[0]:.0f} K, log H2O={best[1]:.2f}, '
+        f'xRp={best[2]:.4f}, chi2/N={chi2:.3f}')
+    summary['w17'] = dict(points=len(w17.y), scenes=scenes,
+                          wall_s=wall, best=best.tolist(), chi2_per_point=chi2)
+
+    # the oracle of phases 30-33 at nwno 5000: f32 card vs f64 CPU
+    o_card, o_cpu = oracle_connections(jdi, dev)
+    oracle = {}
+    rng = np.random.default_rng(7)
+    for kind, key in (('transmission', 'transit_depth'),
+                      ('thermal', 'thermal')):
+        cpu = pr.FreeRetrieval(o_cpu.grid, kind)
+        card = pr.FreeRetrieval(o_card.grid, kind, data=(cpu.y, cpu.err))
+        th = cpu.prior(rng.random((3, 2)))
+        label = f'[33] oracle, free {kind}'
+        oracle[f'free_{kind}'] = dict(
+            model=check_oracle(label, {key: card.forward(th)},
+                               {key: cpu.forward(th)}, (key,))[key],
+            log_likelihood=check_loglike(label, card.loglike(th),
+                                         cpu.loglike(th)))
+    cpu, card = pr.W17Retrieval(o_cpu.grid), pr.W17Retrieval(o_card.grid)
+    th = cpu.walkers(3, seed=5)
+    oracle['w17'] = dict(
+        model=check_oracle('[33] oracle, WASP-17b',
+                           {'transit_depth': card.forward(th)},
+                           {'transit_depth': cpu.forward(th)},
+                           ('transit_depth',))['transit_depth'],
+        log_likelihood=check_loglike('[33] oracle, WASP-17b',
+                                     card.loglike(th), cpu.loglike(th)))
+    for obs, key in (('transmission', 'transit_depth'),
+                     ('thermal', 'thermal'), ('reflected', 'albedo')):
+        config = pr.driver_config(obs)
+        data = pr.driver_data(config, o_cpu)
+        fit = driver.prior_finder(config)
+        label = f'[33] oracle, driver {obs}'
+        models = [np.concatenate([driver.MODEL(t, config, o, fit, data[0])
+                                  for t in thetas[:2]])
+                  for o in (o_card, o_cpu)]
+        lls = [[driver.log_likelihood(t, config, o, fit, *data)
+                for t in thetas[:2]] for o in (o_card, o_cpu)]
+        oracle[f'driver_{obs}'] = dict(
+            model=check_oracle(label, {key: models[0]}, {key: models[1]},
+                               (key,))[key],
+            log_likelihood=check_loglike(label, *lls))
+    summary['oracle'] = oracle
+    del o_card, o_cpu
     return summary
 
 

@@ -36,10 +36,19 @@ kernels).
 No pandas: a profile is a dict of numpy columns sorted by pressure.
 ``atmosphere`` and ``clouds`` take any mapping of column name to array (a
 DataFrame is one) or a whitespace-separated file with a header line, read
-with numpy.
+with numpy.  GCM input (``atmosphere_3d``, ``atmosphere_4d``,
+``clouds_4d``) takes a dict, a NetCDF path or an ``ncio.NCDataset``.
 
-Not ported yet (ROADMAP Queue 1, the front door's remaining list): NetCDF
-input, the chemistry handlers, virga, ``find_kzz`` and the quench
+The equilibrium-chemistry handlers (``premix_atmosphere``,
+``chemeq_visscher_1060``/``_2121``, ``channon_grid_low``, ``chemeq_3d``,
+``premix_3d``, ``atmosphere(chem_method=...)``) interpolate the Visscher
+grids or a CK table's ``full_abunds`` with ``chemistry.chem_interp`` on a
+device: the connection's for the premixed table, else ``device=`` (the
+card unless the caller asks for the CPU).  The grid files are read with
+numpy.
+
+Not ported yet (ROADMAP Queue 1, the front door's remaining list): the
+Sonora profiles and photochemistry, virga, ``find_kzz`` and the quench
 adjustments, the climate glue, ``get_contribution``, the evolution tracks
 and planet catalogue, and the unit and xarray converters.
 """
@@ -65,7 +74,7 @@ from .opacities.db import (OpacityGrid, _find_indices,
                            interp_molecular_nearest, load_opacity_db,
                            nearest_continuum)
 from .optics import RTProps, combine_optics
-from .refdata import load_default_config, refdata_path
+from .refdata import external_refdata, load_default_config, refdata_path
 from .rt import cuda_toon, toon
 from .rt.cuda_toon import REFLECTED_FIELDS
 from .rt.transit import transit_depth
@@ -75,7 +84,8 @@ __all__ = ['Opacity', 'opannection', 'inputs', 'picaso', 'compute_rtprops',
            'jupiter_pt', 'jupiter_cld', 'HJ_pt', 'HJ_cld', 'brown_dwarf_pt',
            'brown_dwarf_cld', 'single_phase_options', 'multi_phase_options',
            'raman_options', 'toon_phase_coefficients',
-           'rt_methodology_options', 'stream_options', 'mean_regrid', 'u']
+           'rt_methodology_options', 'stream_options', 'mean_regrid', 'u',
+           'w17_data']
 
 _trapz = getattr(np, 'trapezoid', None) or np.trapz
 
@@ -468,12 +478,15 @@ class inputs:
     # -- atmosphere --------------------------------------------------------
     def atmosphere(self, df=None, filename=None, exclude_mol=None,
                    verbose=True, mh=None, cto_relative=None,
-                   cto_absolute=None, chem_method=None, **pd_kwargs):
+                   cto_absolute=None, chem_method=None, device='cuda',
+                   **pd_kwargs):
         """The 1D profile: ``df`` a mapping of column name to array (a
         DataFrame is one, as is a dict) or ``filename`` a whitespace table
         with a header line (``sep=r'\\s+'``); stored as a dict of numpy
-        columns sorted by pressure.  ``chem_method`` (the grid chemistry)
-        is not ported yet."""
+        columns sorted by pressure.  ``mh`` is linear metallicity (1.0 =
+        solar); a ``chem_method`` ('visscher', '1060' or '2121') replaces
+        the abundances with the grid's at the profile's (T, P) through
+        :meth:`chemistry_handler`, interpolated on ``device``."""
         for key, val in (('mh', mh), ('cto_relative', cto_relative),
                          ('cto_absolute', cto_absolute)):
             if val is not None:
@@ -498,17 +511,15 @@ class inputs:
                         if not isinstance(exclude_mol, dict) else exclude_mol)
             self.inputs['atmosphere']['exclude_mol'] = full
         if chem_method is not None:
-            raise _not_ported(f'chem_method={chem_method!r} (the chemistry '
-                              'handlers)', '(the front door, chemistry)')
+            self.chemistry_handler(chem_method, device=device)
 
     def atmosphere_3d(self, data, verbose=True):
-        """3D GCM input: a dict with 'lat'/'lon' (deg), 'pressure' [nlevel]
-        (bar) and [nlevel, nlon, nlat] fields; the facets take the nearest
-        columns (``three_d.regrid_to_disco``).  NetCDF input is not ported
-        yet."""
-        if not isinstance(data, dict):
-            raise _not_ported('NetCDF GCM input (ncio)',
-                              '(the front door, ncio)')
+        """3D GCM input: a NetCDF path or decoded ``ncio.NCDataset`` (the
+        reference's xarray GCM format, converted by ``ncio.gcm_dict``) or a
+        dict with 'lat'/'lon' (deg), 'pressure' [nlevel] (bar) and
+        [nlevel, nlon, nlat] fields; the facets take the nearest columns
+        (``three_d.regrid_to_disco``)."""
+        data = _gcm_input(data)
         if 'pressure' not in data or 'temperature' not in data:
             raise ValueError('need pressure and temperature fields')
         self.inputs['atmosphere']['profile'] = data
@@ -547,7 +558,9 @@ class inputs:
         package): for every phase of ``phase_curve_geometry`` the map is
         rotated by ``phase + shift_i`` degrees ('night_transit' adds 180
         for thermal curves) and stored as a per-phase profile list for
-        :meth:`phase_curve`.  ``plot`` is not ported."""
+        :meth:`phase_curve`.  ``ds`` as :meth:`atmosphere_3d` takes it;
+        ``plot`` is not ported."""
+        ds = _gcm_input(ds)
         if ds is None:
             ds = self.inputs['atmosphere']['profile']
         if not isinstance(ds, dict) or 'lat' not in ds:
@@ -585,11 +598,13 @@ class inputs:
     def clouds_4d(self, ds=None, plot=False, iz_plot=0, iw_plot=0,
                   verbose=True, calculation='reflected'):
         """Phase-dependent cloud rotation + facet regrid (justdoit.py:
-        540-573 of the JAX package): ``ds`` a dict with 'lat'/'lon',
+        540-573 of the JAX package): ``ds`` a NetCDF path, an
+        ``ncio.NCDataset`` or a dict with 'lat'/'lon',
         'wavenumber' [nwno_cld] and [nlayer, nwno_cld, nlon, nlat]
         'opd'/'g0'/'w0'; stores a per-phase list of facet cloud dicts
         ([nlayer, nwno_cld, ng, nt])."""
         from .three_d import regrid_to_disco
+        ds = _gcm_input(ds)
         if ds is None:
             ds = self.inputs['clouds'].get('profile')
         if not isinstance(ds, dict) or 'lat' not in ds:
@@ -610,6 +625,184 @@ class inputs:
         self.inputs['clouds']['profile'] = per_phase
         self.inputs['clouds']['wavenumber'] = np.asarray(ds['wavenumber'])
         return per_phase
+
+    # -- equilibrium chemistry (justdoit.py:632-656, 1064-1100,
+    #    2000-2131 of the JAX package) --------------------------------------
+    def add_pt(self, T, P):
+        """Set the profile's temperature and pressure columns (a new
+        profile of those two where there is none)."""
+        df = self.inputs['atmosphere']['profile']
+        if df is None:
+            df = {'pressure': np.asarray(P), 'temperature': np.asarray(T)}
+        else:
+            df = dict(df)
+            df['temperature'] = np.asarray(T)
+            df['pressure'] = np.asarray(P)
+        self.inputs['atmosphere']['profile'] = df
+        self.nlevel = len(df['pressure'])
+
+    def premix_atmosphere(self, opa=None, df=None, quench_levels=None,
+                          verbose=True):
+        """Equilibrium chemistry from the opacity connection's premixed
+        ``full_abunds`` table (justdoit.py:2237-2282 semantics),
+        interpolated on the connection's device."""
+        table = None
+        if opa is not None and getattr(opa, 'ck', None) is not None:
+            table = opa.ck.full_abunds
+        if table is None:
+            raise ValueError('premix_atmosphere needs a CK connection with '
+                             'a full_abunds chemistry table')
+        prof = df if df is not None else self.inputs['atmosphere']['profile']
+        self.inputs['atmosphere']['profile'] = prof
+        return self._apply_chem_grid(table, opa.device)
+
+    def premix_atmosphere_photochem(self, *args, **kwargs):
+        raise _not_ported('photochemistry (premix_atmosphere_photochem; the '
+                          'photochem package)', 'item 7.2')
+
+    def sonora(self, sonora_path, teff, chem='low'):
+        raise _not_ported('the Sonora Bobcat profiles (sonora)', 'item 7.2')
+
+    def sonora_profile(self, sonora_path, teff, chem='low'):
+        raise _not_ported('the Sonora Bobcat profiles (sonora_profile)',
+                          'item 7.2')
+
+    def find_kzz(self, *args, **kwargs):
+        raise _not_ported('find_kzz', 'item 7.4')
+
+    def chemistry_handler(self, chemistry_table=None, device='cuda'):
+        """Dispatch equilibrium chemistry from
+        approx['chem_params']['chem_method'] (justdoit.py:2082): runs the
+        matching Visscher grid, on ``device``, when the profile already has
+        (P, T); otherwise records the method."""
+        chem = self.inputs['approx'].setdefault('chem_params', {})
+        method = str(chemistry_table or chem.get('chem_method', ''))
+        prof = self.inputs['atmosphere'].get('profile')
+        has_pt = (isinstance(prof, dict) and 'temperature' in prof
+                  and 'lat' not in prof)
+        if not has_pt:
+            chem['chem_method'] = method
+            return
+        # the config tree carries these keys with None defaults; 'mh' is
+        # linear metallicity wherever it is stored (log10 at the lookup);
+        # the 1060 grid takes C/O relative to solar, 2121 absolute
+        mh = chem.get('mh')
+        if mh is None:
+            mh = self.inputs['atmosphere'].get('mh')
+        log_mh = 0.0 if mh is None else float(np.log10(mh))
+        if '2121' in method:
+            cto = chem.get('cto_absolute')
+            if cto is None:
+                cto = self.inputs['atmosphere'].get('cto_absolute')
+            cto = 0.458 if cto is None else float(cto)
+            self.chemeq_visscher_2121(cto, log_mh, device=device)
+        elif 'visscher' in method or '1060' in method:
+            cto = chem.get('cto_relative')
+            if cto is None:
+                cto = self.inputs['atmosphere'].get('cto_relative')
+            cto = 1.0 if cto is None else float(cto)
+            self.chemeq_visscher_1060(cto, log_mh, device=device)
+        elif method and method != 'None':
+            raise ValueError(f'unknown chem_method {method!r}')
+
+    def channon_grid_low(self, filename=None, device='cuda'):
+        """Low-T Visscher equilibrium chemistry on the 1060-point grid (the
+        sonora chem='low' table), interpolated on ``device``."""
+        filename = filename or refdata_path('chemistry',
+                                            'visscher_abunds_m+0.0_co1.0')
+        return self._apply_chem_grid(_read_csv(filename, index_col=0),
+                                     device)
+
+    def chemeq_visscher_1060(self, cto_relative=1.0, log_mh=0.0,
+                             device='cuda'):
+        """Visscher 1060-grid equilibrium chemistry (justdoit.py:3028).
+
+        ``cto_relative`` is the C/O ratio as a factor of solar (0.458,
+        Lodders 2010), the convention of the 1060 grid filenames.  The
+        grid is the nearest file of $picaso_refdata/chemistry/
+        visscher_grid_1060 where that set is installed, else the bundled
+        solar-composition file; interpolated on ``device``."""
+        return self._apply_chem_grid(
+            _parse_visscher_grid(_visscher_1060_file(log_mh, cto_relative)),
+            device)
+
+    def chemeq_visscher_2121(self, cto_absolute=0.458, log_mh=0.0,
+                             device='cuda'):
+        """Visscher 2121-grid equilibrium chemistry (justdoit.py:2837); the
+        grids are not bundled: FileNotFoundError without
+        $picaso_refdata/chemistry/visscher_grid_2121."""
+        ext = external_refdata()
+        directory = (os.path.join(ext, 'chemistry', 'visscher_grid_2121')
+                     if ext else None)
+        if not (directory and os.path.isdir(directory)):
+            raise FileNotFoundError(
+                'the 2121-point Visscher grids are not bundled; set '
+                'picaso_refdata to a directory containing '
+                'chemistry/visscher_grid_2121')
+        fn = _nearest_grid_file(directory, 'sonora_2121grid', log_mh,
+                                cto_absolute)
+        return self._apply_chem_grid(_parse_visscher_grid(fn), device)
+
+    def _chem_3d_apply(self, table, device):
+        """The chemistry of ``table`` on every column of a 3D GCM dict, in
+        one interpolation call (every column flattened into the batch
+        axis; the reference fans the columns out over joblib,
+        justdoit.py:3560-3633)."""
+        data = self.inputs['atmosphere']['profile']
+        if not (isinstance(data, dict) and 'lat' in data):
+            raise ValueError('premix_3d/chemeq_3d need a 3D GCM dict '
+                             '(run atmosphere_3d first)')
+        t = np.asarray(data['temperature'], float)   # [nlevel, nlon, nlat]
+        nlevel = t.shape[0]
+        p = np.broadcast_to(np.asarray(data['pressure'], float)[:, None, None],
+                            t.shape)
+        out = dict(data)
+        for sp, col in _chem_abundances(table, t.ravel(), p.ravel(),
+                                        device).items():
+            out[sp] = col.reshape(t.shape)
+        self.inputs['atmosphere']['profile'] = out
+        self.nlevel = nlevel
+        return out
+
+    def premix_3d(self, opa, n_cpu=1):
+        """Premixed CK chemistry on every 3D column (justdoit.py:3517), on
+        the connection's device; ``n_cpu`` is accepted and unused (the
+        columns are one batch)."""
+        table = (opa.ck.full_abunds
+                 if getattr(opa, 'ck', None) is not None else None)
+        if table is None:
+            raise ValueError('premix_3d needs a CK connection with a '
+                             'full_abunds chemistry table')
+        return self._chem_3d_apply(table, opa.device)
+
+    def chemeq_3d(self, c_o=None, log_mh=0.0, cto_absolute=0.55, n_cpu=1,
+                  device='cuda'):
+        """Visscher equilibrium chemistry on every 3D column
+        (justdoit.py:3590), the grid file chosen as
+        :meth:`chemeq_visscher_1060` chooses it.  The 1060 filenames
+        encode C/O relative to solar, so ``cto_absolute`` converts through
+        the reference's solar 0.55 (justdoit.py:3608); ``c_o`` is already
+        the relative factor."""
+        if isinstance(c_o, (int, float)):
+            cto_relative = float(c_o)
+        else:
+            cto_relative = float(cto_absolute) / 0.55
+        return self._chem_3d_apply(
+            _parse_visscher_grid(_visscher_1060_file(log_mh, cto_relative)),
+            device)
+
+    def _apply_chem_grid(self, table, device):
+        """Replace the 1D profile's abundances by those of ``table`` (a
+        chemistry table of columns) at its (T, P): a new profile of
+        pressure, temperature and the table's species, in its order."""
+        prof = self.inputs['atmosphere']['profile']
+        pressure = np.asarray(prof['pressure'])
+        temperature = np.asarray(prof['temperature'])
+        out = {'pressure': pressure, 'temperature': temperature}
+        out.update(_chem_abundances(table, temperature, pressure, device))
+        self.inputs['atmosphere']['profile'] = out
+        self.nlevel = len(pressure)
+        return out
 
     # -- clouds ------------------------------------------------------------
     def clouds_reset(self):
@@ -1297,6 +1490,114 @@ def _integrate_lvl_fluxes(lvl, gweight, tweight, cos_theta, ones):
 
 
 # ---------------------------------------------------------------------------
+# input files: GCM NetCDF, Visscher grids
+# ---------------------------------------------------------------------------
+
+def _gcm_input(data):
+    """A GCM input as the dict ``atmosphere_3d`` stores: a NetCDF path or
+    ``ncio.NCDataset`` converted by ``ncio.gcm_dict``, anything else as it
+    is."""
+    from .ncio import NCDataset, gcm_dict
+    if isinstance(data, (str, bytes, NCDataset)):
+        return gcm_dict(data)
+    return data
+
+
+def _read_csv(filename, index_col=None):
+    """A numeric comma-separated table with a header line, as
+    ``pd.read_csv(filename, index_col=index_col)`` reads it:
+    {column name: float64 array}, the index column (0) dropped."""
+    with open(filename) as f:
+        names = [n.strip() for n in f.readline().rstrip('\n').split(',')]
+    data = np.loadtxt(filename, delimiter=',', skiprows=1, ndmin=2)
+    return {name: data[:, i] for i, name in enumerate(names)
+            if i != index_col}
+
+
+def _chem_abundances(table, temperature, pressure, device):
+    """{species: float64 abundances} of a chemistry table of columns at
+    the (T [K], P [bar]) points, interpolated by ``chemistry.chem_interp``
+    on ``device``."""
+    from .chemistry import chem_grid_from_table, chem_interp
+    grid = chem_grid_from_table(table, device=device)
+    dt = grid.log_abunds.dtype
+    abunds = _np(chem_interp(
+        grid, torch.tensor(np.asarray(temperature), dtype=dt, device=device),
+        torch.tensor(np.asarray(pressure), dtype=dt, device=device)))
+    return {sp: abunds[:, i].astype(np.float64)
+            for i, sp in enumerate(grid.species)}
+
+
+def _parse_visscher_grid(filename):
+    """A Visscher grid text file ('2015_06_1060grid_feh_*' /
+    'sonora_2121grid_*': a header 'T (K)  P (bar)  <species...>', then rows
+    of temperature [K], log10 pressure [bar] and abundances) as a table of
+    columns: the species in the header's order, then temperature and
+    pressure [bar]."""
+    with open(filename) as f:
+        header = f.readline()
+    # the 1060 headers write 'T (K)  P (bar)', the 2121 ones 'T(K)  P(bar)'
+    for unit in ('T (K)', 'P (bar)', 'T(K)', 'P(bar)'):
+        header = header.replace(unit, '')
+    species = header.split()
+    data = np.loadtxt(filename, skiprows=1)
+    out = {sp: data[:, 2 + i] for i, sp in enumerate(species)}
+    out['temperature'] = data[:, 0]
+    out['pressure'] = 10.0 ** data[:, 1]
+    return out
+
+
+def _decode_grid_float(s):
+    """Invert the reference's filename encoding of feh/co values: 2121
+    grids use plain floats ('feh-0.3_co0.14'), 1060 grids
+    str(v).replace('.','').replace('-','m') (justdoit.py:3079-3083):
+    '00' -> 0.0, '025' -> 0.25, 'm03' -> -0.3, '15' -> 1.5."""
+    sign = 1.0
+    if s.startswith('m'):
+        sign, s = -1.0, s[1:]
+    if '.' in s:
+        return sign * float(s)
+    return sign * float(s[0] + '.' + s[1:])
+
+
+def _nearest_grid_file(directory, pattern_prefix, log_mh, cto):
+    """The grid file of ``directory`` nearest in (feh, co) by its name."""
+    import re
+    files = [f for f in os.listdir(directory)
+             if f.startswith(pattern_prefix)]
+    best, best_d = None, np.inf
+    for f in files:
+        m = re.search(r'feh_?(m?[+-]?[\d.]+)_co_?([\d.]+)', f)
+        if not m:
+            continue
+        try:
+            # rstrip the dot the pattern takes from the '.txt' suffix
+            feh = _decode_grid_float(m.group(1).lstrip('+').rstrip('.'))
+            co = _decode_grid_float(m.group(2).rstrip('.'))
+        except ValueError:
+            continue
+        d = (feh - log_mh) ** 2 + (co - cto) ** 2
+        if d < best_d:
+            best, best_d = f, d
+    if best is None:
+        raise FileNotFoundError(
+            f'no {pattern_prefix}* chemistry grids in {directory}')
+    return os.path.join(directory, best)
+
+
+def _visscher_1060_file(log_mh, cto_relative):
+    """The nearest file of the external 1060 grid set, else the bundled
+    solar-composition grid."""
+    ext = external_refdata()
+    directory = (os.path.join(ext, 'chemistry', 'visscher_grid_1060')
+                 if ext else None)
+    if directory and os.path.isdir(directory):
+        return _nearest_grid_file(directory, '2015_06_1060grid', log_mh,
+                                  cto_relative)
+    return refdata_path('chemistry', '2015_06_1060grid_feh_00_co_10.txt')
+
+
+# ---------------------------------------------------------------------------
 # bundled base cases
 # ---------------------------------------------------------------------------
 
@@ -1322,3 +1623,13 @@ def brown_dwarf_pt():
 
 def brown_dwarf_cld():
     return refdata_path('base_cases', 't1270g200f1_m0.0_co1.0.cld')
+
+
+def w17_data():
+    """WASP-17b MIRI transmission spectrum (Grant et al. 2023), bundled
+    (justdoit.py:5505): a classic NetCDF file, read by
+    ``ncio.read_netcdf``."""
+    return refdata_path(
+        'base_cases',
+        'Grant_etal_transmission_spectrum_vfinal_bin0.25_'
+        'utc20230606_125313.nc')

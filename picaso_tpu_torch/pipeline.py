@@ -508,8 +508,11 @@ def scene_from_arrays(profile_bar, t_level, mix_named, grid: OpacityGrid,
     prof = {'pressure': profile_bar, 'temperature': t_level}
     prof.update(mix_named)
     wno = grid.wno.detach().cpu().numpy()
+    # without clouds the Atmosphere carries none (its [nlayer, nwno] host
+    # zeros are made on the device below)
     atm = build_atmosphere(prof, gravity=gravity, radius=radius, mass=mass,
-                           p_reference=p_reference, wno=wno,
+                           p_reference=p_reference,
+                           wno=None if cld is None else wno,
                            cld_profile=cld,
                            cld_wno=None if cld is None else wno)
     if geom is None:
@@ -533,10 +536,15 @@ def scene_from_arrays(profile_bar, t_level, mix_named, grid: OpacityGrid,
                if ray_species else np.zeros((0, atm.nlayer)))
 
     nwno = len(wno)
-    zeros_cld = np.zeros((atm.nlayer, nwno))
 
     def t(x, dt=dtype):
         return torch.tensor(np.asarray(x), dtype=dt, device=device)
+
+    def cloud(x):
+        # a cloud-free scene's zeros: from the host they cost a float
+        # conversion and a copy each
+        return (t(x) if x is not None else
+                torch.zeros((atm.nlayer, nwno), dtype=dtype, device=device))
 
     scene = SceneTensors(
         tlevel=t(atm.temperature), plevel=t(atm.pressure),
@@ -546,9 +554,8 @@ def scene_from_arrays(profile_bar, t_level, mix_named, grid: OpacityGrid,
         electrons=t(atm.electrons_layer if atm.electrons_layer is not None
                     else np.zeros(atm.nlayer)),
         z=t(atm.z), dz=t(atm.dz),
-        cld_opd=t(atm.cld_opd if atm.cld_opd is not None else zeros_cld),
-        cld_g0=t(atm.cld_g0 if atm.cld_g0 is not None else zeros_cld),
-        cld_w0=t(atm.cld_w0 if atm.cld_w0 is not None else zeros_cld),
+        cld_opd=cloud(atm.cld_opd), cld_g0=cloud(atm.cld_g0),
+        cld_w0=cloud(atm.cld_w0),
         sigma_ray=t(sigma_ray), mix_ray=t(mix_ray),
         ubar0=t(geom.ubar0), ubar1=t(geom.ubar1),
         gweight=t(geom.gweight), tweight=t(geom.tweight),

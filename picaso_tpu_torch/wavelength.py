@@ -1,20 +1,24 @@
 """Wavelength-grid utilities: the cloud and climate input grids, row
 regridding and spectral binning.
 
-Host (numpy) copy of ``get_cld_input_grid``, ``regrid``, ``create_grid`` and
-``mean_regrid`` of ``picaso_tpu/wavelength.py``, which must not be imported
-here.  The files are read by path with numpy (the JAX module reads the EGP
+Host (numpy) copy of ``get_cld_input_grid``, ``regrid``, ``create_grid``,
+``create_grid_minR``, ``conv_non_uniform_R`` and ``mean_regrid`` of
+``picaso_tpu/wavelength.py``, which must not be imported here.  The files are read by path with numpy (the JAX module reads the EGP
 grid with pandas); ``mean_regrid``'s bin means repeat
 ``scipy.stats.binned_statistic``'s arithmetic in numpy.
+``conv_non_uniform_R`` takes numpy arrays or torch tensors (then it runs on
+their device).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .refdata import refdata_path
 
-__all__ = ['get_cld_input_grid', 'regrid', 'create_grid', 'mean_regrid']
+__all__ = ['get_cld_input_grid', 'regrid', 'create_grid', 'create_grid_minR',
+           'conv_non_uniform_R', 'mean_regrid']
 
 
 def get_cld_input_grid(filename_or_grid='wave_EGP.dat', grid661=False):
@@ -53,6 +57,45 @@ def create_grid(min_wavelength, max_wavelength, constant_R):
         [[min_wavelength],
          min_wavelength * np.cumprod(np.full(wsize - 1, spacing))])
     return 1e4 / newwl[::-1]
+
+
+def create_grid_minR(min_wavelength, max_wavelength, minimum_R):
+    """Uniform-dwno wavenumber grid with the step set by ``minimum_R`` at
+    ``min_wavelength`` (opacity_factory.py:692-710).  As in the reference,
+    the resolving power wno/dwno equals ``minimum_R`` at the short end and
+    falls toward longer wavelengths.  Returns (wavenumber grid ascending,
+    dwno)."""
+    dwno = 1e4 / (min_wavelength ** 2) * (min_wavelength / minimum_R)
+    grid = np.arange(1e4 / max_wavelength, 1e4 / min_wavelength, dwno)
+    return grid, dwno
+
+
+def conv_non_uniform_R(model_flux, model_wl, R, obs_wl):
+    """Convolve a model spectrum with a wavelength-dependent resolving
+    power onto an observed wavelength grid (driver.py:338-381): one
+    [nobs, nmodel] Gaussian kernel matrix, each row normalised, applied as
+    a matrix-vector product.  numpy in, numpy out; a torch tensor
+    ``model_flux`` keeps the product on its device and dtype.
+
+    model_flux/model_wl [nmodel]; R [nobs] resolving power at each observed
+    wavelength; obs_wl [nobs].  Returns [nobs].
+    """
+    if isinstance(model_flux, torch.Tensor):
+        def xp(x):
+            return torch.as_tensor(np.asarray(x, np.float64),
+                                   dtype=model_flux.dtype,
+                                   device=model_flux.device)
+        exp, total, flux = torch.exp, torch.sum, model_flux
+    else:
+        xp, exp, total = np.asarray, np.exp, np.sum
+        flux = np.asarray(model_flux)
+    model_wl, obs_wl, R = xp(model_wl), xp(obs_wl), xp(R)
+    sigma = (obs_wl / R) / 2.355                       # FWHM -> sigma
+    arg = ((model_wl[None, :] - obs_wl[:, None])
+           / sigma[:, None]) ** 2
+    kern = exp(-0.5 * arg)
+    kern = kern / total(kern, axis=1, keepdims=True)
+    return kern @ flux
 
 
 def _binned_mean(x, y, edges):

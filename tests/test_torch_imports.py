@@ -40,7 +40,12 @@ def test_port_has_modules_to_check():
             'cuda_sh.py', 'raman.py', 'chip_smoke.py', 'ck.py',
             'chemistry.py', 'wavelength.py', 'adiabat.py', 'core.py',
             'fused.py', 'api.py', 'justdoit.py', 'three_d.py', 'units.py',
-            'refdata.py', 'fits_lite.py', 'stellar.py'} <= names
+            'refdata.py', 'fits_lite.py', 'stellar.py', 'sampler.py',
+            'driver.py', 'parameterizations.py', 'analyze.py',
+            'retrieval.py', 'ncio.py'} <= names
+    probes = {p.name for p in (ROOT / 'picaso_tpu_torch' / 'probes').glob(
+        '*.py')}
+    assert {'front_door.py', 'retrieval.py'} <= probes
 
 
 @pytest.mark.parametrize('path', _sources(),

@@ -307,6 +307,10 @@ def test_unported_parts_raise(call):
         elif call == 'ck_db':
             tdi.opannection(method='preweighted', ck_db='x', device='cpu')
         elif call == 'chem_method':
-            tdi.inputs().atmosphere(df=profile(), chem_method='visscher')
+            # the grid chemistry is ported; its photochemistry is not
+            case = tdi.inputs()
+            case.atmosphere(df=profile(), chem_method='visscher',
+                            device='cpu')
+            case.premix_atmosphere_photochem()
         else:
             tdi.inputs(climate=True)

@@ -145,6 +145,24 @@ def test_4d_inputs_equal_jax():
                 np.testing.assert_array_equal(got[key], want[key])
 
 
-def test_netcdf_input_is_not_ported():
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1'):
-        tdi.inputs().atmosphere_3d('gcm.nc')
+def test_netcdf_input_is_not_ported(tmp_path):
+    """NetCDF GCM input is ported now (``ncio``): a path goes through
+    ``ncio.gcm_dict`` to the dict the JAX package stores, and a missing
+    file raises FileNotFoundError instead of NotImplementedError
+    (tests/test_torch_ncio.py holds the rest)."""
+    from picaso_tpu_torch import ncio
+    data = gcm(nlevel=6, nlon=4, nlat=3)
+    path = str(tmp_path / 'gcm.nc')
+    ncio.write_netcdf(path, {k: (('pressure', 'lon', 'lat'), v)
+                             for k, v in data.items()
+                             if k not in ('pressure', 'lat', 'lon')},
+                      coords={k: data[k] for k in ('pressure', 'lon',
+                                                   'lat')})
+    got, want = tdi.inputs(), jdi.inputs()
+    got.atmosphere_3d(path)
+    want.atmosphere_3d(path)
+    for key, val in want.inputs['atmosphere']['profile'].items():
+        np.testing.assert_array_equal(
+            got.inputs['atmosphere']['profile'][key], val)
+    with pytest.raises(FileNotFoundError):
+        tdi.inputs().atmosphere_3d(str(tmp_path / 'missing.nc'))
