@@ -17,12 +17,16 @@ production shape of bench.py's climate modes (91 levels, the 196- and
 spectrum and two phase curves; then retrievals on the same table: the
 samplers (``sampler.nested_sample``, ``ensemble_sample``) over batched
 forwards (``forward_batch``), the TOML driver (``driver.log_likelihood``,
-``driver.run``) and a fit of the bundled WASP-17b spectrum (``ncio``).  It
-goes through the 14 hand-written CUDA kernels, and checks each kernel
-against its plain PyTorch twin, each forward against a float64 oracle, and
-each climate solve against the JAX package's float64 solve
-(tests/climate_reference.json; the climate path runs none of the kernels:
-plain torch).
+``driver.run``) and a fit of the bundled WASP-17b spectrum (``ncio``);
+then the climate modes through the front door (``inputs(climate=True)``
+... ``climate``): disequilibrium chemistry, virga clouds, the moist
+adiabat, energy injection with the spectrum of the result, and the
+virga, ``virga_3d`` and TOML-climate workflows around them.  It goes
+through the 14 hand-written CUDA kernels, and checks each kernel against
+its plain PyTorch twin, each forward against a float64 oracle, and each
+climate solve against the JAX package's float64 solve
+(tests/climate_reference.json, tests/climate_modes_reference.json; the
+climate solve itself runs none of the kernels: plain torch).
 
     python3 chip_smoke.py
 
@@ -163,12 +167,52 @@ Phases (any failure raises, so the exit code is nonzero):
     5000: the models and log-likelihoods f32 on the card against the same
     calls f64 on the CPU (phase 27's gates on transit, thermal and albedo;
     |d log L| <= 1e-3 |log L|)
-34. the card, one JSON line with the climate numbers, one with the front
+34. climate modes through the front door (``justdoit.inputs(calculation=
+    'browndwarf', climate=True)``, ``inputs_climate``, ``climate``) at the
+    production climate shape (91 levels, f64) on the synthetic CK tables
+    with their per-gas tables (``opannection(ck_table=...)``: the f64 table
+    for the solve, its f32 copy for spectra): disequilibrium chemistry
+    with self-consistent Kzz, quenching and resort-rebin mixing, a 900 K T
+    dwarf at 1000 m/s^2 on the 196- and the 661-bin table (it balances),
+    and the 700 K brown dwarf at 100 m/s^2 on the 661-bin table (it blows
+    up, the JAX package's too: ROADMAP Queue 3)
+35. cloudy: 1300 K, virga with Mg2SiO4 and Fe, fsed 2 (the cloud forms;
+    geometric optics) in the loop
+36. moist: 350 K, the moist adiabat
+37. energy injection (a Chapman deposition of 1e5 erg/cm^2/s at 0.1 bar)
+    with ``with_spec``: K6 launched once per gauss point (8) and no other
+    kernel; the spectrum f32 on the card against the same call f64 on the
+    CPU (max rel <= 1e-3, median <= 1e-5).  Phases 34-37 are gated
+    against the JAX package's f64 solves (tests/climate_modes_reference.
+    json, written by tests/climate_modes_record.py): the same converged and
+    cvz_locs, max |dT| <= 2 K, flux balance <= 1e-3 of sigma Teff^4 where
+    the JAX solve converged and balanced, diseq the same quench levels and
+    Kzz within rtol 1e-6 (a finite Kzz and quench levels required), cloudy
+    the column optical depth within rtol 1e-6; the 700 K diseq blow-up
+    alone may end with a NaN Kzz and no quench level, and where its card
+    solve leaves the JAX one after the JAX solve's fluxes went NaN (its
+    ``nan_onset``), the card's profile steps before it within 2 K; each
+    run's wall s, profile steps, Newton iterations, Jacobians, flux
+    evaluations, launches and peak over the bytes alive before it
+38. the workflows around the climate: examples/virga_clouds.py's
+    ``case.virga`` (its brown dwarf, the condensates virga recommends) and
+    a cloudy thermal spectrum on the production table (K1 + K6 once each;
+    the cloud dims the emission), its oracle at nwno 5000 (phase 27's
+    gates); ``virga_3d`` on phase 28's 12 x 8 map with a kz of
+    1e9 cm^2/s and a 36-facet thermal spectrum through its clouds (K1 and
+    K6 36 times each); the TOML driver's climate mode
+    (``driver.setup_climate_class`` given the 196-bin CK connection, then
+    ``case.climate`` as ``driver.run`` calls it) on phase 36's case at 41
+    levels: no kernel launched, gated as phases 34-37 against the JAX
+    driver's f64 solve
+39. the card, one JSON line with the climate numbers, one with the front
     door's (each path's launches, wall times, peaks, oracle and uniform-map
     deviations), one with the retrievals' (launches, rates, host and card
-    times, oracle deviations), one with every kernel's summary (launches on
-    the paths counted above, the front door's and the retrievals' included
-    and also apart, times, max abs error, and the bound: the larger of the
+    times, oracle deviations), one with the climate modes' (per run: wall
+    s, the solve's counts, launches, peak over alive, the gates' numbers),
+    one with every kernel's summary (launches on the paths counted above,
+    the front door's, the retrievals' and the climate modes' included and
+    also apart, times, max abs error, and the bound: the larger of the
     bytes its inputs and outputs need over 3.35 TB/s and the float32
     operations its twin performs on these inputs, counted per aten call,
     over 67 TFLOP/s), then the result line.
@@ -237,6 +281,22 @@ CLIMATE_PARITY_NLEVEL = 41
 CLIMATE_BALANCE = 1e-3       # tests/test_climate.py:97-104
 # the JAX package's f64 solves at 91 levels (tests/climate_f32_record.py)
 CLIMATE_REFERENCE = 'tests/climate_reference.json'
+# the JAX package's f64 solves of the climate modes (phases 34-37;
+# tests/climate_modes_record.py), and the runs held against them
+CLIMATE_MODES_REFERENCE = 'tests/climate_modes_reference.json'
+CLIMATE_MODES = (('diseq_t900_91', 34), ('diseq_t900_661_91', 34),
+                 ('diseq_661_91', 34), ('cloudy_91', 35), ('moist_91', 36),
+                 ('inject_91', 37))
+CLIMATE_MODES_RTOL = 1e-6    # Kzz, column optical depth
+# the 700 K diseq solve at log g 4 blows up in the JAX package (ROADMAP
+# Queue 3: find_strat opens a one-level convective zone, the Newton
+# Jacobian is singular, NaN fluxes and Kzz follow).  The one run that may
+# end with a NaN Kzz and no quench level, and the one whose card solve may
+# leave its record after the JAX solve's NaN onset: then it is held to the
+# record's profile steps before the onset.  Every other diseq run must
+# have a finite Kzz and quench levels, and meets every gate
+CLIMATE_DISEQ_BLOWUP = 'diseq_661_91'
+DRIVER_CLIMATE = 'driver_moist_41'   # the TOML climate mode's record
 # one H100 SXM at its 700 W limit (NVIDIA data sheet): memory rate and
 # float32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -1042,16 +1102,19 @@ def main():
     climate = climate_phases(dev, reset_counts, counts)
     front_door = front_door_phases(dev, grid, reset_counts, counts)
     retrieval = retrieval_phases(dev, grid, reset_counts, counts)
-    for paths in (front_door['launches'], retrieval['launches']):
+    climate_modes = climate_modes_phases(dev, grid, reset_counts, counts)
+    for paths in (front_door['launches'], retrieval['launches'],
+                  climate_modes['launches']):
         for path in paths.values():
             for name, count in path.items():
                 launches[name] += count
 
-    # phase 34: summary
+    # phase 39: summary
     log(smi[0])
     print(json.dumps({'climate': climate}))
     print(json.dumps({'front_door': front_door}))
     print(json.dumps({'retrieval': retrieval}))
+    print(json.dumps({'climate_modes': climate_modes}))
     stats = {
         'interp_tau': dict(max_abs_err=k1_abs, ms=k1_ms,
                            plain_ms=k1_plain_ms, bytes=k1_bytes, ops=k1_ops,
@@ -1088,6 +1151,9 @@ def main():
             'retrieval_launches': sum(
                 path.get(name, 0)
                 for path in retrieval['launches'].values()),
+            'climate_launches': sum(
+                path.get(name, 0)
+                for path in climate_modes['launches'].values()),
             **st, 'bound_ms': bound_ms, 'bound_by': bound_by,
             'bound_share': bound_ms / st['ms'], 'library_ms': None})
     print(json.dumps({'kernels': kernels}))
@@ -1845,6 +1911,355 @@ def profile_scene(pipeline, grid, nlevel=NLEVEL):
         pressure, temperature, mix, grid, gravity=2500.0, radius=7.1492e9,
         mass=1.898e30, cld=cld, rstar=6.96e10)
 
+
+
+# ---------------------------------------------------------------------------
+# the climate modes through the front door: phases 34-38
+# ---------------------------------------------------------------------------
+
+def flux_balance(out, teff):
+    """max |flux_net| / (sigma Teff^4) over the radiative zone, of a
+    climate output or a recorded solve."""
+    from picaso_tpu_torch.climate import core
+    nstr = [int(i) for i in out['cvz_locs']]
+    net = (out['flux_balance']['flux_net'] if 'flux_balance' in out
+           else np.asarray(out['flux_net']))
+    resid = np.asarray(net)[:max(nstr[1], 1)]
+    return float(np.abs(resid).max() / (core.SIGMA_SB * teff ** 4))
+
+
+def host_path_layers(ck, spec, out, dev):
+    """The host-assembled profile step's layers at the solution of the
+    climate output ``out`` (its temperatures, fluxes and zones), each timed
+    alone (host clock to a synchronize, the median of 3; the
+    resort-rebin mix by CUDA events): the chemistry with Kzz and the
+    quench levels (``update_diseq_chem``, the self-consistent Kzz from the
+    solution's fluxes), virga (``update_clouds``), the
+    optics (``build_props_host``: the atmosphere on the host, resort-rebin
+    or premixed kappa, continuum, Rayleigh, clouds) and the resort-rebin
+    mix alone."""
+    from picaso_tpu_torch.climate import api
+    from picaso_tpu_torch.constants import PCONV
+    from picaso_tpu_torch.opacities import resortrebin as rr
+    pressure = np.logspace(-4, 2.5, spec['nlevel'])
+    temp = out['temperature']
+    inputs = api.ClimateInputs(
+        t_eff=spec['teff'], gravity=spec['gravity'] * 100.0,
+        pressure=pressure, guess=temp,
+        nstr=(0, spec['rcb_guess'], spec['nlevel'] - 2, 0, 0, 0),
+        virga_kwargs=spec['virga_kwargs'])
+    st = api.climate_state(inputs, ck, device=dev, verbose=False)
+    st.diseq = spec['diseq_chem']
+    st.last_fluxes = (out['flux_balance']['flux_net_ir'],
+                      out['flux_ir_attop'])
+    st.last_nstr = [int(i) for i in out['cvz_locs']]
+    st.virga_kwargs = dict(spec['virga_kwargs'] or {})
+
+    def host_ms(fn):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times)), out
+
+    layers = {}
+    layers['chemistry_ms'], df = host_ms(
+        lambda: st.update_diseq_chem(temp, pressure) if st.diseq
+        else st.premix(temp, pressure))
+    cld = None
+    if spec['virga_kwargs']:
+        layers['virga_ms'], (cld, _) = host_ms(
+            lambda: st.update_clouds(temp, pressure))
+    layers['optics_ms'], (_, atm) = host_ms(
+        lambda: st.build_props_host(df, cld_df=cld))
+    if st.diseq:
+        a = st.ck.arrays
+        args = (st.ck.per_gas, a.t_inv_grid, a.p_log_grid, a.nc_p,
+                st._tensor(st.ck.gauss_pts), st._tensor(st.ck.gauss_wts),
+                st._tensor(np.stack([0.5 * (df[m][1:] + df[m][:-1])
+                                     for m in st.ck.per_gas_molecules])),
+                st._tensor(atm.t_layer), st._tensor(atm.p_layer / PCONV))
+        layers['resortrebin_ms'] = cuda_ms(
+            lambda: rr.resortrebin_kappa(*args), 3)
+    return layers
+
+
+def climate_modes_phases(dev, grid, reset_counts, counts):
+    """Phases 34-38: every climate mode through the front door at the
+    production climate shape against the JAX package's f64 solves, then
+    the virga, virga_3d and TOML-driver workflows around the climate, with
+    each run's kernel launches counted."""
+    from picaso_tpu_torch import driver, virga
+    from picaso_tpu_torch import justdoit as jdi
+    from picaso_tpu_torch.climate import fused
+    from picaso_tpu_torch.opacities.ck import synthetic_ck_table
+    from picaso_tpu_torch.probes.climate_jacobian import modes_case
+    from picaso_tpu_torch.probes.front_door import facade_case
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           CLIMATE_MODES_REFERENCE)) as f:
+        reference = json.load(f)
+    cpu = torch.device('cpu')
+    summary = {'launches': {}, 'runs': {}}
+    tables = {}
+
+    def connection(table, bins=None):
+        """The front door's CK connection on the card: the f64 per-gas
+        table on the host, for the solve (moved to the card in f64), and
+        its f32 copy on the card for spectra; ``bins`` (stride, stop) takes
+        every stride-th bin below stop, as a recorded case may."""
+        key = (table, tuple(bins or ()))
+        if key not in tables:
+            t0 = time.perf_counter()
+            ck = synthetic_ck_table(grid661=(table == 661), device=cpu,
+                                    with_per_gas=True)
+            if bins:
+                ck = ck.take_bins(slice(None, bins[1], bins[0]))
+            tables[key] = (ck, jdi.opannection(ck_table=ck, device=dev))
+            log(f'[34] {table}-bin CK table with per-gas tables in '
+                f'{time.perf_counter() - t0:.2f} s: per_gas '
+                f'{tuple(ck.per_gas.shape)}')
+        return tables[key]
+
+    def counted_run(label, fn, expected):
+        """fn() with the launch counts set to 0 just before and read just
+        after (each kernel of ``expected`` as often as it says, no other),
+        timed, its peak over the bytes alive before it."""
+        reset_counts()
+        out, wall, peak = timed_call(fn)
+        got = {k: v for k, v in counts().items() if v}
+        log(f'{label}: launches {got}')
+        if got != expected:
+            raise AssertionError(f'{label}: launches {got}, expected '
+                                 f'{expected}')
+        summary['launches'][label] = got
+        return out, wall, peak
+
+    # phases 34-37: the modes against the JAX package's f64 solves
+    for name, phase in CLIMATE_MODES:
+        rec = reference[name]
+        spec = rec['case']
+        ck, opa = connection(spec['table'], spec['slice'])
+        label = f'[{phase}] {name}'
+        solve = fused.ClimateCounts()
+        ngauss = ck.ngauss
+        expected = {'thermal_toon_props': ngauss} if spec['with_spec'] else {}
+        out, wall, peak = counted_run(label, lambda: modes_case(
+            jdi, spec).climate(opa, diseq_chem=spec['diseq_chem'],
+                               with_spec=spec['with_spec'], verbose=False,
+                               counts=solve, save_all_profiles=True),
+            expected)
+        temp = out['temperature']
+        nstr = [int(i) for i in out['cvz_locs']]
+        d_t = float(np.abs(temp - np.asarray(rec['temperature'])).max())
+        numbers = dict(wall_s=wall / 1e3, converged=int(out['converged']),
+                       cvz_locs=nstr, max_dT_to_jax=d_t,
+                       jax_cpu_s=rec['seconds'], peak_bytes_over_alive=peak,
+                       nlevel=len(temp), nwno=ck.nwno,
+                       launches=summary['launches'][label],
+                       **dataclasses.asdict(solve))
+        if name in ('diseq_t900_91', 'cloudy_91'):
+            numbers['layers_ms'] = host_path_layers(ck, spec, out, dev)
+        log(f'{label}: T top {temp[0]:.3f} K, bottom {temp[-1]:.3f} K; '
+            f'JAX: converged {rec["converged"]}, cvz_locs '
+            f'{rec["cvz_locs"]}')
+        if not np.isfinite(temp).all():
+            raise AssertionError(f'{label}: non-finite temperatures')
+        same = ((numbers['converged'], nstr) == (rec['converged'],
+                                                 rec['cvz_locs'])
+                and d_t <= CLIMATE_DT_MAX)
+        if not same and name == CLIMATE_DISEQ_BLOWUP:
+            # the JAX solve's fluxes went NaN at this profile step (a
+            # singular Newton Jacobian); the card is held to the JAX
+            # solve's steps before it
+            onset = rec['nan_onset']
+            steps = np.asarray(out['all_profiles'])[:onset]
+            if len(steps) < onset:
+                raise AssertionError(f'{label}: {len(steps)} profile steps, '
+                                     f'the JAX solve\'s NaN onset at {onset}')
+            d_pre = float(np.abs(steps - np.asarray(
+                rec['all_profiles'])[:onset]).max())
+            log(f'{label}: the JAX solve\'s fluxes went NaN at profile step '
+                f'{onset} (ROADMAP Queue 3); the card\'s steps before it')
+            check(f'{name} max |dT| before the NaN onset (K)', d_pre,
+                  CLIMATE_DT_MAX)
+            numbers['past_jax_nan_onset'] = dict(step=onset,
+                                                 max_dT_before=d_pre)
+            log(f'{label}: {json.dumps(numbers)}')
+            summary['runs'][name] = numbers
+            del out
+            continue
+        if (numbers['converged'], nstr) != (rec['converged'],
+                                            rec['cvz_locs']):
+            raise AssertionError(f'{label}: converged / cvz_locs differ '
+                                 f'from the JAX package\'s')
+        check(f'{name} max |dT| to the JAX package (K)', d_t,
+              CLIMATE_DT_MAX)
+        numbers['flux_balance'] = flux_balance(out, spec['teff'])
+        numbers['jax_flux_balance'] = flux_balance(rec, spec['teff'])
+        log(f'{label}: flux balance {numbers["flux_balance"]:.3e}, the JAX '
+            f'solve\'s {numbers["jax_flux_balance"]:.3e}')
+        if rec['converged'] and numbers['jax_flux_balance'] <= \
+                CLIMATE_BALANCE:
+            check(f'{name} flux balance', numbers['flux_balance'],
+                  CLIMATE_BALANCE)
+        if spec['diseq_chem']:
+            numbers['quench_levels'] = out['quench_levels']
+            if name != CLIMATE_DISEQ_BLOWUP and (
+                    not out['quench_levels']
+                    or not np.isfinite(out['kzz']).all()):
+                raise AssertionError(f'{label}: no quench level or a '
+                                     f'non-finite Kzz')
+            if out['quench_levels'] != rec['quench_levels']:
+                raise AssertionError(f'{label}: quench levels '
+                                     f'{out["quench_levels"]} vs the JAX '
+                                     f'package\'s {rec["quench_levels"]}')
+            kzz, ref = np.asarray(out['kzz'], float), np.asarray(
+                rec['kzz'], float)
+            if not np.array_equal(np.isnan(kzz), np.isnan(ref)):
+                raise AssertionError(f'{label}: Kzz NaN where the JAX '
+                                     f'package\'s is not, or not where it is')
+            ok = ~np.isnan(ref)
+            numbers['kzz_nan_levels'] = int((~ok).sum())
+            numbers['kzz_max_rel'] = float(np.max(np.abs(
+                kzz[ok] / ref[ok] - 1.0), initial=0.0))
+            check(f'{name} Kzz max rel', numbers['kzz_max_rel'],
+                  CLIMATE_MODES_RTOL)
+        if spec['virga_kwargs']:
+            col = np.reshape(np.asarray(out['cld_df']['opd']),
+                             (spec['nlevel'] - 1, -1)).sum(0)
+            ref = np.asarray(rec['column_opd'])
+            numbers['column_opd_max'] = float(col.max())
+            numbers['column_opd_max_rel'] = float(
+                np.max(np.abs(col - ref)) / np.abs(ref).max())
+            if not col.max() > 0:
+                raise AssertionError(f'{label}: no cloud formed')
+            check(f'{name} column OPD max rel',
+                  numbers['column_opd_max_rel'], CLIMATE_MODES_RTOL)
+        if spec['with_spec']:
+            # the same spectrum call, f64 on the CPU
+            o_cpu = jdi.opannection(ck_table=ck, device=cpu)
+            c_cpu = modes_case(jdi, spec)
+            c_cpu.atmosphere(df=out['ptchem_df'])
+            ref = c_cpu.spectrum(o_cpu, calculation='thermal',
+                                 full_output=True)
+            mx, med = rel_stats(torch.as_tensor(
+                np.asarray(out['spectrum_output']['thermal'])),
+                torch.as_tensor(np.asarray(ref['thermal'])))
+            log(f'{label}: with_spec thermal, f32 card vs f64 CPU')
+            check('with_spec thermal max rel', mx, TOL['spectrum_max_rel'])
+            check('with_spec thermal median rel', med,
+                  TOL['spectrum_median_rel'])
+            numbers['spectrum_vs_cpu'] = [mx, med]
+        log(f'{label}: {json.dumps(numbers)}')
+        summary['runs'][name] = numbers
+        del out
+
+    # phase 38: virga, virga_3d and the TOML climate mode
+    opa = jdi.Opacity(grid.wno, grid=grid)
+
+    def virga_case(o):
+        """examples/virga_clouds.py's brown dwarf (300 m/s^2, the bundled
+        brown-dwarf profile)."""
+        case = jdi.inputs(calculation='brown')
+        case.phase_angle(0)
+        case.gravity(gravity=300.0, gravity_unit=jdi.u.Unit('m/(s**2)'))
+        case.setup_nostar()
+        case.atmosphere(filename=jdi.brown_dwarf_pt(), sep=r'\s+')
+        return case
+
+    prof = virga_case(opa).inputs['atmosphere']['profile']
+    gases = virga.recommend_gas(prof['pressure'], prof['temperature'],
+                                mh=1.0, mmw=2.2)
+    picks = [g for g in ('MgSiO3', 'Fe', 'H2O') if g in gases][:2] or \
+        gases[:2]
+
+    def cloudy_1d(o):
+        case = virga_case(o)
+        case.virga(picks, fsed=2.0, mh=1.0, kz_min=1e9)
+        return case.spectrum(o, calculation='thermal')
+
+    out, wall, peak = counted_run(
+        f'[38] virga {picks} + cloudy thermal spectrum', lambda: cloudy_1d(
+            opa), {'interp_tau': 1, 'thermal_toon_props': 1})
+    check_finite('[38] cloudy 1D', out, ('thermal',))
+    clear = virga_case(opa).spectrum(opa, calculation='thermal')
+    ratio = float(np.sum(out['thermal']) / np.sum(clear['thermal']))
+    log(f'[38] virga {picks}: wall {wall:.1f} ms, peak {peak} bytes over '
+        f'alive, cloudy / clear bolometric thermal {ratio:.4f}')
+    if not ratio < 1.0:
+        raise AssertionError('[38] the cloud does not dim the emission')
+    o_card, o_cpu = oracle_connections(jdi, dev)
+    summary['virga_1d'] = dict(
+        condensates=picks, wall_ms=wall, peak_bytes_over_alive=peak,
+        cloudy_over_clear=ratio,
+        oracle=check_oracle('[38] cloudy 1D thermal', cloudy_1d(o_card),
+                            cloudy_1d(o_cpu), ('thermal',)))
+    del out, clear, o_card, o_cpu
+
+    nfacet = 36
+
+    def cloudy_3d():
+        case = facade_case(opa, disk=(6, 6), atmosphere='3d')
+        data = case.inputs['atmosphere']['profile']
+        data['kz'] = np.zeros_like(np.asarray(data['temperature'])) + 1e9
+        t0 = time.perf_counter()
+        case.virga_3d(picks, fsed=2.0)
+        host = time.perf_counter() - t0
+        return case.spectrum(opa, calculation='thermal',
+                             dimension='3d'), host, case
+    (out3, host3, case3), wall3, peak3 = counted_run(
+        '[38] virga_3d (12 x 8 columns) + 36-facet thermal spectrum',
+        cloudy_3d, {'interp_tau': nfacet, 'thermal_toon_props': nfacet})
+    check_finite('[38] cloudy 3D', out3, ('thermal',))
+    cld = case3.inputs['clouds']['profile']
+    if not (np.isfinite(cld['opd']).all() and cld['opd'].max() > 0):
+        raise AssertionError('[38] virga_3d: no finite cloud formed')
+    log(f'[38] virga_3d: {cld["opd"].shape} opd, {host3:.2f} s on the '
+        f'host; with the spectrum {wall3:.1f} ms, peak {peak3} bytes')
+    summary['virga_3d'] = dict(opd_shape=list(cld['opd'].shape),
+                               virga_s=host3, wall_ms=wall3,
+                               peak_bytes_over_alive=peak3)
+    del out3, case3, cld
+
+    rec = reference[DRIVER_CLIMATE]
+    config = rec['case']['config']
+    _, opa196 = connection(196)
+    solve = fused.ClimateCounts()
+
+    def toml_climate():
+        case, o = driver.setup_climate_class(config, opa=opa196)
+        return case.climate(o, verbose=False, counts=solve,
+                            **config['climate']['run_kwargs'])
+    label = f'[38] TOML climate mode ({DRIVER_CLIMATE})'
+    out, wall, peak = counted_run(label, toml_climate, {})
+    temp = out['temperature']
+    nstr = [int(i) for i in out['cvz_locs']]
+    d_t = float(np.abs(temp - np.asarray(rec['temperature'])).max())
+    teff = config['climate']['teff']
+    numbers = dict(wall_s=wall / 1e3, converged=int(out['converged']),
+                   cvz_locs=nstr, max_dT_to_jax=d_t,
+                   jax_cpu_s=rec['seconds'], peak_bytes_over_alive=peak,
+                   flux_balance=flux_balance(out, teff),
+                   jax_flux_balance=flux_balance(rec, teff),
+                   **dataclasses.asdict(solve))
+    log(f'{label}: {json.dumps(numbers)}; JAX: converged '
+        f'{rec["converged"]}, cvz_locs {rec["cvz_locs"]}')
+    if not np.isfinite(temp).all():
+        raise AssertionError(f'{label}: non-finite temperatures')
+    if (numbers['converged'], nstr) != (rec['converged'], rec['cvz_locs']):
+        raise AssertionError(f'{label}: converged / cvz_locs differ from '
+                             f'the JAX driver\'s')
+    check('TOML climate max |dT| to the JAX driver (K)', d_t,
+          CLIMATE_DT_MAX)
+    if rec['converged'] and numbers['jax_flux_balance'] <= CLIMATE_BALANCE:
+        check('TOML climate flux balance', numbers['flux_balance'],
+              CLIMATE_BALANCE)
+    summary['toml_climate'] = numbers
+    return summary
 
 if __name__ == '__main__':
     sys.exit(main())

@@ -10,7 +10,7 @@ climate.py:1687-1952 ``get_fluxes``, :1122-1152 the adiabat re-stitch):
   the columns of the Toon solves are (perturbation, gauss, wavenumber);
 * the convective-zone bookkeeping (``zone_maps``) is host numpy, so the
   profile reconstruction loops over the convective levels alone, with the
-  JAX scan's arithmetic per level.
+  JAX scan's arithmetic per level, on the dry or the moist adiabat.
 
 The host Newton solver ``t_start`` (and its ``_jacobian``, ``_apply_step``,
 ``_flux_state``) waits (ROADMAP Queue 1): ``run_climate`` does not use it.
@@ -27,6 +27,7 @@ from .. import disco as disco_mod
 from ..optics import RTProps
 from ..rt import toon
 from .adiabat import AdiabatGrid, did_grad, pressure_cells
+from .moist import moist_grad_from_dry
 
 __all__ = ['SIGMA_SB', 'ClimateGeometry', 'make_climate_geometry',
            'chapman', 'tidal_flux', 'ZoneMaps', 'zone_maps',
@@ -140,16 +141,17 @@ def zone_maps(nstr, nofczns, nlevel) -> ZoneMaps:
 
 
 def reconstruct_profile(beta, zones: ZoneMaps, plevel, adiabat: AdiabatGrid,
-                        pconv=1e6):
-    """Radiative levels take beta; convective levels follow the dry
-    adiabat: t[j] = exp(ln t[j-1] + grad(t[j-1], sqrt(p[j-1] p[j])) dlnp)
+                        pconv=1e6, moist_args=None):
+    """Radiative levels take beta; convective levels follow the adiabat:
+    t[j] = exp(ln t[j-1] + grad(t[j-1], sqrt(p[j-1] p[j])) dlnp)
     (climate.py:1122-1152).
 
     beta is [nlevel] or [P, nlevel] (P profiles at once).  The JAX scan
     visits every level and selects; the levels outside the zones keep
     beta there, so this loops over the convective levels alone, with the
-    scan's arithmetic at each.  The moist adiabat (``moist_args``) waits
-    (ROADMAP Queue 1).
+    scan's arithmetic at each.  With ``moist_args = (cond_abunds [nlayer,
+    ncond], condensables, weights)`` the gradient is the moist adiabat at
+    the layer's condensable row (climate.py:1147-1150).
     """
     p_bar = plevel / pconv
     p_mid = torch.sqrt(p_bar[:-1] * p_bar[1:])
@@ -157,11 +159,17 @@ def reconstruct_profile(beta, zones: ZoneMaps, plevel, adiabat: AdiabatGrid,
     # per-layer views, taken once (each index would be a dispatch)
     pos_p, factkp = (x.unbind(0) for x in pressure_cells(p_mid, adiabat))
     dlnp = dlnp.unbind(0)
+    if moist_args is not None:
+        cond_abunds, condensables, weights = moist_args
+        cond_rows = cond_abunds.unbind(0)
     t = beta.reshape(-1, beta.shape[-1]).clone()
     cols = t.T.unbind(0)
     for j in np.flatnonzero(zones.is_conv[1:]) + 1:
         t_prev = cols[j - 1]
         grad_x = did_grad(t_prev, (pos_p[j - 1], factkp[j - 1]), adiabat)
+        if moist_args is not None:
+            grad_x = moist_grad_from_dry(t_prev, grad_x, cond_rows[j - 1],
+                                         condensables, weights)
         cols[j].copy_(torch.exp(torch.log(t_prev) + grad_x * dlnp[j - 1]))
     return t.reshape(beta.shape)
 

@@ -16,7 +16,10 @@ one, so the chunk size changes no number.  The padded columns of the JAX program
 
 All reference numerics preserved, including the deliberate quirks: the
 compounding non-EGP ``step_max`` (climate.py:907, :1082), the NaN rescue
-(:1523-1527).  The moist adiabat waits (ROADMAP Queue 1).
+(:1523-1527).  With ``config.moist`` the adiabat re-stitch follows the
+moist adiabat at ``data.cond_abunds`` (held fixed through a Newton solve;
+``profile_step`` refreshes it from the chemistry at the incoming
+structure).
 """
 
 from __future__ import annotations
@@ -54,6 +57,9 @@ class ClimateConfig:
     delta_eddington: bool = True
     stream: int = 2
     compute_reflected: bool = True
+    moist: bool = False
+    condensables: tuple = ()
+    cond_weights: tuple = ()
     alf: float = 1e-4
     tolmin: float = 1e-5
     tolf: float = 5e-3
@@ -65,8 +71,10 @@ class ClimateConfig:
 
 
 class ClimateData(NamedTuple):
-    """Per-run arrays and scalars (cloud-free: the cloudy mode and its
-    cloud arrays wait, ROADMAP Queue 1)."""
+    """Per-run arrays and scalars.  The cloud arrays (None: cloud-free) are
+    what ``build_opacities`` combines; the cloudy mode builds its optics on
+    the host instead (``api._ClimateState.build_props_host``), as in the
+    JAX package."""
     plevel: torch.Tensor           # [nlevel] dyne/cm^2
     gravity: float                 # cm/s^2
     tidal: torch.Tensor            # [nlevel]
@@ -79,6 +87,10 @@ class ClimateData(NamedTuple):
     sigma_ray: torch.Tensor        # [nray, nwno]
     it_max: int = 10               # Newton-iteration cap
     egp_stepmax: bool = False      # step-max rule
+    cld_opd: Optional[torch.Tensor] = None   # [nlayer, nwno]
+    cld_g0: Optional[torch.Tensor] = None
+    cld_w0: Optional[torch.Tensor] = None
+    cond_abunds: Optional[torch.Tensor] = None  # [nlayer, ncond]: moist
 
 
 @dataclasses.dataclass
@@ -144,11 +156,13 @@ def build_opacities(temp, data: ClimateData, chem: ChemGrid, ck: CKArrays,
         tauray = torch.zeros((nlayer, nwno), dtype=temp.dtype,
                              device=temp.device)
     shape = (ngauss, nlayer, nwno)
-    cloud = torch.zeros((), dtype=temp.dtype, device=temp.device).expand(
+    zero = torch.zeros((), dtype=temp.dtype, device=temp.device).expand(
         shape)
+    opd, w0, g0 = (zero if x is None else x[None].expand(shape)
+                   for x in (data.cld_opd, data.cld_w0, data.cld_g0))
     rf = torch.full(shape, 0.99999, dtype=taugas.dtype, device=temp.device)
-    return combine_optics(taugas, tauray[None].expand(shape), cloud, cloud,
-                          cloud, rf, test_mode=None,
+    return combine_optics(taugas, tauray[None].expand(shape), opd, w0,
+                          g0, rf, test_mode=None,
                           delta_eddington=config.delta_eddington,
                           stream=config.stream)
 
@@ -161,6 +175,11 @@ def _device_zones(zones: ZoneMaps, device):
         resid_level=torch.as_tensor(zones.resid_level, device=device).long(),
         resid_is_level=torch.as_tensor(zones.resid_is_level,
                                        device=device).bool())
+
+
+def _moist_args(data: ClimateData, config: ClimateConfig):
+    return ((data.cond_abunds, config.condensables, config.cond_weights)
+            if config.moist else None)
 
 
 def _ir_fluxes(temp, props, data, geom, ck, counts):
@@ -192,7 +211,8 @@ def jacobian(beta, temp_old, fni_old, fnil_old, props, zones: ZoneMaps,
         del_t = torch.clamp(1e-4 * temp_old[jm], min=3.0)
         beta_p = beta.expand(stop - start, nlevel).clone()
         beta_p[rows, jm] = beta_p[rows, jm] + del_t
-        temp_p = reconstruct_profile(beta_p, zones, data.plevel, adiabat)
+        temp_p = reconstruct_profile(beta_p, zones, data.plevel, adiabat,
+                                     moist_args=_moist_args(data, config))
         fni, fnil, _ = _ir_fluxes(temp_p, props, data, geom, ck, counts)
         dlev = fni[:, rl] - fni_old[rl]
         dmid = fnil[:, rl] - fnil_old[rl]
@@ -202,13 +222,14 @@ def jacobian(beta, temp_old, fni_old, fnil_old, props, zones: ZoneMaps,
 
 
 def _apply_step(beta, p_step, alam, zones: ZoneMaps, data: ClimateData,
-                adiabat: AdiabatGrid):
+                adiabat: AdiabatGrid, config: ClimateConfig):
     """temp_rad = beta + alam*p on the perturbed levels, the adiabat
     re-stitch, the tmin/tmax clamp (climate.py:1364-1392)."""
     n = zones.n_total
     add = torch.zeros_like(beta).index_add_(
         0, zones.pert_levels[:n], p_step[:n] * float(alam))
-    t = reconstruct_profile(beta + add, zones, data.plevel, adiabat)
+    t = reconstruct_profile(beta + add, zones, data.plevel, adiabat,
+                            moist_args=_moist_args(data, config))
     return torch.clamp(t, data.tmin + 0.1, data.tmax - 0.1)
 
 
@@ -328,7 +349,8 @@ def newton_solve(temp, props, zones: ZoneMaps, data: ClimateData,
         alam, alam2, f2 = np.float64(1.0), np.float64(0.0), f_old
         den_floor = 0.5 * n_total
         while flag == 0:
-            t_try = _apply_step(temp_old, p_step, alam, zones, data, adiabat)
+            t_try = _apply_step(temp_old, p_step, alam, zones, data, adiabat,
+                                config)
             fni_n, fnil_n, fpit_n = _ir_fluxes(t_try, props, data, geom, ck,
                                                counts)
             f_vec_n = residual(fni_n, fnil_n)
@@ -377,7 +399,16 @@ def profile_step(temp, zones: ZoneMaps, data: ClimateData, chem: ChemGrid,
     flux_net_v_layer, flux_plus_ir_top)."""
     if counts is not None:
         counts.profile_steps += 1
-    temp = reconstruct_profile(temp, zones, data.plevel, adiabat)
+    if config.moist:
+        # the condensable abundances at the incoming structure feed the
+        # moist adiabat, held fixed through the Newton solve
+        # (climate.py:3038-3054)
+        mix_level = chem_interp(chem, temp, data.plevel / PCONV)
+        mix_layer = 0.5 * (mix_level[1:] + mix_level[:-1])
+        cols = [chem.species.index(c) for c in config.condensables]
+        data = data._replace(cond_abunds=mix_layer[:, cols])
+    temp = reconstruct_profile(temp, zones, data.plevel, adiabat,
+                               moist_args=_moist_args(data, config))
     props = build_opacities(temp, data, chem, ck, config)
     temp_new, converged, fnil, fnvl, fpit = newton_solve(
         temp, props, zones, data, geom, ck, adiabat, config, counts)

@@ -61,13 +61,16 @@ def scene_from_numpy(arrays, device='cuda', dtype=None) -> SceneTensors:
 
 
 def ck_table_from_numpy(arrays, molecules, full_abunds, gauss_pts, temps,
-                        pressures, device='cuda', dtype=None) -> CKTable:
+                        pressures, device='cuda', dtype=None, per_gas=None,
+                        per_gas_molecules=None) -> CKTable:
     """CKTable from numpy arrays.
 
     ``arrays`` holds the CKArrays fields (wno, delta_wno, gauss_wts,
     ln_kappa, p_log_grid, t_inv_grid, nc_p, cont_opa, cia_temps) and
     continuum_molecules; ``full_abunds`` maps column name -> numpy array
-    (a pandas frame's columns, in order).
+    (a pandas frame's columns, in order); ``per_gas`` [ngas, npress,
+    ntemp, nwno, ngauss], optional, the per-gas tables of
+    ``per_gas_molecules``.
     """
     device = checked_device(device)
     dtype = default_dtype(device) if dtype is None else dtype
@@ -76,7 +79,10 @@ def ck_table_from_numpy(arrays, molecules, full_abunds, gauss_pts, temps,
                   tuple(arrays['continuum_molecules']))
     return CKTable(ck, molecules, full_abunds, gauss_pts, temps, pressures,
                    wno=arrays['wno'], delta_wno=arrays['delta_wno'],
-                   gauss_wts=arrays['gauss_wts'])
+                   gauss_wts=arrays['gauss_wts'],
+                   per_gas=(None if per_gas is None else _tensor(
+                       'per_gas', per_gas, device, dtype)),
+                   per_gas_molecules=per_gas_molecules)
 
 
 def chem_grid_from_numpy(arrays, species, device='cuda',

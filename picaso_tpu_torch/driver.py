@@ -11,8 +11,11 @@ opacity connection's device, which ``run`` builds once (``device=``, the
 card unless the caller asks for the CPU).  Tables are read with numpy: the
 observation CSV by header name, profile files as whitespace tables.
 
-Not ported: ``calc_type='climate'`` / ``setup_climate_class`` (the climate
-glue, ROADMAP Queue 1 item 7.5) and ``viz`` (the plots, item 8.2).
+``calc_type='climate'`` (``setup_climate_class``) builds a climate case
+from the TOML and ``run`` solves it with the front door's ``climate``.
+Without a connection it opens ``[OpticalProperties] ck_db`` through
+``opannection``, whose CK loaders are not ported yet (ROADMAP Queue 1 item
+4.7): it raises there.  Not ported: ``viz`` (the plots, item 8.2).
 """
 
 from __future__ import annotations
@@ -329,8 +332,8 @@ def run(toml_input, data=None, sampler='nested', nlive=100, nsteps=300,
 
     calc_type='spectrum' -> returns (case, out_dict);
     calc_type='retrieval' -> returns sampler results (data can be passed
-    directly as (wlgrid_micron, y, e) instead of via [InputOutput]).
-    calc_type='climate' is not ported.
+    directly as (wlgrid_micron, y, e) instead of via [InputOutput]);
+    calc_type='climate' -> returns (case, the climate output).
     """
     config = load_toml(toml_input)
     calc_type = config.get('calc_type', 'spectrum')
@@ -342,7 +345,11 @@ def run(toml_input, data=None, sampler='nested', nlive=100, nsteps=300,
         return case, out
 
     if calc_type == 'climate':
-        return setup_climate_class(config)
+        case, opa = setup_climate_class(config, device=device)
+        out = case.climate(opa, verbose=verbose,
+                           **config.get('climate', {}).get('run_kwargs',
+                                                           {}))
+        return case, out
 
     # retrieval
     if data is None:
@@ -390,9 +397,99 @@ def run(toml_input, data=None, sampler='nested', nlive=100, nsteps=300,
     return res
 
 
-def setup_climate_class(config, opa=None):
-    raise _not_ported("the TOML climate mode (calc_type='climate', "
-                      'setup_climate_class)', 'item 7.5')
+def setup_climate_class(config, opa=None, device='cuda'):
+    """Build (case, opa) for a TOML climate run (driver.py:316-405 of the
+    JAX package):
+
+    .. code-block:: toml
+
+        calc_type = 'climate'
+        [OpticalProperties]
+        ck_db = '/path/to/premixed.hdf5'    # or 'legacy_dir/ascii_data'
+        opacity_method = 'preweighted'       # or 'resortrebin'
+        [object]
+        gravity = {value = 100.0, unit = 'm/(s**2)'}
+        [climate]
+        teff = 700.0
+        nlevel = 91
+        logp_top = -4.0      # log10 bar
+        logp_bottom = 2.5
+        rcb_guess = 71       # initial radiative-convective boundary index
+        rfacv = 0.0          # stellar-flux weight (0 = isolated object)
+        temp_guess = [..]    # optional explicit T(P) guess [nlevel]
+        moistgrad = false
+        virga = {condensates = ['Mg2SiO4'], fsed = 2.0}   # optional
+        [climate.run_kwargs]
+        diseq_chem = false
+
+    ``opa``, a CK connection, is used as given; without it the connection
+    is opened from [OpticalProperties] on ``device``
+    (``opannection(ck_db=...)``, which raises until the CK loaders are
+    ported, ROADMAP Queue 1 item 4.7).
+    """
+    cl = config.get('climate', {})
+    if opa is None:
+        op = config.get('OpticalProperties', {})
+        opa = jdi.opannection(
+            ck_db=op.get('ck_db'),
+            method=op.get('opacity_method', 'preweighted'),
+            wave_range=op.get('wave_range'), device=device,
+            **op.get('opacity_kwargs', {}))
+
+    case = jdi.inputs(calculation=config.get('object_type', 'browndwarf'),
+                      climate=True)
+    case.phase_angle(float(_value(config.get('geometry',
+                                             {}).get('phase', 0.0))))
+    obj = config.get('object', {})
+    if 'radius' in obj and 'mass' in obj:
+        case.gravity(radius=obj['radius']['value'],
+                     radius_unit=u.Unit(obj['radius']['unit']),
+                     mass=obj['mass']['value'],
+                     mass_unit=u.Unit(obj['mass']['unit']))
+    elif 'gravity' in obj:
+        case.gravity(gravity=obj['gravity']['value'],
+                     gravity_unit=u.Unit(obj['gravity']['unit']))
+    else:
+        raise ValueError('[object] needs gravity or radius+mass')
+    case.effective_temp(float(_value(cl.get('teff', 1000.0))))
+
+    if config.get('irradiated', False) and 'star' in config:
+        star = config['star']
+        g = star.get('grid', {})
+        kw = {}
+        if 'radius' in star:
+            kw.update(radius=star['radius']['value'],
+                      radius_unit=u.Unit(star['radius']['unit']))
+        if 'semi_major' in star:
+            kw.update(semi_major=star['semi_major']['value'],
+                      semi_major_unit=u.Unit(star['semi_major']['unit']))
+        case.star(opa, g.get('teff', 5700), g.get('feh', 0.0),
+                  g.get('logg', 4.5), **kw)
+    else:
+        case.setup_nostar()
+    case.setup_climate()
+
+    nlevel = int(cl.get('nlevel', 91))
+    pressure = np.logspace(float(cl.get('logp_top', -4.0)),
+                           float(cl.get('logp_bottom', 2.5)), nlevel)
+    teff = float(_value(cl.get('teff', 1000.0)))
+    if 'temp_guess' in cl:
+        guess = np.asarray(cl['temp_guess'], float)
+        if len(guess) != nlevel:
+            raise ValueError('temp_guess length must equal nlevel')
+    else:
+        guess = np.clip(teff * 1.2 * (pressure / 30.0) ** 0.1,
+                        max(0.25 * teff, 100.0), None)
+    case.inputs_climate(
+        temp_guess=guess, pressure=pressure,
+        rcb_guess=int(cl.get('rcb_guess', nlevel - 20)),
+        rfacv=float(cl.get('rfacv', 0.0)),
+        rfaci=float(cl.get('rfaci', 1.0)),
+        moistgrad=bool(cl.get('moistgrad', False)))
+    if cl.get('virga'):
+        case.inputs['climate']['cloudy'] = True
+        case.inputs['climate']['virga_kwargs'] = dict(cl['virga'])
+    return case, opa
 
 
 def viz(case, out, savefile=None):

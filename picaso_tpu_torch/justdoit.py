@@ -47,10 +47,17 @@ device: the connection's for the premixed table, else ``device=`` (the
 card unless the caller asks for the CPU).  The grid files are read with
 numpy.
 
-Not ported yet (ROADMAP Queue 1, the front door's remaining list): the
-Sonora profiles and photochemistry, virga, ``find_kzz`` and the quench
-adjustments, the climate glue, ``get_contribution``, the evolution tracks
-and planet catalogue, and the unit and xarray converters.
+The climate glue (``inputs(climate=True)``, ``inputs_climate``,
+``energy_injection``, ``interpret_run``, ``climate`` over
+``climate.api.run_climate``, the star's climate binning), the clouds from
+microphysics (``virga``, ``virga_3d`` over ``virga.py``, host numpy) and
+the disequilibrium adjustments of a profile (``find_kzz``,
+``adjust_quench_chemistry``, ``volatile_rainout``, ``cold_trap`` over
+``chemistry.py``) are ported; a CK connection may carry per-gas tables
+(resort-rebin).  Not ported yet (ROADMAP Queue 1, the front door's
+remaining list): loading CK files (``ck_db``), the Sonora profiles and
+photochemistry, ``get_contribution``, the evolution tracks and planet
+catalogue, and the unit and xarray converters.
 """
 
 from __future__ import annotations
@@ -61,7 +68,7 @@ import os
 import numpy as np
 import torch
 
-from . import checked_device, default_dtype
+from . import checked_device, chemistry, default_dtype
 from . import disco as disco_mod
 from . import raman as raman_mod
 from . import rayleigh as rayleigh_mod
@@ -195,6 +202,9 @@ class Opacity:
         self.raman_stellar_shifts = None
         if ck is not None:
             self.delta_wno = np.asarray(ck.delta_wno)
+        # the CK table the climate solve reads (opannection keeps the one
+        # it was given: its spectra's copy may be float32)
+        self.climate_ck = ck
 
     def tensor(self, x, dtype=None):
         """``x`` (numpy or a scalar) as a tensor on the connection's
@@ -255,9 +265,12 @@ def opannection(wave_range=None, filename_db=None, raman_db=None,
         ``$picaso_refdata/opacities/opacities.db`` where present.
     wno_grid : an analytic connection on this wavenumber grid, no
         molecular table (test modes, user cross sections).
-    ck_table : a premixed ``CKTable`` ('preweighted'); moved to ``device``
-        if it lies elsewhere.  Loading one from ``ck_db`` and the per-gas
-        tables ('resortrebin') are not ported.
+    ck_table : a ``CKTable`` ('preweighted'; with per-gas tables,
+        'resortrebin'), moved to ``device`` in its dtype (float32 on the
+        card) if it lies elsewhere, for the spectra; the climate solve
+        (:meth:`inputs.climate`) takes the table as given
+        (``Opacity.climate_ck``), in float64 by default.  Loading one from
+        ``ck_db`` (``load_ck_db``) is not ported.
     blocked : 'int16' attaches the int16 table, which the spectra then
         gather from (K8); True or 'f32' keep the float table (K1's layout).
     """
@@ -274,18 +287,22 @@ def opannection(wave_range=None, filename_db=None, raman_db=None,
             wno = wno[sel]
         return Opacity(wno, grid=None, raman_db=raman_table, device=device)
 
-    if method == 'resortrebin':
-        raise _not_ported('per-gas CK tables (resortrebin)', 'item 4.2')
-    if ck_table is not None or method == 'preweighted':
+    if ck_table is not None or method in ('preweighted', 'resortrebin'):
         if ck_table is None:
             raise _not_ported('loading a CK table from ck_db (load_ck_db)',
                               'item 4.7')
+        if method == 'resortrebin' and ck_table.per_gas is None:
+            raise ValueError("method='resortrebin' needs a CK table with "
+                             'per-gas tables')
+        source = ck_table
         if ck_table.arrays.wno.device != device:
             ck_table = ck_table.to(device, default_dtype(device))
-        return Opacity(ck_table.wno, grid=None, raman_db=raman_table,
-                       ngauss=ck_table.ngauss,
-                       gauss_wts=np.asarray(ck_table.gauss_wts),
-                       ck=ck_table, device=device)
+        opa = Opacity(ck_table.wno, grid=None, raman_db=raman_table,
+                      ngauss=ck_table.ngauss,
+                      gauss_wts=np.asarray(ck_table.gauss_wts),
+                      ck=ck_table, device=device)
+        opa.climate_ck = source
+        return opa
 
     if filename_db is None:
         try:
@@ -347,13 +364,12 @@ class inputs:
     (justdoit.py:1421)."""
 
     def __init__(self, calculation='planet', climate=False):
-        if climate:
-            raise _not_ported('the climate set-up (inputs(climate=True), '
-                              'inputs_climate, climate)', '(the climate glue)')
         self.inputs = load_default_config()
         self.inputs['phase_angle'] = None
         if 'brown' in calculation:
             self.setup_nostar()
+        if climate:
+            self.setup_climate()
 
     # -- geometry ----------------------------------------------------------
     def phase_angle(self, phase=0, num_gangle=10, num_tangle=1,
@@ -419,11 +435,13 @@ class inputs:
         (justdoit.py:301-396 of the JAX package): a two-column file,
         explicit (wno, flux) arrays, a CDBS grid ('phoenix', 'ck04models',
         read by ``stellar.py``) or a blackbody at ``temp``.  Flux values
-        are per wavelength [erg/cm^2/s/cm].  The climate runs' bin
-        integration waits with the climate glue."""
+        are per wavelength [erg/cm^2/s/cm].  A climate case bin-integrates
+        the flux by trapezoids (justdoit.py:360-377 of the JAX package)."""
         r = u.to_cgs(radius, radius_unit) if radius is not None else np.nan
         sa = (u.to_cgs(semi_major, semi_major_unit)
               if semi_major is not None else np.nan)
+        if np.isnan(sa) and 'climate' in str(self.inputs.get('calculation')):
+            raise ValueError('climate runs need star semi_major + unit')
 
         if filename is not None:
             star = np.genfromtxt(filename, dtype=(float, float), names='w, f')
@@ -457,6 +475,9 @@ class inputs:
             fine_flux = np.interp(fine_wno, wno_star, flux_star)
             opannection.compute_stellar_shifts(fine_wno, fine_flux)
             bin_flux = opannection.unshifted_stellar_spec
+        elif 'climate' in str(self.inputs.get('calculation')):
+            bin_flux = _climate_bin_flux(wno_planet, wno_star, flux_star)
+            opannection.unshifted_stellar_spec = bin_flux
         else:
             interp_flux = np.interp(wno_planet, wno_star, flux_star)
             _, bin_flux = mean_regrid(wno_star, flux_star, newx=wno_planet)
@@ -667,8 +688,35 @@ class inputs:
         raise _not_ported('the Sonora Bobcat profiles (sonora_profile)',
                           'item 7.2')
 
-    def find_kzz(self, *args, **kwargs):
-        raise _not_ported('find_kzz', 'item 7.4')
+    def find_kzz(self):
+        """The active Kzz profile: the self-consistent one, the constant
+        one, else the profile's 'kz' column, else None
+        (``chemistry.find_kzz``)."""
+        return chemistry.find_kzz(self.inputs['atmosphere'])
+
+    # -- disequilibrium chemistry adjustments (justdoit.py:904-991 of the
+    #    JAX package; chemistry.py holds them) ------------------------------
+    def adjust_quench_chemistry(self, quench_levels, chemistry_table=None,
+                                kinetic_CO2=True):
+        """Freeze quenched species above their quench level, conserving
+        the total through H2, with the kinetic CO2."""
+        self.inputs['atmosphere']['profile'] = \
+            chemistry.adjust_quench_chemistry(
+                self.inputs['atmosphere']['profile'], quench_levels,
+                kinetic_CO2=kinetic_CO2)
+
+    def volatile_rainout(self, quench_levels,
+                         species_to_consider=('H2O', 'CH4', 'NH3')):
+        """Cap quenched volatiles at their saturation vapour pressure."""
+        self.inputs['atmosphere']['profile'] = chemistry.volatile_rainout(
+            self.inputs['atmosphere']['profile'], quench_levels,
+            species_to_consider)
+
+    def cold_trap(self, species_to_consider=('H2O', 'CH4', 'NH3')):
+        """Non-increasing condensible abundances above the condensation
+        level."""
+        self.inputs['atmosphere']['profile'] = chemistry.cold_trap(
+            self.inputs['atmosphere']['profile'], species_to_consider)
 
     def chemistry_handler(self, chemistry_table=None, device='cuda'):
         """Dispatch equilibrium chemistry from
@@ -921,6 +969,230 @@ class inputs:
             albedo = np.interp(wavenumber, old_wavenumber, albedo)
         self.inputs['surface_reflect'] = np.asarray(albedo)
 
+    # -- clouds from microphysics (justdoit.py:793-888 of the JAX package) --
+    def virga(self, condensates, directory=None, fsed=1.0, b=1.0, eps=1e-2,
+              param='const', mh=1.0, mmw=2.2, sig=2.0, kz_min=1e5,
+              supsat=0, gas_mmr=None, Teff=None, alpha_pressure=None,
+              do_virtual=False, full_output=False, solver='eddysed',
+              **kwargs):
+        """Run the cloud microphysics (``virga.py``, the AM01
+        eddy-sedimentation solver; ``directory`` holds virga .mieff files
+        for Mie optics, else geometric optics) on the 1D profile and attach
+        the cloud (:meth:`clouds`).  ``param``/``b``/``eps`` select the
+        variable-fsed profile, ``do_virtual`` the below-grid virtual cloud,
+        ``solver='analytic'`` the closed-form balance.  Returns the cloud
+        table (a dict of columns), or virga's output with
+        ``full_output``."""
+        from . import virga as vj
+        atmo = vj.Atmosphere(condensates, fsed=fsed, b=b, eps=eps,
+                             param=param, mh=mh, mmw=mmw, sig=sig,
+                             supsat=supsat, gas_mmr=gas_mmr, **kwargs)
+        atmo.gravity = self.inputs['planet']['gravity']
+        atmo.ptk(df=self.inputs['atmosphere']['profile'], kz_min=kz_min,
+                 Teff=Teff, alpha_pressure=alpha_pressure)
+        out = vj.compute(atmo, directory=directory, do_virtual=do_virtual,
+                         solver=solver)
+        # pressure + wavenumber columns make clouds() keep the solver's
+        # own wave grid
+        df_cld = vj.picaso_format(out['opd_per_layer'],
+                                  out['single_scattering'],
+                                  out['asymmetry'],
+                                  pressure=out['pressure'],
+                                  wavenumber=1e4 / out['wave'])
+        self.clouds(df=df_cld)
+        return out if full_output else df_cld
+
+    def virga_3d(self, condensates, directory=None, fsed=1.0, mh=1.0,
+                 mmw=2.2, sig=2.0, kz_min=1e5, n_cpu=1, verbose=False,
+                 full_output=False, solver='eddysed', **kwargs):
+        """Cloud microphysics for every (lon, lat) column of the 3D GCM
+        input (:meth:`atmosphere_3d` with a 'kz' [cm^2/s] field), the cloud
+        arrays [nlayer, nwno, nlon, nlat] stored on the GCM grid; the
+        facets take the nearest columns at spectrum time
+        (``three_d.regrid_to_disco``).  The columns run one after another
+        on the host; ``n_cpu`` is accepted and unused."""
+        from . import virga as vj
+        prof = self.inputs['atmosphere']['profile']
+        if not (isinstance(prof, dict) and 'lat' in prof):
+            raise ValueError('virga_3d needs atmosphere_3d input '
+                             '(dict with lat/lon grids)')
+        if 'kz' not in prof:
+            raise ValueError("virga_3d needs a 'kz' [cm^2/s] field in "
+                             'the 3D profile')
+        lat = np.asarray(prof['lat'], float)
+        lon = np.asarray(prof['lon'], float)
+        pressure = np.asarray(prof['pressure'], float)
+        nlon, nlat = len(lon), len(lat)
+        nlayer = len(pressure) - 1
+        temperature = np.asarray(prof['temperature'])
+        kz = np.asarray(prof['kz'])
+
+        def one_column(ilon, ilat):
+            atmo = vj.Atmosphere(condensates, fsed=fsed, mh=mh, mmw=mmw,
+                                 sig=sig, **kwargs)
+            atmo.gravity = self.inputs['planet']['gravity']
+            atmo.ptk(df={'pressure': pressure,
+                         'temperature': temperature[:, ilon, ilat],
+                         'kz': kz[:, ilon, ilat]}, kz_min=kz_min)
+            return vj.compute(atmo, directory=directory, solver=solver)
+
+        results = [one_column(g, t) for g in range(nlon)
+                   for t in range(nlat)]
+        wno_grid = np.sort(1e4 / results[0]['wave'])
+        opd = np.zeros((nlayer, len(wno_grid), nlon, nlat))
+        w0 = np.zeros_like(opd)
+        g0 = np.zeros_like(opd)
+        all_out = {}
+        i = 0
+        for g in range(nlon):
+            for t in range(nlat):
+                out = results[i]
+                i += 1
+                opd[:, :, g, t] = out['opd_per_layer']
+                w0[:, :, g, t] = out['single_scattering']
+                g0[:, :, g, t] = out['asymmetry']
+                if full_output:
+                    all_out[f'lon{g}_lat{t}'] = out
+        self.inputs['clouds']['profile'] = {
+            'opd': opd, 'w0': w0, 'g0': g0, 'lat': lat, 'lon': lon,
+            'pressure': pressure}
+        self.inputs['clouds']['wavenumber'] = wno_grid
+        if full_output:
+            return all_out
+
+    # -- the climate glue (justdoit.py:1041-1135 of the JAX package) -------
+    def setup_climate(self):
+        self.inputs['calculation'] = 'climate'
+        self.inputs['approx']['rt_params']['common']['raman'] = 2
+        self.phase_angle(0, num_gangle=10, num_tangle=1)
+
+    def effective_temp(self, teff=None):
+        return self.T_eff(teff)
+
+    def T_eff(self, Teff=None):
+        self.inputs['planet']['T_eff'] = Teff if Teff is not None else 0
+
+    def inputs_climate(self, temp_guess=None, pressure=None, rfaci=1,
+                       rcb_guess=None, rfacv=None, moistgrad=False):
+        """The climate run's guess, pressure grid [bar], convective-zone
+        guess and flux weights (api.py:682-698 of the JAX package, the
+        reference justdoit.py:4883-4931)."""
+        if self.inputs['planet'].get('T_eff', 0) in (0, None):
+            raise ValueError('set T_eff via case.effective_temp() first')
+        if not self.inputs['planet'].get('gravity'):
+            raise ValueError('set gravity first')
+        cl = self.inputs['climate']
+        cl['guess_temp'] = np.asarray(temp_guess, float)
+        cl['pressure'] = np.asarray(pressure, float)
+        cl['nstr'] = [0, int(rcb_guess), len(pressure) - 2, 0, 0, 0]
+        cl['nofczns'] = 1
+        cl['rfacv'] = rfacv
+        cl['rfaci'] = rfaci
+        cl['moistgrad'] = moistgrad
+        self.add_pt(cl['guess_temp'], cl['pressure'])
+
+    def interpret_run(self):
+        """Print a summary of the configured climate run
+        (justdoit.py:4868)."""
+        print('SUMMARY')
+        print('-------')
+        clim = self.inputs.get('climate', {})
+        print('Clouds:', clim.get('cloudy', False))
+        for k, v in self.inputs['approx'].get('chem_params', {}).items():
+            print(k, v)
+        print('Moist Adiabat:', clim.get('moistgrad', False))
+
+    def energy_injection(self, inject_energy=False,
+                         total_energy_injection=0, press_max_energy=1,
+                         injection_scalehight=1, inject_beam=False,
+                         beam_profile=0):
+        """Energy deposition for climate runs (justdoit.py:4953-4980): a
+        Chapman deposition of ``total_energy_injection`` [erg/cm^2/s]
+        peaking at ``press_max_energy`` [bar], or a ``beam_profile`` per
+        level when ``inject_beam``."""
+        cl = self.inputs['climate']
+        cl['inject_energy'] = inject_energy
+        cl['total_energy_injection'] = total_energy_injection
+        cl['press_max_energy'] = press_max_energy
+        cl['injection_scaleheight'] = injection_scalehight
+        cl['inject_beam'] = inject_beam
+        cl['beam_profile'] = beam_profile
+
+    def climate(self, opacityclass, save_all_profiles=False,
+                with_spec=False, diseq_chem=False, verbose=True, mesh=None,
+                self_consistent_kzz=True, counts=None, jac_batch=None,
+                dtype=torch.float64):
+        """The radiative-convective equilibrium solve of this case
+        (``climate.api.run_climate``) on the connection's device, in
+        ``dtype`` (float64 unless asked), on the connection's CK table as
+        it was given (``opacityclass.climate_ck``).  Every mode:
+        ``diseq_chem``, clouds (``inputs['climate']['cloudy']`` /
+        ``['virga_kwargs']``), the moist adiabat (``inputs_climate
+        (moistgrad=True)``), :meth:`energy_injection`, ``with_spec`` (the
+        thermal spectrum of the result on ``opacityclass``, float32 on the
+        card).  Afterwards the case holds the solve's chemistry as its
+        profile and, where one was computed, its Kzz
+        (``inputs['atmosphere']['kzz']['sc_kzz']``), as in the JAX
+        package.  Photochemical kinetics and ``mesh`` raise."""
+        from .climate import api
+        cl = self.inputs['climate']
+        if cl.get('pc') is not None:
+            raise _not_ported('photochemistry in the climate loop (the pc '
+                              'branch of update_diseq_chem; the photochem '
+                              'package)', 'item 7.2')
+        ck = opacityclass.climate_ck
+        if ck is None:
+            raise ValueError('climate runs need a CK connection '
+                             '(opannection(ck_table=...))')
+        nostar = 'nostar' in str(self.inputs['star'].get('database'))
+        if nostar:
+            opacityclass.relative_flux = np.zeros(ck.nwno) + 1.0
+        approx = self.inputs['approx']
+        common = approx['rt_params']['common']
+        injection = None
+        if cl.get('inject_energy'):
+            injection = dict(
+                total_energy=cl.get('total_energy_injection', 0.0),
+                press_max=cl.get('press_max_energy', 1.0),
+                hratio=cl.get('injection_scaleheight', 1.0),
+                inject_beam=cl.get('inject_beam', False),
+                beam_profile=cl.get('beam_profile', 0.0))
+        inputs = api.ClimateInputs(
+            t_eff=self.inputs['planet']['T_eff'],
+            gravity=self.inputs['planet']['gravity'],
+            pressure=cl['pressure'], guess=cl['guess_temp'],
+            nstr=tuple(cl['nstr']), nofczns=cl['nofczns'],
+            rfaci=cl['rfaci'], rfacv=0.0 if nostar else cl['rfacv'],
+            F0PI=None if nostar else opacityclass.relative_flux,
+            controls=scattering_controls(self),
+            delta_eddington=common['delta_eddington'],
+            stream=common['stream'],
+            chem_params=dict(approx.get('chem_params') or {}),
+            # the JAX state looks the Kzz up after replacing the profile
+            # with the premixed one: the 'kzz' store alone counts
+            kzz=chemistry.find_kzz(
+                {'kzz': self.inputs['atmosphere'].get('kzz', {})}),
+            cloudy=bool(cl.get('cloudy', False)),
+            virga_kwargs=dict(cl.get('virga_kwargs') or {}) or None,
+            moistgrad=bool(cl.get('moistgrad', False)),
+            injection=injection, p_reference=approx['p_reference'])
+        out = api.run_climate(
+            inputs, ck, save_all_profiles=save_all_profiles,
+            with_spec=with_spec, diseq_chem=diseq_chem, verbose=verbose,
+            counts=counts, jac_batch=jac_batch, mesh=mesh,
+            device=opacityclass.device, dtype=dtype,
+            self_consistent_kzz=self_consistent_kzz, bundle=self,
+            opacity=opacityclass)
+        if not with_spec:
+            self.inputs['atmosphere']['profile'] = out['ptchem_df']
+            self.nlevel = len(out['pressure'])
+        if 'kzz' in out:
+            store = self.inputs['atmosphere'].get('kzz')
+            if not isinstance(store, dict):
+                store = self.inputs['atmosphere']['kzz'] = {}
+            store['sc_kzz'] = out['kzz']
+        return out
+
     # -- run ---------------------------------------------------------------
     def spectrum(self, opacityclass, calculation='reflected',
                  dimension='1d', full_output=False, plot_opacity=False,
@@ -1059,6 +1331,29 @@ class inputs:
 # ---------------------------------------------------------------------------
 # orchestration
 # ---------------------------------------------------------------------------
+
+def _climate_bin_flux(wno_planet, wno_star, flux_star):
+    """The stellar flux of a climate case: the per-wavelength flux
+    interpolated in log-log onto the planet grid, integrated over each bin
+    by trapezoids in wavelength (justdoit.py:360-377 of the JAX package;
+    ``np.trapezoid``'s sum written out), the last bin extrapolated
+    linearly.  Per-bin energy [erg/cm^2/s]: the climate's visible fluxes
+    sum it without dwni."""
+    mask = flux_star > 1e-30
+    lw, lf = np.log10(wno_star[mask]), np.log10(flux_star[mask])
+    fine = 10 ** np.interp(np.log10(wno_planet), lw, lf)
+    binned = np.zeros(len(wno_planet))
+    for i in range(len(wno_planet) - 1):
+        sel = (wno_planet >= wno_planet[i]) & (
+            wno_planet <= wno_planet[i + 1])
+        y, x = fine[sel], -1 / wno_planet[sel]
+        binned[i] = (np.diff(x) * (y[1:] + y[:-1]) / 2.0).sum()
+    if len(wno_planet) > 2:
+        slope = ((binned[-2] - binned[-3])
+                 / (wno_planet[-2] - wno_planet[-3]))
+        binned[-1] = binned[-2] + slope * (wno_planet[-1] - wno_planet[-2])
+    return binned
+
 
 def _np(x):
     """A tensor (on any device) as a numpy array."""

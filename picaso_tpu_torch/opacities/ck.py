@@ -1,6 +1,6 @@
-"""Correlated-k opacity tables (premixed), on the device.
+"""Correlated-k opacity tables (premixed and per-gas), on the device.
 
-Port of the premixed half of ``picaso_tpu/opacities/ck.py`` (reference
+Port of ``picaso_tpu/opacities/ck.py`` (reference
 picaso ``RetrieveCKs``, optics.py:654-1875): the premixed ln-kappa cube
 [npress, ntemp, nwno, ngauss] sits on the device, and the bilinear
 (1/T, log10 P) interpolation (``get_pre_mix_ck``, optics.py:1081-1161) and
@@ -12,10 +12,15 @@ The chemistry table (``full_abunds``) rides along with the table as in the
 reference; here it is a dict of numpy columns in table order (the JAX
 package keeps a pandas frame, which the port does not import).
 
+A table may carry per-gas ln-k tables [ngas, npress, ntemp, nwno, ngauss]
+(``per_gas``, for ``per_gas_molecules``), mixed on the fly by resort-rebin
+(``opacities/resortrebin.py``) for disequilibrium chemistry.
 ``ck_taugas`` gives the spectrum path's molecular and continuum optical
-depths from the premixed table.  Not ported yet (ROADMAP Queue 1): the
-real-file loaders (``load_ck_db``: premixed hdf5, the legacy 1460-grid
-ASCII directory; item 4.7) and the per-gas resort-rebin tables (item 4.2).
+depths: from the per-gas tables mixed at the atmosphere's own abundances
+where the table has them, else from the premixed table.  Not ported yet
+(ROADMAP Queue 1 item 4.7): the real-file loaders (``load_ck_db``:
+premixed hdf5, the legacy 1460-grid ASCII directory, and
+``load_per_gas_tables``), which need h5py and the external CK files.
 """
 
 from __future__ import annotations
@@ -67,7 +72,13 @@ class CKTable:
     temperature-major as in the reference grids)."""
 
     def __init__(self, arrays: CKArrays, molecules, full_abunds, gauss_pts,
-                 temps, pressures, wno, delta_wno, gauss_wts):
+                 temps, pressures, wno, delta_wno, gauss_wts, per_gas=None,
+                 per_gas_molecules=None):
+        # optional per-gas ln-k tables [ngas, npress, ntemp, nwno, ngauss]
+        # on the arrays' device, for resort-rebin mixing
+        self.per_gas = per_gas
+        self.per_gas_molecules = (tuple(per_gas_molecules)
+                                  if per_gas_molecules else ())
         self.arrays = arrays
         self.molecules = tuple(molecules)
         self.full_abunds = dict(full_abunds)
@@ -82,11 +93,29 @@ class CKTable:
         self.continuum_molecules = arrays.continuum_molecules
 
     def to(self, device, dtype):
-        """The same table with its arrays on ``device`` in ``dtype``."""
+        """The same table with its arrays (the per-gas tables too) on
+        ``device`` in ``dtype``."""
         return CKTable(self.arrays.to(device, dtype), self.molecules,
                        self.full_abunds, self.gauss_pts, self.temps,
                        self.pressures, self.wno, self.delta_wno,
-                       self.gauss_wts)
+                       self.gauss_wts,
+                       per_gas=(None if self.per_gas is None
+                                else self.per_gas.to(device, dtype)),
+                       per_gas_molecules=self.per_gas_molecules)
+
+    def take_bins(self, sl):
+        """The same table on the wavenumber bins ``sl`` (a slice): the
+        premixed and per-gas tables, the continuum and the grids."""
+        a = self.arrays
+        arrays = a._replace(wno=a.wno[sl], delta_wno=a.delta_wno[sl],
+                            ln_kappa=a.ln_kappa[:, :, sl],
+                            cont_opa=a.cont_opa[:, :, sl])
+        return CKTable(arrays, self.molecules, self.full_abunds,
+                       self.gauss_pts, self.temps, self.pressures,
+                       self.wno[sl], self.delta_wno[sl], self.gauss_wts,
+                       per_gas=(None if self.per_gas is None
+                                else self.per_gas[:, :, :, sl]),
+                       per_gas_molecules=self.per_gas_molecules)
 
 
 def double_gauss_points(order=4, gfrac=0.95):
@@ -141,7 +170,8 @@ def _load_continuum(continuum_db, wno, dtype=np.float32):
 def synthetic_ck_table(continuum_db=None,
                        molecules=('H2O', 'CH4', 'CO', 'NH3'), ntemp=10,
                        npress=10, seed=7, grid661=False,
-                       dtype=torch.float64, device='cuda') -> CKTable:
+                       dtype=torch.float64, device='cuda',
+                       with_per_gas=False) -> CKTable:
     """Synthetic premixed CK table (ck.py:268-372 of the JAX package) on
     ``device`` (default ``'cuda'``; raises where there is none) in
     ``dtype`` (default float64, the climate solve's).
@@ -151,8 +181,9 @@ def synthetic_ck_table(continuum_db=None,
     with the 196-grid CIA row-interpolated onto it.  Band-structured
     synthetic cross sections (the monochromatic factory's), a weak spread
     across the 8 gauss points, and a solar-ish chemistry table at every
-    (T, P) grid point.  The per-gas tables (``with_per_gas``) wait for the
-    disequilibrium port.
+    (T, P) grid point.  ``with_per_gas`` adds per-gas tables from the same
+    cross sections, one molecule each, unmixed (ck.py:356-369 of the JAX
+    package).
     """
     device = checked_device(device)
     np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
@@ -221,8 +252,19 @@ def synthetic_ck_table(continuum_db=None,
         t_inv_grid=dev(1.0 / temps),
         nc_p=dev(np.full(ntemp, npress), torch.int32), cont_opa=dev(cont),
         cia_temps=dev(cia_temps), continuum_molecules=cont_mols)
+    per_gas = None
+    if with_per_gas:
+        per_gas = np.zeros((len(molecules), npress, ntemp, len(wno),
+                            ngauss), np_dtype)
+        for ig, mol in enumerate(molecules):
+            sig = synthetic_cross_sections(mol, wno, temps, pressures,
+                                           seed=seed)
+            base = np.log(np.maximum(sig, 1e-50)).transpose(1, 0, 2)
+            per_gas[ig] = base[..., None] + spread[None, None, None, :]
+        per_gas = dev(per_gas)
     return CKTable(arrays, molecules, abunds, gauss_pts, temps, pressures,
-                   wno=wno, delta_wno=delta_wno, gauss_wts=gauss_wts)
+                   wno=wno, delta_wno=delta_wno, gauss_wts=gauss_wts,
+                   per_gas=per_gas, per_gas_molecules=molecules)
 
 
 # ---------------------------------------------------------------------------
@@ -295,14 +337,16 @@ def ck_continuum(ck: CKArrays, tlayer):
                      + t_w[None, :, None] * hi)
 
 
-def ck_taugas(ck_table: CKTable, atm):
+def ck_taugas(ck_table: CKTable, atm, kappa=None):
     """TAUGAS [ngauss, nlayer, nwno] of the spectrum path from the premixed
     table (ck.py:442-497 of the JAX package): the premixed kappa needs no
-    mixing-ratio weighting (optics.py:257-262), the continuum follows the
-    CK CIA log-interpolation.  ``atm`` is an ``atmosphere.Atmosphere``;
-    the result lies on the table's device in its dtype.  (The per-gas
-    resort-rebin mixing of the JAX function is ROADMAP Queue 1 item 4.2:
-    the port's tables are premixed.)"""
+    mixing-ratio weighting (optics.py:257-262); with per-gas tables the
+    molecular k-coefficients are resort-rebin mixed from the atmosphere's
+    own abundances instead (gasesfly mode, optics.py:1164-1198).  The
+    continuum follows the CK CIA log-interpolation either way.  ``atm`` is
+    an ``atmosphere.Atmosphere``; the result lies on the table's device in
+    its dtype.  ``kappa`` [nlayer, nwno, ngauss], where given, is the
+    molecular opacity to use (the climate's ``ck_rtprops``)."""
     from . import assemble
     from ..constants import PCONV
 
@@ -312,7 +356,19 @@ def ck_taugas(ck_table: CKTable, atm):
         return torch.as_tensor(np.asarray(x), dtype=a.ln_kappa.dtype,
                                device=a.ln_kappa.device)
 
-    kappa = interp_premix(a, t(atm.t_layer), t(atm.p_layer / PCONV))
+    if kappa is None and ck_table.per_gas is not None:
+        from . import resortrebin as rr
+        mixes = torch.stack([
+            t(atm.mixing_ratio_layer(m)) if m in atm.molecules
+            else t(np.zeros(atm.nlayer))
+            for m in ck_table.per_gas_molecules])
+        kappa = rr.resortrebin_kappa(
+            ck_table.per_gas.to(a.ln_kappa.dtype), a.t_inv_grid,
+            a.p_log_grid, a.nc_p, t(np.array(ck_table.gauss_pts)),
+            t(np.array(ck_table.gauss_wts)), mixes, t(atm.t_layer),
+            t(atm.p_layer / PCONV))
+    elif kappa is None:
+        kappa = interp_premix(a, t(atm.t_layer), t(atm.p_layer / PCONV))
     taugas = (kappa * t(atm.colden / atm.mmw_layer)[:, None, None]
               ).permute(2, 0, 1)
 

@@ -6,13 +6,12 @@ pressure-temperature forms (Madhu & Seager 2009 with and without inversion,
 Guillot 2010, temperature knots, ZJ24 gradient, isothermal), free chemistry
 (constant, knots, gradient, background-gas fill), the grey clouds (hard
 grey slab, decaying deck and slab, the brewster grey form) and the
-Visscher chemistry.  Plain numpy on the host, the arithmetic of the JAX
-module line for line; profiles and cloud tables are dicts of numpy columns
-(the JAX module makes DataFrames), in the same column order.
-
-Not ported: the condensate Mie members (``load_cld_optical``/``mieff_dir``,
-``get_particle_dist``, ``cloud_flex_fsed``, ``cloud_brewster_mie``) and
-``cloud_virga``, which need the virga port (ROADMAP Queue 1 item 7.3).
+Visscher chemistry, and the condensate clouds of ``virga.py``: the Mie
+tables of ``load_cld_optical``/``mieff_dir``, ``get_particle_dist``,
+``cloud_flex_fsed``, ``cloud_brewster_mie`` and ``cloud_virga``.  Plain
+numpy on the host, the arithmetic of the JAX module line for line;
+profiles and cloud tables are dicts of numpy columns (the JAX module makes
+DataFrames), in the same column order.
 """
 
 from __future__ import annotations
@@ -22,11 +21,6 @@ import numpy as np
 from .wavelength import get_cld_input_grid
 
 __all__ = ['Parameterize', 'picaso_format', 'cloud_averaging']
-
-
-def _virga(what):
-    return NotImplementedError(f'{what} is not ported to picaso_tpu_torch '
-                               'yet: ROADMAP Queue 1 item 7.3 (virga)')
 
 
 class Parameterize:
@@ -40,9 +34,21 @@ class Parameterize:
         self.nlevel = len(self.pressure)
         self.mieff_dir = mieff_dir
         self.case = None
+        # Mie tables for condensate-aware cloud parameterizations
+        # (parameterizations.py:24-37): dict species -> virga mieff dict
         self.mie = {}
         if load_cld_optical is not None:
-            raise _virga('the Mie tables of load_cld_optical')
+            from . import virga as vj
+            if isinstance(load_cld_optical, str):
+                load_cld_optical = [load_cld_optical]
+            if mieff_dir is None:
+                raise ValueError('load_cld_optical requires mieff_dir')
+            for sp in load_cld_optical:
+                mie = vj._load_gas_mieff(sp, mieff_dir)
+                if mie is None:
+                    raise FileNotFoundError(
+                        f'{sp}.mieff not found in {mieff_dir}')
+                self.mie[sp] = mie
 
     def add_class(self, picaso_inputs_class):
         self.case = picaso_inputs_class
@@ -178,21 +184,107 @@ class Parameterize:
                        / (np.log10(P_deep) - np.log10(P_top)), 0, 1)
         return 10 ** (logvmr_top + frac * (logvmr_deep - logvmr_top))
 
-    # -- condensate Mie optics and virga: not ported ------------------------
-    def get_particle_dist(self, *args, **kwargs):
-        raise _virga('get_particle_dist')
+    # -- condensate Mie optics (needs load_cld_optical + mieff_dir) ----------
+    def get_particle_dist(self, species, distribution,
+                          lognorm_kwargs=None, hansen_kwargs=None):
+        """Particle number-density distribution on the species' Mie
+        radius grid (parameterizations.py:59-81): ``'lognorm'``
+        (sigma = width in log10 radius, lograd = log10 median radius
+        [cm]) or ``'hansen'`` (Hansen 1971: lograd = log10 effective
+        radius a [cm], b = variance)."""
+        radii = self.mie[species]['radii']
+        if 'lognorm' in distribution:
+            kw = lognorm_kwargs or {}
+            sigma, lograd = kw['sigma'], kw['lograd']
+            logr = np.log10(radii)
+            return (1.0 / (sigma * np.sqrt(2.0 * np.pi))
+                    * np.exp(-(logr - lograd) ** 2 / (2.0 * sigma ** 2)))
+        if 'hansen' in distribution:
+            kw = hansen_kwargs or {}
+            a, b = 10.0 ** kw['lograd'], kw['b']
+            return (radii ** ((1.0 - 3.0 * b) / b)
+                    * np.exp(-radii / (a * b)))
+        raise ValueError("distribution must be 'lognorm' or 'hansen'")
 
-    def _dist_optics(self, *args, **kwargs):
-        raise _virga('_dist_optics')
+    def _dist_optics(self, condensate, ndz, distribution, lognorm_kwargs,
+                     hansen_kwargs):
+        """(opd [nw], w0, g0, wavenumber ascending) for a distribution
+        integrated against the condensate's Mie tables."""
+        from . import virga as vj
+        if condensate not in self.mie:
+            raise KeyError(f'{condensate} not preloaded — pass it via '
+                           'load_cld_optical at construction')
+        mie = self.mie[condensate]
+        dist = self.get_particle_dist(condensate, distribution,
+                                      lognorm_kwargs, hansen_kwargs)
+        opd, w0, g0, wavenumber = vj.calc_optics_user_r_dist(
+            mie['wave_um'], ndz, mie['radii'], dist, mie['qext'],
+            mie['qscat'], mie['cos_qscat'])
+        order = np.argsort(wavenumber)
+        return opd[order], w0[order], g0[order], wavenumber[order]
 
-    def cloud_flex_fsed(self, *args, **kwargs):
-        raise _virga('cloud_flex_fsed')
+    def cloud_flex_fsed(self, condensate, base_pressure, ndz, fsed,
+                        distribution, lognorm_kwargs=None,
+                        hansen_kwargs=None):
+        """Cloud decaying upward from ``base_pressure`` at rate ``fsed``
+        whose optics come from a user particle-size distribution
+        integrated over the condensate's Mie tables
+        (parameterizations.py:94-146)."""
+        opd, w0, g0, wavenumber = self._dist_optics(
+            condensate, ndz, distribution, lognorm_kwargs, hansen_kwargs)
+        play = np.sqrt(self.pressure[1:] * self.pressure[:-1])
+        # arbitrary height coordinate — fsed and ndz absorb the scale
+        scale_h = 10.0
+        z = np.linspace(100.0, 0.0, len(play))
+        decay = np.where(play > base_pressure, 0.0,
+                         np.exp(-fsed * z / scale_h))
+        return picaso_format(opd, w0, g0, wavenumber, play,
+                             p_bottom=base_pressure, p_decay=decay)
 
-    def cloud_brewster_mie(self, *args, **kwargs):
-        raise _virga('cloud_brewster_mie')
+    def cloud_brewster_mie(self, condensate, distribution, decay_type,
+                           lognorm_kwargs=None, hansen_kwargs=None,
+                           slab_kwargs=None, deck_kwargs=None):
+        """Mie-optics cloud (lognormal/hansen particle distribution)
+        with a slab or deck vertical opd profile
+        (parameterizations.py:148-199)."""
+        opd, w0, g0, wavenumber = self._dist_optics(
+            condensate, 1.0, distribution, lognorm_kwargs, hansen_kwargs)
+        play = np.sqrt(self.pressure[1:] * self.pressure[:-1])
+        if decay_type == 'slab':
+            kw = slab_kwargs or {}
+            ptop = kw['ptop']
+            pbottom = ptop * 10.0 ** kw.get('dp', 0.005)
+            total = kw.get('reference_tau', 1.0)
+            inside = (play >= ptop) & (play <= pbottom)
+            profile = np.where(inside, total / max(int(inside.sum()), 1),
+                               0.0)
+        elif decay_type == 'deck':
+            kw = deck_kwargs or {}
+            ptop, dp = kw['ptop'], kw.get('dp', 0.005)
+            opd_max = kw.get('opd_max', 10.0)
+            profile = opd_max * np.exp(
+                -(np.log10(ptop) - np.log10(play)) / dp)
+            profile = np.where(play >= ptop, opd_max, profile)
+        else:
+            raise ValueError("decay_type must be 'slab' or 'deck'")
+        return picaso_format(opd, w0, g0, wavenumber, play,
+                             opd_profile=profile)
 
     def cloud_virga(self, **virga_kwargs):
-        raise _virga('cloud_virga')
+        """Run the full virga cloud solver from retrieval parameters
+        (parameterizations.py:82-93).  ``kzz`` (scalar or [nlevel]) is
+        written into the atmosphere profile; remaining kwargs go to
+        ``inputs.virga`` (condensates, fsed, mh, ...)."""
+        assert self.case is not None, 'call add_class(inputs) first'
+        kzz = virga_kwargs.pop('kzz', None)
+        if kzz is not None:
+            # a column of the profile (a scalar fills it, as pandas does)
+            prof = self.case.inputs['atmosphere']['profile']
+            prof['kz'] = np.zeros(len(prof['pressure'])) + np.asarray(
+                kzz, float)
+        virga_kwargs.setdefault('directory', self.mieff_dir)
+        self.case.virga(**virga_kwargs)
+        return self.case.inputs['clouds']['profile']
 
     # -- chemistry parameterizations -----------------------------------------
     def chem_visscher(self, cto_absolute, log_mh, device='cuda'):

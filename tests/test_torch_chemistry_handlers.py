@@ -168,7 +168,19 @@ def test_unported_handlers_raise(monkeypatch):
     with pytest.raises(FileNotFoundError):
         b.chemeq_visscher_2121(0.458, 0.0, device='cpu')
     for call in (lambda: b.sonora('.', 1000), lambda: b.sonora_profile(
-            '.', 1000), lambda: b.premix_atmosphere_photochem(),
-            lambda: b.find_kzz()):
+            '.', 1000), lambda: b.premix_atmosphere_photochem()):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             call()
+    # find_kzz (ported): none, the profile's kz column, a constant, the
+    # self-consistent one first, an int placeholder skipped
+    assert a.find_kzz() is None and b.find_kzz() is None
+    kz = np.logspace(8, 10, 30)
+    for case in (a, b):
+        case.inputs['atmosphere']['profile']['kz'] = kz
+    np.testing.assert_array_equal(b.find_kzz(), a.find_kzz())
+    for store in ({'constant_kzz': kz * 2}, {'sc_kzz': kz * 3,
+                                             'constant_kzz': kz * 2},
+                  {'sc_kzz': 0, 'constant_kzz': kz * 4}):
+        for case in (a, b):
+            case.inputs['atmosphere']['kzz'] = dict(store)
+        np.testing.assert_array_equal(b.find_kzz(), a.find_kzz())

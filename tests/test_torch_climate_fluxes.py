@@ -7,8 +7,9 @@ of each array's scale):
 - ``blackbody_integrated``, the level-flux thermal solve (``thermal_1d``
   with calc_type=1 in the JAX package, ``thermal_levels`` here) and
   ``reflected_1d(get_lvl_flux=True)``;
-- ``build_opacities``, ``thermal_fluxes`` (one profile, and several
-  perturbed profiles in one evaluation), ``visible_fluxes``,
+- ``build_opacities`` (with and without cloud arrays), ``thermal_fluxes``
+  (one profile, and several perturbed profiles in one evaluation),
+  ``visible_fluxes``,
   ``tidal_flux`` (with and without energy injection), ``zone_maps`` with
   one and two convective zones, and ``reconstruct_profile``;
 - the Newton Jacobian against the JAX host solver's ``_jacobian``, and
@@ -228,6 +229,27 @@ def test_build_opacities(solve_case):
     c = solve_case
     for name in t_optics.RTProps._fields:
         close(getattr(c['props'], name), getattr(c['jprops'], name))
+
+
+def test_build_opacities_with_clouds(solve_case):
+    """ClimateData's cloud arrays, combined into the optics."""
+    c = solve_case
+    d = c['state'].data
+    rng = np.random.default_rng(10)
+    shape = (NLEVEL - 1, d.F0PI.shape[0])
+    cld = dict(cld_opd=rng.uniform(0.0, 2.0, shape),
+               cld_g0=rng.uniform(0.0, 0.9, shape),
+               cld_w0=rng.uniform(0.3, 0.99, shape))
+    props = tfused.build_opacities(
+        c['temp'], d._replace(**{k: torch.tensor(v) for k, v in cld.items()}),
+        c['state'].chem_grid, c['ts'].arrays, c['config'])
+    jprops = jfused.build_opacities(
+        c['jtemp'], c['jdata']._replace(**{k: jnp.asarray(v)
+                                          for k, v in cld.items()}),
+        j_chem_grid(c['js'].full_abunds), c['js'].arrays, c['jconfig'])
+    assert (props.w0 - c['props'].w0).abs().max() > 1e-3
+    for name in t_optics.RTProps._fields:
+        close(getattr(props, name), getattr(jprops, name))
 
 
 def test_thermal_fluxes(solve_case):

@@ -6,7 +6,9 @@ log_likelihood at 3 parameter points for each observation type on
 tests/torch_facade_cases.py's synthetic database (transit depths at
 RTOL_TRANSIT, the thermal and reflected spectra at RTOL); run() in its
 spectrum and retrieval modes against the JAX runs (the JAX run is given
-the same float64 table, as torch_facade_cases.connections builds it)."""
+the same float64 table, as torch_facade_cases.connections builds it); the
+climate mode (``setup_climate_class`` + ``case.climate``) against the JAX
+driver's on the same float64 CK table."""
 
 import copy
 
@@ -238,8 +240,37 @@ def test_run_retrieval_mode(setup, jax_table_f64, tmp_path):
 
 
 def test_unported_modes_raise(setup):
-    config = dict(setup['config'], calc_type='climate')
-    with pytest.raises(NotImplementedError, match='item 7.5'):
-        tdrv.run(config, device='cpu')
+    """The climate mode: ``setup_climate_class`` given a CK connection (the
+    same float64 table, a stride-8 24-bin slice), then ``case.climate`` as
+    ``run`` calls it, against the JAX driver's (the same temperatures,
+    cvz_locs and chemistry to rtol 1e-8); without a connection ``run``
+    opens ``ck_db``, whose loaders wait (item 4.7).  ``viz`` raises (item
+    8.2)."""
+    from test_torch_climate_fluxes import sliced_tables
+    config = {'calc_type': 'climate',
+              'object': {'gravity': {'value': 100.0, 'unit': 'm/(s**2)'}},
+              'climate': {'teff': 700.0, 'nlevel': 25, 'rcb_guess': 18,
+                          'run_kwargs': {}}}
+    js, ts = sliced_tables(8)
+    jcase, jopa = jdrv.setup_climate_class(config,
+                                           opa=jdi.opannection(ck_table=js))
+    tcase, topa = tdrv.setup_climate_class(
+        config, opa=tdi.opannection(ck_table=ts, device='cpu'))
+    for key, val in jcase.inputs['climate'].items():
+        np.testing.assert_array_equal(tcase.inputs['climate'][key], val)
+    ref = jcase.climate(jopa, verbose=False)
+    out = tcase.climate(topa, verbose=False)
+    assert out['converged'] == ref['converged'] == 1
+    assert [int(i) for i in out['cvz_locs']] == [int(i)
+                                                 for i in ref['cvz_locs']]
+    np.testing.assert_allclose(out['temperature'], ref['temperature'],
+                               rtol=1e-8)
+    chem = jcase.inputs['atmosphere']['profile']
+    prof = tcase.inputs['atmosphere']['profile']
+    for col in chem.columns:
+        np.testing.assert_allclose(prof[col], chem[col].values, rtol=1e-8)
+    with pytest.raises(NotImplementedError, match='item 4.7'):
+        tdrv.run(dict(config, OpticalProperties={'ck_db': 'x.hdf5'}),
+                 device='cpu')
     with pytest.raises(NotImplementedError, match='item 8.2'):
         tdrv.viz(None, {})

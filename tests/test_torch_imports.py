@@ -42,7 +42,8 @@ def test_port_has_modules_to_check():
             'fused.py', 'api.py', 'justdoit.py', 'three_d.py', 'units.py',
             'refdata.py', 'fits_lite.py', 'stellar.py', 'sampler.py',
             'driver.py', 'parameterizations.py', 'analyze.py',
-            'retrieval.py', 'ncio.py'} <= names
+            'retrieval.py', 'ncio.py', 'moist.py', 'kzz.py', 'virga.py',
+            'resortrebin.py'} <= names
     probes = {p.name for p in (ROOT / 'picaso_tpu_torch' / 'probes').glob(
         '*.py')}
     assert {'front_door.py', 'retrieval.py'} <= probes

@@ -300,17 +300,67 @@ def test_wavelength_matches_jax(case):
                                   'climate'])
 def test_unported_parts_raise(call):
     """What the front door does not port yet raises, naming ROADMAP Queue
-    1."""
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1'):
-        if call == 'resortrebin':
+    1: loading a CK table from ``ck_db`` (either method) and
+    photochemistry.  The per-gas ('resortrebin') connection and the
+    climate set-up are ported: a thermal spectrum through resort-rebin on
+    the per-gas tables (a 24-bin slice) and ``inputs(climate=True)`` +
+    ``inputs_climate`` against the JAX facade's."""
+    if call == 'resortrebin':
+        with pytest.raises(NotImplementedError, match='item 4.7'):
             tdi.opannection(method='resortrebin', device='cpu')
-        elif call == 'ck_db':
+        from test_torch_climate_fluxes import sliced_tables
+        from torch_climate_modes_cases import port_table
+        js, _ = sliced_tables(8)
+        jt = jck.synthetic_ck_table(dtype=np.float64, with_per_gas=True)
+        js = jck.CKTable(js.arrays, js.molecules, js.full_abunds,
+                         js.gauss_pts, js.temps, js.pressures,
+                         per_gas=jt.per_gas[:, :, :, ::8, :],
+                         per_gas_molecules=jt.per_gas_molecules,
+                         wno=js.wno, delta_wno=js.delta_wno,
+                         gauss_wts=js.gauss_wts)
+        jopa = jdi.opannection(ck_table=js, method='resortrebin')
+        topa = tdi.opannection(ck_table=port_table(js), device='cpu',
+                               method='resortrebin')
+        with pytest.raises(ValueError, match='per-gas'):
+            tdi.opannection(ck_table=tck.synthetic_ck_table(device='cpu'),
+                            method='resortrebin', device='cpu')
+        kw = dict(calculation='thermal', clouds=None)
+        assert_same(_spectrum(tdi, topa, **kw), _spectrum(jdi, jopa, **kw))
+        return
+    if call == 'climate':
+        cases = []
+        for module in (jdi, tdi):
+            case = module.inputs(calculation='browndwarf', climate=True)
+            case.effective_temp(500.0)
+            case.gravity(gravity=100.0, gravity_unit=module.u.Unit(
+                'm/(s**2)'))
+            p = np.logspace(-4, 2, 21)
+            case.inputs_climate(temp_guess=np.linspace(300, 900, 21),
+                                pressure=p, rcb_guess=15, rfacv=0.0,
+                                moistgrad=True)
+            case.energy_injection(True, 1e4, 0.3, 1.5)
+            cases.append(case)
+        ref, got = (c.inputs for c in cases)
+        assert got['calculation'] == ref['calculation'] == 'climate'
+        assert (got['approx']['rt_params']['common']['raman']
+                == ref['approx']['rt_params']['common']['raman'] == 2)
+        for key, val in ref['climate'].items():
+            np.testing.assert_array_equal(got['climate'][key], val)
+        np.testing.assert_array_equal(got['disco'].ubar1,
+                                      np.asarray(ref['disco'].ubar1))
+        prof = got['atmosphere']['profile']
+        np.testing.assert_array_equal(prof['temperature'],
+                                      np.linspace(300, 900, 21))
+        with pytest.raises(ValueError, match='T_eff'):
+            tdi.inputs(climate=True).inputs_climate(
+                temp_guess=np.ones(3), pressure=np.ones(3), rcb_guess=1)
+        return
+    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1'):
+        if call == 'ck_db':
             tdi.opannection(method='preweighted', ck_db='x', device='cpu')
-        elif call == 'chem_method':
+        else:
             # the grid chemistry is ported; its photochemistry is not
             case = tdi.inputs()
             case.atmosphere(df=profile(), chem_method='visscher',
                             device='cpu')
             case.premix_atmosphere_photochem()
-        else:
-            tdi.inputs(climate=True)

@@ -1,8 +1,8 @@
 """The port's Parameterize (picaso_tpu_torch.parameterizations) against the
 JAX package's: every temperature form, free-chemistry form and grey-cloud
 form, picaso_format and cloud_averaging, from the same inputs, rtol 1e-12
-(the port's tables are dicts of columns in the DataFrames' order).  The
-Mie and virga members raise NotImplementedError."""
+(the port's tables are dicts of columns in the DataFrames' order),
+and the Mie and virga members."""
 
 import numpy as np
 import pandas as pd
@@ -173,9 +173,55 @@ def test_add_class_adopts_the_profile_grid():
 
 @pytest.mark.parametrize('member', ['get_particle_dist', 'cloud_flex_fsed',
                                     'cloud_brewster_mie', 'cloud_virga'])
-def test_mie_and_virga_members_raise(member):
-    par = tpar.Parameterize(nlevel=20)
-    with pytest.raises(NotImplementedError, match='virga'):
-        getattr(par, member)()
-    with pytest.raises(NotImplementedError, match='virga'):
-        tpar.Parameterize(load_cld_optical='MgSiO3', mieff_dir='.')
+def test_mie_and_virga_members_raise(member, tmp_path):
+    """The Mie and virga members (ported with virga.py) against the JAX
+    module's, rtol 1e-12: the Mie tables of ``load_cld_optical`` from a
+    .mieff file written to ``tmp_path``, both particle distributions, the
+    slab and deck forms, and virga through the case (scalar kzz).  A
+    missing table still raises."""
+    from test_torch_virga import write_mieff
+    write_mieff(tmp_path / 'MgSiO3.mieff')
+    pars = [mod.Parameterize(nlevel=20, load_cld_optical='MgSiO3',
+                             mieff_dir=str(tmp_path))
+            for mod in (jpar, tpar)]
+    with pytest.raises(FileNotFoundError):
+        tpar.Parameterize(load_cld_optical='Fe', mieff_dir=str(tmp_path))
+    with pytest.raises(ValueError, match='mieff_dir'):
+        tpar.Parameterize(load_cld_optical='Fe')
+    logn = dict(sigma=0.3, lograd=-4.5)
+    hansen = dict(lograd=-4.2, b=0.2)
+    if member == 'get_particle_dist':
+        for dist, kw in (('lognorm', dict(lognorm_kwargs=logn)),
+                         ('hansen', dict(hansen_kwargs=hansen))):
+            got, ref = (par.get_particle_dist('MgSiO3', dist, **kw)
+                        for par in pars[::-1])
+            assert_table(got, ref)
+    elif member == 'cloud_flex_fsed':
+        for dist, kw in (('lognorm', dict(lognorm_kwargs=logn)),
+                         ('hansen', dict(hansen_kwargs=hansen))):
+            got, ref = (par.cloud_flex_fsed('MgSiO3', 0.3, 2e5, 1.5, dist,
+                                            **kw) for par in pars[::-1])
+            assert_table(got, ref)
+    elif member == 'cloud_brewster_mie':
+        for decay, kw in (('slab', dict(slab_kwargs=dict(
+                ptop=0.01, dp=0.5, reference_tau=2.0))),
+                          ('deck', dict(deck_kwargs=dict(ptop=0.1,
+                                                         dp=0.3)))):
+            got, ref = (par.cloud_brewster_mie('MgSiO3', 'lognorm', decay,
+                                               lognorm_kwargs=logn, **kw)
+                        for par in pars[::-1])
+            assert_table(got, ref)
+    else:
+        p = np.logspace(-4, 2, 20)
+        prof = {'pressure': p, 'temperature': 1900.0 * (p / 100.0) ** 0.1,
+                'H2': p * 0 + 0.84, 'He': p * 0 + 0.16}
+        out = []
+        for mod, jd, par, frame in ((jpar, jdi, pars[0], pd.DataFrame),
+                                    (tpar, tdi, pars[1], dict)):
+            case = jd.inputs()
+            case.gravity(gravity=1e4, gravity_unit=jd.u.Unit('cm/(s**2)'))
+            case.atmosphere(df=frame(prof))
+            par.add_class(case)
+            out.append(par.cloud_virga(condensates=['MgSiO3', 'Fe'],
+                                       fsed=2.0, kzz=1e9))
+        assert_table(out[1], out[0])
