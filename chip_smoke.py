@@ -21,7 +21,11 @@ forwards (``forward_batch``), the TOML driver (``driver.log_likelihood``,
 then the climate modes through the front door (``inputs(climate=True)``
 ... ``climate``): disequilibrium chemistry, virga clouds, the moist
 adiabat, energy injection with the spectrum of the result, and the
-virga, ``virga_3d`` and TOML-climate workflows around them.  It goes
+virga, ``virga_3d`` and TOML-climate workflows around them; then a CK
+table read from a file (``opannection(ck_db=...)``) into the climate
+(``run_climate``, the host Newton ``t_start``, the TOML driver) and the
+front door's tools (``guillot_pt``, ``get_contribution``,
+``convert_flux_units``).  It goes
 through the 14 hand-written CUDA kernels, and checks each kernel against
 its plain PyTorch twin, each forward against a float64 oracle, and each
 climate solve against the JAX package's float64 solve
@@ -205,14 +209,47 @@ Phases (any failure raises, so the exit code is nonzero):
     ``case.climate`` as ``driver.run`` calls it) on phase 36's case at 41
     levels: no kernel launched, gated as phases 34-37 against the JAX
     driver's f64 solve
-39. the card, one JSON line with the climate numbers, one with the front
+39. a CK table from a file: the legacy 1460-grid ASCII table of
+    ``legacy.synthetic_legacy_table`` (24 species, 73 x 20 (T, P) points,
+    196 bins) written by the port's ``write_legacy_ascii`` under
+    build/ck_files, its SHA-256 equal to the JAX writer's
+    (tests/ck_files_reference.json, written by tests/ck_files_record.py),
+    opened on the card with ``justdoit.opannection(ck_db=<dir>)`` (the f64
+    climate table, its f32 copy for spectra), the loaded arrays against
+    the written table (max rel <= 1e-12: the text round-trips).  The hdf5
+    formats (premixed, per-gas) are not run: h5py is not installed on the
+    card's machine; the CPU tests run them (tests/test_torch_ck_files.py)
+40. run_climate in f64 at 91 levels on the loaded table (bench.py's brown
+    dwarf): converged, flux balance <= 1e-3, no kernel launched, the same
+    converged and cvz_locs as the JAX solve on the same file and max |dT|
+    <= 2 K
+41. the host Newton solver ``climate.core.t_start`` from the 91-level
+    guess at its equilibrium chemistry (``_ClimateState.opacities``), one
+    convective zone, f64 on the card: the same Newton steps and converged
+    as the JAX t_start, max |dT| <= 1e-6 K; its wall s and flux
+    evaluations per step
+42. ``driver.run`` in climate mode from a TOML config whose
+    ``[OpticalProperties] ck_db`` is that directory, no connection passed,
+    41 levels: no kernel launched, the same converged and cvz_locs as the
+    JAX driver's run and max |dT| <= 2 K
+43. the front door's tools on the production table: a 91-level
+    ``guillot_pt`` profile's reflected + thermal spectrum twice (K1, K5
+    and K6 once each per call), ``get_contribution`` at nwno 50 000 f32 on
+    the card (no kernel) against f64 on the CPU (taus_per_layer and
+    tau_p_surface max rel <= 1e-3, tau_p_surface finite on the same
+    wavenumbers), ``convert_flux_units`` round trips through FLAM, FNU,
+    Jy, mJy and W/(m2 um) (max rel <= 1e-12).  Model save and load need
+    h5py and are not run here.  Phases 39-43 each print one JSON line
+    with the card's name and power limit
+44. the card, one JSON line with the climate numbers, one with the front
     door's (each path's launches, wall times, peaks, oracle and uniform-map
     deviations), one with the retrievals' (launches, rates, host and card
     times, oracle deviations), one with the climate modes' (per run: wall
     s, the solve's counts, launches, peak over alive, the gates' numbers),
-    one with every kernel's summary (launches on the paths counted above,
-    the front door's, the retrievals' and the climate modes' included and
-    also apart, times, max abs error, and the bound: the larger of the
+    one with phases 39-43's, one with every kernel's summary (launches on
+    the paths counted above, the front door's, the retrievals', the
+    climate modes' and phases 39-43's included and also apart, times, max
+    abs error, and the bound: the larger of the
     bytes its inputs and outputs need over 3.35 TB/s and the float32
     operations its twin performs on these inputs, counted per aten call,
     over 67 TFLOP/s), then the result line.
@@ -220,6 +257,7 @@ Phases (any failure raises, so the exit code is nonzero):
 
 import dataclasses
 import gc
+import hashlib
 import json
 import math
 import os
@@ -297,6 +335,13 @@ CLIMATE_MODES_RTOL = 1e-6    # Kzz, column optical depth
 # have a finite Kzz and quench levels, and meets every gate
 CLIMATE_DISEQ_BLOWUP = 'diseq_661_91'
 DRIVER_CLIMATE = 'driver_moist_41'   # the TOML climate mode's record
+# the JAX package's f64 solves on a CK table read from a legacy file
+# (phases 39-42; tests/ck_files_record.py), and where the card writes it
+CK_FILES_REFERENCE = 'tests/ck_files_reference.json'
+CK_FILES_DIR = 'build/ck_files'
+CK_FILES_RTOL = 1e-12        # loaded vs written: the text round-trips
+T_START_DT_MAX = 1e-6        # K, the card's t_start against the JAX one
+CONTRIB_MAX_REL = 1e-3       # get_contribution, f32 card vs f64 CPU
 # one H100 SXM at its 700 W limit (NVIDIA data sheet): memory rate and
 # float32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -1103,18 +1148,20 @@ def main():
     front_door = front_door_phases(dev, grid, reset_counts, counts)
     retrieval = retrieval_phases(dev, grid, reset_counts, counts)
     climate_modes = climate_modes_phases(dev, grid, reset_counts, counts)
+    ck_files = ck_files_phases(dev, grid, reset_counts, counts, smi[0])
     for paths in (front_door['launches'], retrieval['launches'],
-                  climate_modes['launches']):
+                  climate_modes['launches'], ck_files['launches']):
         for path in paths.values():
             for name, count in path.items():
                 launches[name] += count
 
-    # phase 39: summary
+    # phase 44: summary
     log(smi[0])
     print(json.dumps({'climate': climate}))
     print(json.dumps({'front_door': front_door}))
     print(json.dumps({'retrieval': retrieval}))
     print(json.dumps({'climate_modes': climate_modes}))
+    print(json.dumps({'ck_files': ck_files}))
     stats = {
         'interp_tau': dict(max_abs_err=k1_abs, ms=k1_ms,
                            plain_ms=k1_plain_ms, bytes=k1_bytes, ops=k1_ops,
@@ -1154,6 +1201,9 @@ def main():
             'climate_launches': sum(
                 path.get(name, 0)
                 for path in climate_modes['launches'].values()),
+            'ck_files_launches': sum(
+                path.get(name, 0)
+                for path in ck_files['launches'].values()),
             **st, 'bound_ms': bound_ms, 'bound_by': bound_by,
             'bound_share': bound_ms / st['ms'], 'library_ms': None})
     print(json.dumps({'kernels': kernels}))
@@ -2260,6 +2310,275 @@ def climate_modes_phases(dev, grid, reset_counts, counts):
               CLIMATE_BALANCE)
     summary['toml_climate'] = numbers
     return summary
+
+
+def ck_files_phases(dev, grid, reset_counts, counts, card):
+    """Phases 39-43: a CK table from a file into the climate (the legacy
+    ASCII writer and loader, ``opannection(ck_db=...)``, ``run_climate``,
+    the host Newton ``t_start``, the TOML driver with a ``ck_db``), then
+    the front door's tools at full width; each phase's numbers on a JSON
+    line of its own beside the card's name and power limit (``card``)."""
+    from picaso_tpu_torch import default_dtype, driver
+    from picaso_tpu_torch import justdoit as jdi
+    from picaso_tpu_torch.climate import api, core
+    from picaso_tpu_torch.opacities.db import PTGrid
+    from picaso_tpu_torch.opacities.legacy import (MAX_PC,
+                                                   synthetic_legacy_table,
+                                                   write_legacy_ascii)
+    from picaso_tpu_torch.probes.front_door import (egp_cloud_table,
+                                                    facade_case,
+                                                    production_profile)
+    from picaso_tpu_torch.rt.toon import ScatteringControls
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, CK_FILES_REFERENCE)) as f:
+        reference = json.load(f)
+    summary = {'launches': {}}
+
+    def report(key, numbers):
+        print(json.dumps({key: numbers, 'card': card}), flush=True)
+        summary[key] = numbers
+
+    def counted(label, fn, expected):
+        """fn() with the launch counts set to 0 just before and read just
+        after, each kernel of ``expected`` as often as it says, no other;
+        timed, its peak over the bytes alive before it."""
+        reset_counts()
+        out, wall, peak = timed_call(fn)
+        got = {k: v for k, v in counts().items() if v}
+        log(f'{label}: launches {got}')
+        if got != expected:
+            raise AssertionError(f'{label}: launches {got}, expected '
+                                 f'{expected}')
+        summary['launches'][label] = got
+        return out, wall, peak
+
+    # phase 39: the legacy table written, its bytes against the JAX
+    # writer's, opened on the card, held against what was written
+    directory = os.path.join(root, CK_FILES_DIR)
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, 'ascii_data')
+    t0 = time.perf_counter()
+    table = synthetic_legacy_table()
+    write_legacy_ascii(path, **table)
+    write_s = time.perf_counter() - t0
+    with open(path, 'rb') as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    log(f'[39] legacy table written in {write_s:.2f} s: '
+        f'{os.path.getsize(path)} bytes, sha256 {digest}')
+    if digest != reference['file']['sha256']:
+        raise AssertionError('[39] the legacy file differs from the JAX '
+                             f'writer\'s ({reference["file"]["sha256"]})')
+    t0 = time.perf_counter()
+    opa = jdi.opannection(ck_db=directory, method='preweighted', device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    ck = opa.climate_ck
+    a = ck.arrays
+    if (a.ln_kappa.device.type != dev.type
+            or a.ln_kappa.dtype != torch.float64):
+        raise AssertionError(f'[39] climate table on {a.ln_kappa.device} '
+                             f'in {a.ln_kappa.dtype}')
+    if opa.ck.arrays.ln_kappa.dtype != default_dtype(dev):
+        raise AssertionError('[39] the spectra table is not in the '
+                             'device\'s dtype')
+    written = {
+        'ln_kappa': (a.ln_kappa, table['kappa'] * np.log(10.0)),
+        'p_log_grid': (a.p_log_grid,
+                       np.log10(table['pressures_bar'][:MAX_PC])),
+        't_inv_grid': (a.t_inv_grid, 1.0 / table['temps']),
+        'gauss_wts': (a.gauss_wts, table['gauss_wts']),
+        'wno': (a.wno, table['wno']),
+        'delta_wno': (a.delta_wno, table['delta_wno']),
+        'abunds': (torch.as_tensor(np.stack([ck.full_abunds[m] for m in
+                                             table['molecules']], 1)),
+                   table['abunds']),
+    }
+    errs = {}
+    for name, (got, want) in written.items():
+        want = torch.as_tensor(np.asarray(want, np.float64),
+                               device=got.device)
+        if got.shape != want.shape:
+            raise AssertionError(f'[39] {name}: {tuple(got.shape)} vs '
+                                 f'{tuple(want.shape)}')
+        errs[name] = rel_stats(got, want)[0]
+        check(f'[39] loaded {name} max rel to the written table',
+              errs[name], CK_FILES_RTOL)
+    report('ck_file', dict(
+        sha256=digest, bytes=os.path.getsize(path), write_s=write_s,
+        opannection_s=load_s, shape=list(a.ln_kappa.shape),
+        species=len(ck.molecules), max_rel_to_written=errs,
+        formats_on_card=['legacy ascii_data'],
+        not_on_card='premixed hdf5, per-gas hdf5 (no h5py on this machine)'))
+
+    # phase 40: run_climate on the loaded table, against the JAX solve
+    rec = reference['climate_91']
+    inputs = climate_inputs(CLIMATE_NLEVEL)
+    out, numbers = climate_run('[40] run_climate, legacy table', inputs, ck,
+                               None, dev, reset_counts, counts)
+    summary['launches']['[40] run_climate'] = {}
+    nstr = numbers['cvz_locs']
+    d_t = float(np.abs(out['temperature']
+                       - np.asarray(rec['temperature'])).max())
+    numbers.update(max_dT_to_jax=d_t, jax_flux_balance=rec['flux_balance'],
+                   jax_cpu_s=rec['seconds'])
+    if (numbers['converged'], nstr) != (rec['converged'], rec['cvz_locs']):
+        raise AssertionError('[40] converged / cvz_locs differ from the JAX '
+                             f'solve\'s {rec["converged"]}, '
+                             f'{rec["cvz_locs"]}')
+    check('[40] max |dT| to the JAX package (K)', d_t, CLIMATE_DT_MAX)
+    report('ck_file_climate', numbers)
+    del out
+
+    # phase 41: the host Newton solve from the guess, one convective zone
+    rec = reference['t_start_91']
+    spec = rec['case']
+    st = api.climate_state(inputs, ck, device=dev, verbose=False)
+    pressure, guess = inputs.pressure, inputs.guess
+    df = st.premix(guess, pressure)
+    props, _ = st.opacities(df)
+    tidal = core.tidal_flux(CLIMATE_TEFF, len(pressure))
+
+    def newton():
+        return core.t_start(
+            guess, pressure * 1e6, spec['nstr'], spec['nofczns'], props,
+            st.geom, ck.wno, ck.delta_wno, ck.gauss_wts, 0.0,
+            np.zeros(ck.nwno), ScatteringControls(), st.adiabat, 1.0,
+            spec['rfacv'], tidal, spec['tmin'], spec['tmax'],
+            it_max=spec['it_max'], save_profiles=True)
+    res, wall, peak = counted('[41] t_start', newton, {})
+    d_t = float(np.abs(res.temp - np.asarray(rec['temperature'])).max())
+    numbers = dict(wall_s=wall / 1e3, iterations=res.iterations,
+                   converged=int(res.converged),
+                   flux_evaluations=res.flux_evaluations,
+                   flux_evaluations_per_iteration=(
+                       res.flux_evaluations / max(res.iterations, 1)),
+                   peak_bytes_over_alive=peak, max_dT_to_jax=d_t,
+                   jax_iterations=rec['iterations'],
+                   jax_converged=rec['converged'], jax_cpu_s=rec['seconds'])
+    log(f'[41] t_start: {json.dumps(numbers)}')
+    if (res.iterations, int(res.converged)) != (rec['iterations'],
+                                                 rec['converged']):
+        raise AssertionError('[41] Newton steps / converged differ from the '
+                             'JAX solve\'s')
+    check('[41] t_start max |dT| to the JAX package (K)', d_t,
+          T_START_DT_MAX)
+    report('ck_file_t_start', numbers)
+    del st, props, res
+
+    # phase 42: the TOML climate mode opening ck_db itself
+    rec = reference['driver_41']
+    config = json.loads(json.dumps(rec['case']['config']))
+    config['OpticalProperties']['ck_db'] = directory
+    (case, out), wall, peak = counted(
+        '[42] driver.run climate from ck_db',
+        lambda: driver.run(config, device=dev, verbose=False), {})
+    temp = out['temperature']
+    nstr = [int(i) for i in out['cvz_locs']]
+    d_t = float(np.abs(temp - np.asarray(rec['temperature'])).max())
+    numbers = dict(wall_s=wall / 1e3, converged=int(out['converged']),
+                   cvz_locs=nstr, max_dT_to_jax=d_t,
+                   flux_balance=flux_balance(out, CLIMATE_TEFF),
+                   jax_flux_balance=rec['flux_balance'],
+                   jax_cpu_s=rec['seconds'], nlevel=len(temp),
+                   peak_bytes_over_alive=peak)
+    log(f'[42] TOML climate from ck_db: {json.dumps(numbers)}')
+    if not np.isfinite(temp).all():
+        raise AssertionError('[42] non-finite temperatures')
+    if (numbers['converged'], nstr) != (rec['converged'], rec['cvz_locs']):
+        raise AssertionError('[42] converged / cvz_locs differ from the JAX '
+                             'driver\'s')
+    check('[42] max |dT| to the JAX driver (K)', d_t, CLIMATE_DT_MAX)
+    report('ck_file_driver', numbers)
+    del case, out, opa, ck
+
+    # phase 43: the tools at full width on the production table
+    opa = jdi.Opacity(grid.wno, grid=grid)
+
+    def guillot_case(o):
+        case = facade_case(o, clouds=False)
+        pt = case.guillot_pt(1200.0, T_int=200.0, nlevel=NLEVEL)
+        prof = production_profile(o.molecules)
+        prof.update(pressure=pt['pressure'], temperature=pt['temperature'])
+        case.atmosphere(df=prof)
+        case.clouds(df=egp_cloud_table(NLEVEL - 1))
+        return case
+
+    walls = []
+    for i in range(2):
+        out, wall, _ = counted(
+            f'[43] guillot_pt spectrum {i}', lambda: guillot_case(
+                opa).spectrum(opa, calculation='reflected+thermal'),
+            {'interp_tau': 1, 'reflected_toon_props': 1,
+             'thermal_toon_props': 1})
+        check_finite('[43] guillot_pt spectrum', out, ('albedo', 'thermal'))
+        walls.append(wall)
+    thermal, wno = out['thermal'], out['wavenumber']
+
+    reset_counts()
+    contrib, wall_c, peak_c = timed_call(
+        lambda: jdi.get_contribution(guillot_case(opa), opa))
+    if any(counts().values()):
+        raise AssertionError('[43] get_contribution launched a kernel')
+
+    def mv(x):
+        return (x.to('cpu', torch.float64) if x.is_floating_point()
+                else x.to('cpu'))
+    cpu_grid = grid._replace(
+        wno=mv(grid.wno), log_kappa=mv(grid.log_kappa),
+        pt=PTGrid(*(mv(x) for x in grid.pt)), cont_opa=mv(grid.cont_opa),
+        cia_temps=mv(grid.cia_temps), log_kappa_blocked=None,
+        blocked_qparams=None)
+    o_cpu = jdi.Opacity(grid.wno, grid=cpu_grid)
+    t0 = time.perf_counter()
+    ref = jdi.get_contribution(guillot_case(o_cpu), o_cpu)
+    cpu_s = time.perf_counter() - t0
+    del o_cpu, cpu_grid
+    if set(contrib['taus_per_layer']) != set(ref['taus_per_layer']):
+        raise AssertionError('[43] get_contribution species differ')
+    taus_rel, p_rel = {}, {}
+    for name, want in ref['taus_per_layer'].items():
+        got = contrib['taus_per_layer'][name]
+        if got.shape != (NLEVEL - 1, NWNO):
+            raise AssertionError(f'[43] {name}: shape {got.shape}')
+        taus_rel[name] = rel_stats(torch.as_tensor(got),
+                                   torch.as_tensor(want))[0]
+        pg = contrib['tau_p_surface'][name].astype(np.float64)
+        pw = ref['tau_p_surface'][name]
+        both = np.isfinite(pg) & np.isfinite(pw)
+        if not np.array_equal(np.isfinite(pg), np.isfinite(pw)):
+            raise AssertionError(f'[43] {name}: tau_p_surface finite on '
+                                 'other wavenumbers')
+        p_rel[name] = float(np.max(np.abs(pg[both] / pw[both] - 1.0),
+                                   initial=0.0))
+    log('[43] get_contribution, f32 card vs f64 CPU')
+    check('[43] taus_per_layer max rel', max(taus_rel.values()),
+          CONTRIB_MAX_REL)
+    check('[43] tau_p_surface max rel', max(p_rel.values()),
+          CONTRIB_MAX_REL)
+
+    units = ('FLAM', 'FNU', 'Jy', 'mJy', 'W/(m2 um)')
+    round_trip = {}
+    for unit in units:
+        there = jdi.convert_flux_units(wno, thermal, unit)
+        back = jdi.convert_flux_units(wno[::-1], there,
+                                      'erg*cm^(-3)*s^(-1)', f_unit=unit)
+        round_trip[unit] = rel_stats(
+            torch.as_tensor(back[::-1].copy()),
+            torch.as_tensor(np.asarray(thermal, np.float64)))[0]
+        check(f'[43] convert_flux_units per cm -> {unit} -> per cm max rel',
+              round_trip[unit], 1e-12)
+    report('tools', dict(
+        guillot_spectrum_wall_ms=walls,
+        get_contribution=dict(wall_ms=wall_c, peak_bytes_over_alive=peak_c,
+                              cpu_f64_s=cpu_s,
+                              species=sorted(taus_rel),
+                              taus_per_layer_max_rel=taus_rel,
+                              tau_p_surface_max_rel=p_rel),
+        convert_flux_units_round_trip_max_rel=round_trip,
+        model_save_load='not run: needs h5py, absent on this machine'))
+    return summary
+
 
 if __name__ == '__main__':
     sys.exit(main())

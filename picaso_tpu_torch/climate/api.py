@@ -250,6 +250,15 @@ class _ClimateState:
         profile once one exists, else the one the run started with."""
         return self.sc_kzz if self.sc_kzz is not None else self.inputs.kzz
 
+    def opacities(self, profile_df):
+        """RTProps and the atmosphere of a chemistry profile on the premixed
+        table (api.py:253-259 of the JAX package), the optics options of
+        the run: the fixed opacities a host ``core.t_start`` takes."""
+        return ck_rtprops(profile_df, self.ck, self.gravity,
+                          p_reference=self.inputs.p_reference,
+                          delta_eddington=self.inputs.delta_eddington,
+                          stream=self.inputs.stream)
+
     # ---- host-assembled path (diseq chemistry / virga clouds) -------------
     def update_diseq_chem(self, temp, pressure_bar):
         """Kzz -> quench levels -> chemistry adjustments (climate.py:
@@ -401,7 +410,9 @@ class _ClimateState:
 def _reconstruct_host(state, temp, nstr, nofczns):
     """Adiabatic re-stitch of convective zones (climate.py:3037-3067);
     with moist set, the stitch follows the moist adiabat at the current
-    chemistry (climate.py:3053)."""
+    chemistry (climate.py:3053).  The JAX package's ``_reconstruct_jitted``
+    (api.py:417) only wraps the same ``reconstruct_profile`` in a cached
+    jit; here it runs eagerly, so this one function covers both."""
     zones = core.zone_maps(nstr, nofczns, len(temp))
     moist_args = ((state.data.cond_abunds, state.condensables,
                    state._config_base['cond_weights'])

@@ -12,12 +12,16 @@ climate.py:1687-1952 ``get_fluxes``, :1122-1152 the adiabat re-stitch):
   profile reconstruction loops over the convective levels alone, with the
   JAX scan's arithmetic per level, on the dry or the moist adiabat.
 
-The host Newton solver ``t_start`` (and its ``_jacobian``, ``_apply_step``,
-``_flux_state``) waits (ROADMAP Queue 1): ``run_climate`` does not use it.
+The host Newton solver ``t_start`` (core.py:256-537 of the JAX package:
+``climate_fluxes``, ``_pack_residual``, ``_flux_state``, ``_jacobian``,
+``_apply_step``, ``TStartResult``) drives the same level fluxes from the
+host, one numpy decision per line-search trial; ``run_climate`` uses the
+device-resident ``fused.newton_solve`` instead.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -32,7 +36,8 @@ from .moist import moist_grad_from_dry
 __all__ = ['SIGMA_SB', 'ClimateGeometry', 'make_climate_geometry',
            'chapman', 'tidal_flux', 'ZoneMaps', 'zone_maps',
            'reconstruct_profile', 'thermal_level_fluxes', 'thermal_fluxes',
-           'visible_level_fluxes', 'visible_fluxes']
+           'visible_level_fluxes', 'visible_fluxes', 'climate_fluxes',
+           'TStartResult', 't_start']
 
 SIGMA_SB = 0.56687e-4  # value baked into climate.py:5130
 
@@ -281,3 +286,302 @@ def _pack_residual(flux_net, flux_net_midpt, zones: ZoneMaps):
     vals = torch.where(is_level, lev, mid)
     k = torch.arange(vals.shape[-1], device=device)
     return torch.where(k < zones.n_total, vals, torch.zeros_like(vals))
+
+
+def climate_fluxes(tlevel, props: RTProps, plevel, geom: ClimateGeometry,
+                   wno, dwno, gauss_wts, surf_reflect, F0PI, controls,
+                   compute_reflected):
+    """get_fluxes (climate.py:1687-1952): (flux_net_ir, flux_net_ir_layer,
+    flux_plus_ir_top, flux_net_v, flux_net_v_layer) at tlevel [nlevel];
+    the visible pair is zero unless ``compute_reflected``."""
+    fni, fnil, fpit = thermal_fluxes(tlevel, props, plevel, geom, wno, dwno,
+                                     gauss_wts, surf_reflect)
+    if compute_reflected:
+        fnv, fnvl = visible_fluxes(props, plevel, F0PI, gauss_wts,
+                                   surf_reflect, controls)
+    else:
+        fnv = torch.zeros_like(fni)
+        fnvl = torch.zeros_like(fni)
+    return fni, fnil, fpit, fnv, fnvl
+
+
+# ---------------------------------------------------------------------------
+# the host Newton solver (t_start)
+# ---------------------------------------------------------------------------
+
+def _flux_state(temp, props, plevel, geom, wno, dwno, gauss_wts,
+                surf_reflect, F0PI, controls, zones: ZoneMaps, rfaci, rfacv,
+                tidal, compute_reflected, fnv_fixed=None, fnvl_fixed=None):
+    """The fluxes at ``temp`` and the packed residual f_vec
+    (core.py:287-308 of the JAX package).  With fixed optical properties
+    the visible fluxes do not depend on temperature: Newton trials pass
+    the ones of t_start's entry as ``fnv_fixed``/``fnvl_fixed``
+    (the reference's carried flux_net_v, climate.py:1425-1427)."""
+    fni, fnil, fpit, fnv, fnvl = climate_fluxes(
+        temp, props, plevel, geom, wno, dwno, gauss_wts, surf_reflect,
+        F0PI, controls, compute_reflected)
+    if fnv_fixed is not None:
+        fnv, fnvl = fnv_fixed, fnvl_fixed
+    flux_net = rfaci * fni + rfacv * fnv + tidal
+    flux_net_mid = rfaci * fnil + rfacv * fnvl + tidal
+    return dict(flux_net_ir=fni, flux_net_ir_layer=fnil,
+                flux_plus_ir_top=fpit, flux_net_v=fnv, flux_net_v_layer=fnvl,
+                f_vec=_pack_residual(flux_net, flux_net_mid, zones))
+
+
+# perturbed profiles per flux evaluation of ``_jacobian``
+JAC_BATCH = 8
+
+
+def _jacobian(beta, temp_old, flux_ir_old, flux_ir_layer_old,
+              zones: ZoneMaps, props, plevel, geom, wno, dwno, gauss_wts,
+              surf_reflect, adiabat: AdiabatGrid):
+    """A[k, m] = d resid_k / d T_pert_m by finite differences, del_t =
+    max(1e-4 T, 3 K), opacities held fixed (core.py:311-341 of the JAX
+    package; the reference's serial re-runs, climate.py:1106-1250):
+    ``JAC_BATCH`` perturbed profiles per flux evaluation, as the JAX
+    ``lax.map(batch_size=8)``; the identity outside the active
+    n_total x n_total block."""
+    nlevel = beta.shape[0]
+    n = zones.n_total
+    device = beta.device
+    rl = torch.as_tensor(zones.resid_level, device=device).long()
+    is_level = torch.as_tensor(zones.resid_is_level, device=device).bool()
+    pert = torch.as_tensor(zones.pert_levels, device=device).long()
+    A = torch.eye(nlevel, dtype=beta.dtype, device=device)
+    for start in range(0, n, JAC_BATCH):
+        stop = min(start + JAC_BATCH, n)
+        jm = pert[start:stop]
+        rows = torch.arange(stop - start, device=device)
+        del_t = torch.clamp(1e-4 * temp_old[jm], min=3.0)
+        beta_p = beta.expand(stop - start, nlevel).clone()
+        beta_p[rows, jm] = beta_p[rows, jm] + del_t
+        temp_p = reconstruct_profile(beta_p, zones, plevel, adiabat)
+        fni, fnil, _ = thermal_fluxes(temp_p, props, plevel, geom, wno, dwno,
+                                      gauss_wts, surf_reflect)
+        dlev = fni[:, rl] - flux_ir_old[rl]
+        dmid = fnil[:, rl] - flux_ir_layer_old[rl]
+        col = torch.where(is_level, dlev, dmid) / del_t[:, None]
+        A[:n, start:stop] = col[:, :n].T
+    return A
+
+
+def _apply_step(beta, p_step, alam, zones: ZoneMaps, plevel, adiabat,
+                tmin, tmax):
+    """temp_rad = beta + alam*p on the perturbed levels, the adiabat
+    re-stitch, the tmin/tmax clamp (climate.py:1364-1392; core.py:344-356
+    of the JAX package)."""
+    n = zones.n_total
+    pert = torch.as_tensor(zones.pert_levels[:n], device=beta.device).long()
+    add = torch.zeros_like(beta).index_add_(0, pert, alam * p_step[:n])
+    temp = reconstruct_profile(beta + add, zones, plevel, adiabat)
+    return torch.clamp(temp, tmin + 0.1, tmax - 0.1)
+
+
+@dataclasses.dataclass
+class TStartResult:
+    temp: np.ndarray
+    dtdp: np.ndarray
+    converged: bool
+    flux_net_ir: np.ndarray
+    flux_net_v: np.ndarray
+    flux_plus_ir_top: np.ndarray
+    profiles: list
+    iterations: int = 0
+    flux_evaluations: int = 0
+
+
+def t_start(temp, plevel, nstr, nofczns, props: RTProps,
+            geom: ClimateGeometry, wno, dwno, gauss_wts, surf_reflect,
+            F0PI, controls: toon.ScatteringControls, adiabat: AdiabatGrid,
+            rfaci, rfacv, tidal, tmin, tmax, it_max=10, conv=5.0,
+            x_max_mult=7.0, egp_stepmax=False, verbose=False,
+            save_profiles=False) -> TStartResult:
+    """Newton-Raphson T(P) solve with fixed opacities (climate.py:805-1553;
+    core.py:371-537 of the JAX package), the host driving the scalar
+    control flow as there: Numerical Recipes' lnsrch with the reference's
+    compounding step_max, the cubic backtracking, tolf/tolx/tolmin.
+
+    The fluxes, the Jacobian (8 perturbed profiles per evaluation), the
+    profile reconstruction and the line-search trials run on the device of
+    ``props`` in its dtype; numpy arguments (wno, dwno, gauss_wts,
+    surf_reflect, F0PI, tidal, temp, plevel in dyn/cm^2) move there.  The
+    visible fluxes are computed once at entry and carried through every
+    trial (core.py:398-399 of the JAX package).  The result's
+    ``iterations`` counts the Newton steps taken (the JAX package's
+    ``len(profiles)`` with ``save_profiles``) and ``flux_evaluations`` the
+    flux evaluations (a Jacobian batch of 8 profiles is one).
+    """
+    like = props.dtau
+    dtype, device = like.dtype, like.device
+
+    def t(x):
+        if not torch.is_tensor(x):
+            x = np.array(x, dtype=np.float64)
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    nlevel = len(temp)
+    zones = zone_maps(nstr, nofczns, nlevel)
+    n_total = int(zones.n_total)
+    compute_reflected = rfacv != 0.0
+    plevel, wno, dwno, gauss_wts, surf_reflect, F0PI = (
+        t(x) for x in (plevel, wno, dwno, gauss_wts, surf_reflect, F0PI))
+    tidal_np = np.asarray(tidal, np.float64)
+    tidal = t(tidal_np)
+    temp = t(temp)
+    n_eval = 0
+
+    def state_at(temp, reflected, **fixed):
+        nonlocal n_eval
+        n_eval += 1
+        return _flux_state(temp, props, plevel, geom, wno, dwno, gauss_wts,
+                           surf_reflect, F0PI, controls, zones, rfaci, rfacv,
+                           tidal, reflected, **fixed)
+
+    # numerical-recipes knobs (climate.py:905-912)
+    alf, tolmin, tolf, tolx = 1e-4, 1e-5, 5e-3, 5e-3
+    step_max = 0.01        # compounds across iterations (climate.py:907)
+
+    profiles = []
+    state = state_at(temp, compute_reflected)
+    # the visible fluxes of fixed props, carried through every trial
+    fixed = dict(fnv_fixed=state['flux_net_v'],
+                 fnvl_fixed=state['flux_net_v_layer'])
+
+    converged = False
+    steps = 0
+    for its in range(it_max):
+        f_vec = state['f_vec'].cpu().numpy().astype(np.float64)[:n_total]
+        temp_old = temp.cpu().numpy().astype(np.float64)
+        flux_ir_old = state['flux_net_ir']
+        flux_ir_layer_old = state['flux_net_ir_layer']
+
+        ssum = float((f_vec ** 2).sum())
+        sum_1 = float((temp_old[:n_total] ** 2).sum())
+        test = float(np.abs(f_vec).max())
+        f = 0.5 * ssum
+
+        if test / abs(float(tidal_np[0])) < 0.01 * tolf:
+            converged = True
+            break
+
+        if egp_stepmax:
+            step_max = 0.005 * max(np.sqrt(sum_1), n_total * 1.0)
+        else:
+            # the reference compounds step_max across Newton iterations
+            # (climate.py:907, :1082); kept for trace parity
+            iteration_factor = max(0.01, (it_max - its) / it_max)
+            step_max = (step_max * max(np.sqrt(sum_1), n_total * 1.0)
+                        * iteration_factor)
+
+        A = _jacobian(temp, t(temp_old), flux_ir_old, flux_ir_layer_old,
+                      zones, props, plevel, geom, wno, dwno, gauss_wts,
+                      surf_reflect, adiabat)
+        n_eval += -(-n_total // JAC_BATCH)
+        A_np = A.cpu().numpy().astype(np.float64)[:n_total, :n_total]
+        g = A_np.T @ f_vec
+        try:
+            p_step = np.linalg.solve(A_np, -f_vec)
+        except np.linalg.LinAlgError:
+            p_step = -f_vec / np.maximum(np.abs(np.diag(A_np)), 1e-30)
+
+        dflux = f_vec.copy()
+        norm = float(np.sqrt((p_step[2:] ** 2).sum()))
+        if norm > step_max:
+            p_step *= step_max / norm
+            dflux = -p_step
+        slope = float(g @ p_step)
+        test = float(np.max(np.abs(p_step) / temp_old[:n_total]))
+        alamin = tolx / test
+        alam, alam2, f2 = 1.0, 0.0, f
+        f_old = f
+        check = False
+
+        beta = temp  # the radiative anchor of this Newton iteration
+        p_dev = torch.zeros(nlevel, dtype=dtype, device=device)
+        p_dev[:n_total] = t(p_step)
+
+        flag_converge = 0
+        while flag_converge == 0:
+            temp_trial = _apply_step(beta, p_dev, alam, zones, plevel,
+                                     adiabat, tmin, tmax)
+            state = state_at(temp_trial, False, **fixed)
+            f_vec_new = state['f_vec'].cpu().numpy().astype(
+                np.float64)[:n_total]
+            f = 0.5 * float((f_vec_new ** 2).sum())
+            tt = temp_trial.cpu().numpy().astype(np.float64)
+
+            def _check():
+                # check_convergence (climate.py:1555-1631)
+                t1 = float(np.abs(f_vec_new).max())
+                if t1 < tolf:
+                    return 2, False
+                if check:
+                    den1 = max(f, 0.5 * n_total)
+                    t2 = float(np.max(g * dflux / den1)) if n_total else 0.0
+                    return 2, t2 < tolmin
+                t3 = float(np.max(np.abs(tt[:n_total] - temp_old[:n_total])
+                                  / temp_old[:n_total]))
+                if t3 < tolx:
+                    return 2, check
+                return 1, check
+
+            if alam < alamin:
+                check = True
+                flag_converge, check = _check()
+            elif f <= f_old + alf * alam * slope:
+                flag_converge, check = _check()
+            else:
+                if alam == 1.0:
+                    tmplam = -slope / (2 * (f - f_old - slope))
+                else:
+                    rhs_1 = f - f_old - alam * slope
+                    rhs_2 = f2 - f_old - alam2 * slope
+                    anr = ((rhs_1 / alam ** 2 - rhs_2 / alam2 ** 2)
+                           / (alam - alam2))
+                    b = ((-alam2 * rhs_1 / alam ** 2
+                          + alam * rhs_2 / alam2 ** 2) / (alam - alam2))
+                    if anr == 0:
+                        tmplam = -slope / (2.0 * b)
+                    else:
+                        disc = b * b - 3.0 * anr * slope
+                        if disc < 0.0:
+                            tmplam = 0.5 * alam
+                        elif b <= 0.0:
+                            tmplam = (-b + np.sqrt(disc)) / (3.0 * anr)
+                        else:
+                            tmplam = -slope / (b + np.sqrt(disc))
+                    tmplam = min(tmplam, 0.5 * alam)
+                alam2, f2 = alam, f
+                alam = max(tmplam, 0.1 * alam)
+            if np.isnan(tt).any():
+                flag_converge = 1
+                temp_trial = t(temp_old + 0.5)
+
+        temp = temp_trial
+        steps += 1
+        if save_profiles:
+            profiles.append(temp_old)
+        if verbose:
+            print(f'  t_start it {its}: Tmin/max '
+                  f'{float(temp.min()):.1f}/{float(temp.max()):.1f} '
+                  f'balance {float(state["f_vec"][0]) / abs(tidal_np[0]):.2e}')
+        if flag_converge == 2:
+            converged = True
+            break
+
+    # the visible and IR state at the result, for the returned fluxes
+    state = state_at(temp, compute_reflected)
+    temp_np = temp.cpu().numpy().astype(np.float64)
+    p_np = plevel.cpu().numpy().astype(np.float64)
+    dtdp = np.diff(np.log(temp_np)) / np.diff(np.log(p_np))
+
+    def host(x):
+        return x.cpu().numpy().astype(np.float64)
+
+    return TStartResult(
+        temp=temp_np, dtdp=dtdp, converged=converged,
+        flux_net_ir=host(state['flux_net_ir_layer']),
+        flux_net_v=host(state['flux_net_v_layer']),
+        flux_plus_ir_top=host(state['flux_plus_ir_top']),
+        profiles=profiles, iterations=steps, flux_evaluations=n_eval)

@@ -13,9 +13,10 @@ observation CSV by header name, profile files as whitespace tables.
 
 ``calc_type='climate'`` (``setup_climate_class``) builds a climate case
 from the TOML and ``run`` solves it with the front door's ``climate``.
-Without a connection it opens ``[OpticalProperties] ck_db`` through
-``opannection``, whose CK loaders are not ported yet (ROADMAP Queue 1 item
-4.7): it raises there.  Not ported: ``viz`` (the plots, item 8.2).
+Without a connection it opens ``[OpticalProperties] ck_db`` (a premixed
+hdf5, a legacy ``ascii_data`` directory, or per-gas tables with
+``opacity_method = 'resortrebin'``) through ``opannection`` on the run's
+device.  Not ported: ``viz`` (the plots, item 8.2).
 """
 
 from __future__ import annotations
@@ -424,8 +425,8 @@ def setup_climate_class(config, opa=None, device='cuda'):
 
     ``opa``, a CK connection, is used as given; without it the connection
     is opened from [OpticalProperties] on ``device``
-    (``opannection(ck_db=...)``, which raises until the CK loaders are
-    ported, ROADMAP Queue 1 item 4.7).
+    (``opannection(ck_db=...)``; ``opacity_kwargs`` go to the loader, e.g.
+    ``{preload_gases = [...]}`` or ``{dtype = 'float64'}``).
     """
     cl = config.get('climate', {})
     if opa is None:

@@ -17,10 +17,13 @@ A table may carry per-gas ln-k tables [ngas, npress, ntemp, nwno, ngauss]
 (``opacities/resortrebin.py``) for disequilibrium chemistry.
 ``ck_taugas`` gives the spectrum path's molecular and continuum optical
 depths: from the per-gas tables mixed at the atmosphere's own abundances
-where the table has them, else from the premixed table.  Not ported yet
-(ROADMAP Queue 1 item 4.7): the real-file loaders (``load_ck_db``:
-premixed hdf5, the legacy 1460-grid ASCII directory, and
-``load_per_gas_tables``), which need h5py and the external CK files.
+where the table has them, else from the premixed table.
+
+:func:`load_ck_db` reads a table from files (ck.py:128-265 of the JAX
+package): a premixed hdf5 (the reference ``get_ck_tables`` layout), a
+legacy 1460-grid ASCII directory (``opacities/legacy.py``, numpy alone), or
+a directory of per-gas ``<mol>_1460.hdf5`` tables for resort-rebin.  The
+hdf5 formats import h5py where they are read.
 """
 
 from __future__ import annotations
@@ -35,8 +38,9 @@ from .. import checked_device
 from .db import connect
 from .factory import synthetic_cross_sections
 
-__all__ = ['CKArrays', 'CKTable', 'synthetic_ck_table', 'interp_premix',
-           'ck_continuum', 'ck_taugas', 'double_gauss_points']
+__all__ = ['CKArrays', 'CKTable', 'load_ck_db', 'synthetic_ck_table',
+           'interp_premix', 'ck_continuum', 'ck_taugas',
+           'double_gauss_points']
 
 AVOGADRO = 6.02214086e+23
 
@@ -165,6 +169,145 @@ def _load_continuum(continuum_db, wno, dtype=np.float32):
     finally:
         conn.close()
     return np.maximum(cont, np.asarray(1e-33, dtype)), temps, tuple(mols)
+
+
+def _torch_dtype(dtype):
+    """A torch float dtype from a torch, numpy or string one ('float64'
+    as a TOML file gives it)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return {np.dtype(np.float64): torch.float64,
+            np.dtype(np.float32): torch.float32}[np.dtype(dtype)]
+
+
+def _ck_arrays(wno, delta_wno, gauss_wts, ln_kappa, pressures, temps, nc_p,
+               continuum_db, dtype, device):
+    """CKArrays on ``device`` in ``dtype`` from host arrays, with the
+    continuum of ``continuum_db`` (default the bundled CK continuum
+    database, whose grid the table's must be)."""
+    np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+    cont, cia_temps, cont_mols = _load_continuum(
+        continuum_db or CONTINUUM_DB, wno, np_dtype)
+
+    def dev(x, dt=dtype):
+        return torch.tensor(np.asarray(x), dtype=dt, device=device)
+
+    return CKArrays(
+        wno=dev(wno), delta_wno=dev(delta_wno), gauss_wts=dev(gauss_wts),
+        ln_kappa=dev(ln_kappa),
+        p_log_grid=dev(np.log10(pressures[pressures > 0])),
+        t_inv_grid=dev(1.0 / temps), nc_p=dev(nc_p, torch.int32),
+        cont_opa=dev(cont), cia_temps=dev(cia_temps),
+        continuum_molecules=cont_mols)
+
+
+def load_ck_db(ck_db, method='preweighted', continuum_db=None,
+               dtype=torch.float64, device='cuda', **kwargs) -> CKTable:
+    """Load a CK table from files (ck.py:128-193 of the JAX package) onto
+    ``device`` (default the card; raises where there is none) in ``dtype``
+    (default float64, the climate solve's; a numpy dtype or its name is
+    taken too).
+
+    method='preweighted': a premixed hdf5 (the reference get_ck_tables
+    format) or a legacy 1460-grid ASCII directory (or its ``ascii_data``
+    file; optics.py:768-1058).  method='resortrebin': a directory of
+    per-gas ``<mol>_1460.hdf5`` tables (opacity_factory.py:2280), mixed
+    per layer from each atmosphere's abundances (gasesfly,
+    optics.py:1164-1198); kwargs: preload_gases (list, required).
+    """
+    device = checked_device(device)
+    dtype = _torch_dtype(dtype)
+    if method == 'resortrebin':
+        return _load_per_gas_ck(ck_db, kwargs.get('preload_gases'),
+                                continuum_db, dtype, device)
+    if (os.path.isdir(ck_db)
+            or os.path.basename(str(ck_db)) == 'ascii_data'):
+        return _load_legacy_ck(ck_db, continuum_db, dtype, device)
+    import h5py
+    with h5py.File(ck_db, 'r') as f:
+        molecules = [x.decode('utf-8') for x in f['ck_molecules'][:]]
+        wno = f['wno'][:]
+        delta_wno = f['delta_wno'][:]
+        pressures_flat = f['pressures'][:]
+        temps_flat = f['temperatures'][:]
+        gauss_pts = f['gauss_pts'][:]
+        gauss_wts = f['gauss_wts'][:]
+        kappa = f['kcoeffs'][:]       # [npress, ntemp, nwno, ngauss], ln
+        abunds = dict(zip([x.decode('utf-8') for x in f['abunds_map'][:]],
+                          np.asarray(f['abunds'][:]).T))
+    abunds['temperature'] = temps_flat
+    abunds['pressure'] = pressures_flat
+    temps, nc_p = np.unique(temps_flat, return_counts=True)
+    pressures = np.unique(pressures_flat)
+    arrays = _ck_arrays(wno, delta_wno, gauss_wts, kappa, pressures, temps,
+                        nc_p, continuum_db, dtype, device)
+    return CKTable(arrays, molecules, abunds, gauss_pts, temps, pressures,
+                   wno=wno, delta_wno=delta_wno, gauss_wts=gauss_wts)
+
+
+def _load_per_gas_ck(ck_db, preload_gases, continuum_db, dtype, device):
+    """CKTable in gasesfly mode from per-gas hdf5 tables (ck.py:196-237 of
+    the JAX package).  The premixed table is a solar-abundance sum of the
+    per-gas tables in kappa space (used only where no atmosphere
+    abundances exist); spectra and climate runs resort-rebin per layer."""
+    from .resortrebin import load_per_gas_tables
+
+    if not preload_gases:
+        raise ValueError("method='resortrebin' needs preload_gases=[...]")
+    np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+    per_gas, meta = load_per_gas_tables(ck_db, preload_gases, np_dtype)
+    loaded = [m for m in preload_gases
+              if os.path.exists(os.path.join(ck_db, f'{m}_1460.hdf5'))]
+    solar = {'H2O': 1e-3, 'CH4': 5e-4, 'CO': 3e-4, 'NH3': 1e-4,
+             'CO2': 1e-7, 'H2S': 3e-5}
+    w = np.array([solar.get(m, 1e-5) for m in loaded], np_dtype)
+    premix = np.log(np.einsum('g,gptwk->ptwk', w, np.exp(per_gas))
+                    + 1e-300)
+
+    wno = np.asarray(meta['wno'], float)
+    temps = np.asarray(meta['temps'], float)
+    pressures = np.asarray(meta['pressures'], float)
+    # rows T-major; the JAX package's frame's columns: the gases, H2, He,
+    # temperature, pressure
+    nrow = len(temps) * len(pressures)
+    abunds = {m: np.full(nrow, solar.get(m, 1e-5)) for m in loaded}
+    abunds.update(H2=np.full(nrow, 0.837), He=np.full(nrow, 0.155),
+                  temperature=np.repeat(temps, len(pressures)),
+                  pressure=np.tile(pressures, len(temps)))
+    arrays = _ck_arrays(wno, meta['delta_wno'], meta['gauss_wts'], premix,
+                        pressures, temps, meta['nc_p'], continuum_db, dtype,
+                        device)
+    return CKTable(arrays, loaded, abunds, meta['gauss_pts'], temps,
+                   pressures, wno=wno, delta_wno=meta['delta_wno'],
+                   gauss_wts=meta['gauss_wts'],
+                   per_gas=torch.tensor(per_gas, dtype=dtype, device=device),
+                   per_gas_molecules=loaded)
+
+
+def _load_legacy_ck(ck_db, continuum_db, dtype, device):
+    """CKTable from a legacy 1460-grid ASCII table (ck.py:240-265 of the
+    JAX package; ``opacities/legacy.py``): ln kappa = log10 kappa x ln 10,
+    the chemistry table of the file's species at its positive-pressure
+    points."""
+    from .legacy import load_legacy_ck_1460
+
+    leg = load_legacy_ck_1460(ck_db)
+    wno = np.asarray(leg['wno'], float)
+    kappa_ln = np.asarray(leg['kappa'], float) * np.log(10.0)
+    pressures_flat = leg['pressures']
+    temps = np.asarray(leg['temps'], float)
+    p_pos = np.unique(pressures_flat[pressures_flat > 0])
+    keep = pressures_flat > 0
+    table = np.asarray(leg['abunds'])[keep, :len(leg['molecules'])]
+    abunds = {m: table[:, i] for i, m in enumerate(leg['molecules'])}
+    abunds['pressure'] = leg['pressure_labels']
+    abunds['temperature'] = leg['temperature_labels']
+    arrays = _ck_arrays(wno, leg['delta_wno'], leg['gauss_wts'], kappa_ln,
+                        p_pos, temps, np.asarray(leg['nc_p'], int),
+                        continuum_db, dtype, device)
+    return CKTable(arrays, leg['molecules'], abunds, leg['gauss_pts'],
+                   temps, p_pos, wno=wno, delta_wno=leg['delta_wno'],
+                   gauss_wts=leg['gauss_wts'])
 
 
 def synthetic_ck_table(continuum_db=None,

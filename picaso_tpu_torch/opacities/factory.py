@@ -12,7 +12,13 @@ module, so both packages build the same tables.
 The production (T, P) layout is read from the chemistry table bundled with
 the JAX package, by path and with numpy: importing ``picaso_tpu`` would
 import jax, and the port runs where neither jax nor pandas is installed.
-The correlated-k tooling is not ported yet.
+
+The correlated-k tooling (``compute_k_distribution``,
+``compute_ck_molecular``, ``compute_sum_molecular``, ``write_ck_hdf5``;
+factory.py:304-467 of the JAX package) is host numpy over a
+reference-schema monochromatic database read with :func:`db.connect`; a
+chemistry table is a dict of numpy columns where the JAX package takes a
+DataFrame.  ``write_ck_hdf5`` imports h5py where it runs.
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ from .db import OpacityGrid, PTGrid, _adapt_array, connect
 __all__ = ['synthetic_cross_sections', 'synthetic_opacity_grid',
            'default_pt_grid', 'production_pt_grid',
            'synthetic_opacity_grid_ragged', 'build_synthetic_db',
-           'slice_db']
+           'slice_db', 'compute_k_distribution', 'compute_ck_molecular',
+           'compute_sum_molecular', 'write_ck_hdf5']
 
 _CHEM_1060 = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -337,3 +344,169 @@ def slice_db(src_db, dst_db, wave_range, molecules=None):
     out.close()
     conn.close()
     return dst_db
+
+
+# ---------------------------------------------------------------------------
+# correlated-k table generation (offline tooling)
+# ---------------------------------------------------------------------------
+
+def compute_k_distribution(sigma, wno, bin_edges, gauss_pts):
+    """k-coefficients per spectral bin from monochromatic cross sections
+    (factory.py:304-328 of the JAX package): each bin's quantile function
+    of the cross sections inside it, at the g-point quadrature (the
+    double-Gauss scheme of opacity_factory.py:1474).  sigma [..., nwno]
+    -> [..., nbins, ngauss]; an empty bin holds 1e-50."""
+    wno = np.asarray(wno)
+    lead = sigma.shape[:-1]
+    nbins = len(bin_edges) - 1
+    out = np.zeros(lead + (nbins, len(gauss_pts)))
+    for b in range(nbins):
+        sel = (wno >= bin_edges[b]) & (wno < bin_edges[b + 1])
+        if not sel.any():
+            out[..., b, :] = 1e-50
+            continue
+        vals = np.sort(sigma[..., sel], axis=-1)
+        n = vals.shape[-1]
+        g = (np.arange(n) + 0.5) / n
+        flat = vals.reshape(-1, n)
+        kd = np.stack([np.interp(gauss_pts, g, row) for row in flat])
+        out[..., b, :] = kd.reshape(lead + (len(gauss_pts),))
+    return out
+
+
+def _mono_grid(cur):
+    cur.execute('SELECT wavenumber_grid FROM header')
+    return cur.fetchone()[0]
+
+
+def compute_ck_molecular(mono_db, molecule, bin_edges, order=4, gfrac=0.95):
+    """Per-molecule CK table from a reference-schema monochromatic
+    database (factory.py:331-365 of the JAX package; opacity_factory.py:
+    1748): kcoeffs [npress, ntemp, nbins, ngauss] (ln sigma), the bin
+    centres and widths, the grids and the quadrature."""
+    from .ck import double_gauss_points
+
+    gauss_pts, gauss_wts = double_gauss_points(order, gfrac)
+    cur, conn = connect(mono_db)
+    try:
+        wno = _mono_grid(cur)
+        cur.execute('SELECT DISTINCT ptid, pressure, temperature FROM '
+                    'molecular WHERE molecule = ? ORDER BY ptid',
+                    (molecule,))
+        pt = cur.fetchall()
+        temps = np.unique([t for _, _, t in pt])
+        pressures = np.unique([p for _, p, _ in pt])
+        nbins = len(bin_edges) - 1
+        kco = np.zeros((len(pressures), len(temps), nbins, len(gauss_pts)))
+        cur.execute('SELECT ptid, pressure, temperature, opacity FROM '
+                    'molecular WHERE molecule = ?', (molecule,))
+        for _, p, t, op in cur.fetchall():
+            ip = int(np.searchsorted(pressures, p))
+            it = int(np.searchsorted(temps, t))
+            kco[ip, it] = compute_k_distribution(
+                np.asarray(op)[None], wno, bin_edges, gauss_pts)[0]
+    finally:
+        conn.close()
+    centers = 0.5 * (np.asarray(bin_edges[1:]) + np.asarray(bin_edges[:-1]))
+    return dict(kcoeffs=np.log(np.maximum(kco, 1e-50)),
+                wno=centers, delta_wno=np.diff(bin_edges),
+                pressures=pressures, temps=temps, gauss_pts=gauss_pts,
+                gauss_wts=gauss_wts, molecule=molecule)
+
+
+def compute_sum_molecular(mono_db, abundances, bin_edges, order=4,
+                          gfrac=0.95):
+    """Premixed CK table: the abundance-weighted sum of the cross sections,
+    k-distributed per bin (factory.py:368-429 of the JAX package;
+    opacity_factory.py:1530-1747).
+
+    ``abundances`` is a dict molecule -> scalar vmr (applied at every grid
+    point), or a chemistry table: a dict of numpy columns with 'pressure'
+    and 'temperature' and one column per molecule, each (P, T) point of
+    the database mixing with the nearest row in (log10 P, T/T_row).
+    """
+    from .ck import double_gauss_points
+
+    gauss_pts, gauss_wts = double_gauss_points(order, gfrac)
+    per_pt = 'pressure' in abundances and 'temperature' in abundances
+    if per_pt:
+        chem_logp = np.log10(np.maximum(
+            np.asarray(abundances['pressure'], float), 1e-12))
+        chem_tinv = 1.0 / np.asarray(abundances['temperature'], float)
+        molecules = [c for c in abundances.keys()
+                     if c not in ('pressure', 'temperature', 'index')]
+
+        def vmr_at(mol, p, t):
+            d = ((chem_logp - np.log10(max(p, 1e-12))) ** 2
+                 + (chem_tinv * t - 1.0) ** 2)
+            return float(np.asarray(abundances[mol])[int(np.argmin(d))])
+    else:
+        molecules = list(abundances)
+
+        def vmr_at(mol, p, t):
+            return abundances[mol]
+
+    cur, conn = connect(mono_db)
+    try:
+        wno = _mono_grid(cur)
+        cur.execute('SELECT DISTINCT pressure, temperature FROM molecular')
+        pt = cur.fetchall()
+        temps = np.unique([t for _, t in pt])
+        pressures = np.unique([p for p, _ in pt])
+        mixed = np.zeros((len(pressures), len(temps), len(wno)))
+        for mol in molecules:
+            cur.execute('SELECT pressure, temperature, opacity FROM '
+                        'molecular WHERE molecule = ?', (mol,))
+            for p, t, op in cur.fetchall():
+                ip = int(np.searchsorted(pressures, p))
+                it = int(np.searchsorted(temps, t))
+                mixed[ip, it] += vmr_at(mol, p, t) * np.asarray(op)
+    finally:
+        conn.close()
+    kco = compute_k_distribution(mixed, wno, bin_edges, gauss_pts)
+    centers = 0.5 * (np.asarray(bin_edges[1:]) + np.asarray(bin_edges[:-1]))
+    return dict(kcoeffs=np.log(np.maximum(kco, 1e-50)),
+                wno=centers, delta_wno=np.diff(bin_edges),
+                pressures=pressures, temps=temps, gauss_pts=gauss_pts,
+                gauss_wts=gauss_wts)
+
+
+def write_ck_hdf5(filename, ck, molecules, abunds):
+    """Write a premixed CK table (a dict as :func:`compute_sum_molecular`
+    returns) in the reference hdf5 format (factory.py:432-465 of the JAX
+    package; get_ck_tables layout, opacity_factory.py:2221-2268).
+
+    ``abunds``: dict molecule -> scalar vmr, or a chemistry table (dict of
+    numpy columns) with one row per (T, P) point in T-major order, as the
+    table's grid.
+    """
+    import h5py
+
+    temps, pressures = ck['temps'], ck['pressures']
+    npress, ntemp = len(pressures), len(temps)
+    temps_flat = np.repeat(temps, npress)
+    press_flat = np.tile(pressures, ntemp)
+    if np.ndim(abunds[molecules[0]]) > 0:
+        nrow = len(np.asarray(abunds[molecules[0]]))
+        if nrow != ntemp * npress:
+            raise ValueError(f'chemistry table has {nrow} rows; the CK '
+                             f'grid needs {ntemp * npress}')
+        abunds_arr = np.column_stack([np.asarray(abunds[m], float)
+                                      for m in molecules])
+    else:
+        abunds_arr = np.column_stack([np.zeros(ntemp * npress) + abunds[m]
+                                      for m in molecules])
+    with h5py.File(filename, 'w') as f:
+        f.create_dataset('ck_molecules',
+                         data=[m.encode() for m in molecules])
+        f.create_dataset('wno', data=ck['wno'])
+        f.create_dataset('delta_wno', data=ck['delta_wno'])
+        f.create_dataset('pressures', data=press_flat)
+        f.create_dataset('temperatures', data=temps_flat)
+        f.create_dataset('gauss_pts', data=ck['gauss_pts'])
+        f.create_dataset('gauss_wts', data=ck['gauss_wts'])
+        f.create_dataset('kcoeffs', data=ck['kcoeffs'])
+        f.create_dataset('abunds', data=abunds_arr)
+        f.create_dataset('abunds_map',
+                         data=[m.encode() for m in molecules])
+    return filename

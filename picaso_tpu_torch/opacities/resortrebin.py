@@ -14,6 +14,9 @@ Nk^2 row is stable (``jnp.argsort``'s default; equal mixed k's keep their
 order, and with it their weights' cumulative sum), and ``jnp.interp`` is
 written out with ``torch.searchsorted`` as JAX computes it (a right-side
 search clipped to [1, n - 1], the flat ends).
+
+:func:`load_per_gas_tables` reads the per-gas ``<mol>_1460.hdf5`` files
+(h5py, imported where it runs) into numpy, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ import torch
 from .ck import AVOGADRO, _neighbours
 
 __all__ = ['interp_rows', 'mix_2_gases', 'mix_gases_at_neighbours',
-           'resortrebin_kappa', 'synthetic_per_gas_tables']
+           'resortrebin_kappa', 'synthetic_per_gas_tables',
+           'load_per_gas_tables']
 
 
 def interp_rows(x, xp, fp):
@@ -138,3 +142,34 @@ def synthetic_per_gas_tables(wno, molecules=('H2O', 'CH4', 'CO', 'NH3'),
     meta = dict(temps=temps, pressures=pressures, gauss_pts=gauss_pts,
                 gauss_wts=gauss_wts)
     return out, meta
+
+
+def load_per_gas_tables(path, preload_gases, dtype=np.float32):
+    """Read the per-gas ``<mol>_1460.hdf5`` CK files in ``path``
+    (resortrebin.py:123-145 of the JAX package; opacity_factory.py:2280):
+    (ln-k tables [ngas, npress, ntemp, nwno, Nk] in numpy ``dtype`` for
+    the gases of ``preload_gases`` that have a file, in that order; the
+    grid of the first: wno, delta_wno, pressures, temps, gauss_pts,
+    gauss_wts, nc_p)."""
+    import os
+
+    import h5py
+
+    kappas, meta = [], None
+    for mol in preload_gases:
+        fn = os.path.join(path, f'{mol}_1460.hdf5')
+        if not os.path.exists(fn):
+            continue
+        with h5py.File(fn, 'r') as f:
+            kappas.append(np.asarray(f['kcoeffs'], dtype))
+            if meta is None:
+                meta = dict(
+                    wno=f['wno'][:], delta_wno=f['delta_wno'][:],
+                    pressures=np.unique(f['pressures'][:]),
+                    temps=np.unique(f['temperatures'][:]),
+                    gauss_pts=f['gauss_pts'][:],
+                    gauss_wts=f['gauss_wts'][:],
+                    nc_p=np.asarray(f['nc_p'][:], int))
+    if not kappas:
+        raise FileNotFoundError(f'no per-gas CK tables found in {path}')
+    return np.stack(kappas), meta

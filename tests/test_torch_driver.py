@@ -244,7 +244,8 @@ def test_unported_modes_raise(setup):
     same float64 table, a stride-8 24-bin slice), then ``case.climate`` as
     ``run`` calls it, against the JAX driver's (the same temperatures,
     cvz_locs and chemistry to rtol 1e-8); without a connection ``run``
-    opens ``ck_db``, whose loaders wait (item 4.7).  ``viz`` raises (item
+    opens ``ck_db`` (a missing file raises the loader's error;
+    test_climate_mode_opens_ck_db runs one).  ``viz`` raises (item
     8.2)."""
     from test_torch_climate_fluxes import sliced_tables
     config = {'calc_type': 'climate',
@@ -269,8 +270,70 @@ def test_unported_modes_raise(setup):
     prof = tcase.inputs['atmosphere']['profile']
     for col in chem.columns:
         np.testing.assert_allclose(prof[col], chem[col].values, rtol=1e-8)
-    with pytest.raises(NotImplementedError, match='item 4.7'):
+    with pytest.raises(OSError):
         tdrv.run(dict(config, OpticalProperties={'ck_db': 'x.hdf5'}),
                  device='cpu')
     with pytest.raises(NotImplementedError, match='item 8.2'):
         tdrv.viz(None, {})
+
+
+def test_climate_mode_opens_ck_db(tmp_path):
+    """The climate mode with no connection passed: ``run`` opens the TOML's
+    ``[OpticalProperties] ck_db`` itself, in each package (a premixed hdf5
+    of the stride-8 slice of the synthetic table, written by the port's
+    ``write_ck_hdf5``; ``opacity_kwargs`` give the loaders float64 and a
+    continuum database on the same 25 bins), and the two solves agree as
+    in test_unported_modes_raise."""
+    import sqlite3
+
+    from test_torch_climate_fluxes import sliced_tables
+    from picaso_tpu_torch.opacities import factory as tfac
+    from picaso_tpu_torch.opacities.db import _adapt_array, connect
+
+    _, ts = sliced_tables(8)
+    cur, conn = connect(tck.CONTINUUM_DB)
+    cur.execute('SELECT molecule, temperature, opacity FROM continuum')
+    rows = cur.fetchall()
+    conn.close()
+    idx = np.arange(196)[::8]
+    cont_db = str(tmp_path / 'continuum.db')
+    sqlite3.register_adapter(np.ndarray, _adapt_array)
+    out_conn = sqlite3.connect(cont_db, detect_types=sqlite3.PARSE_DECLTYPES)
+    oc = out_conn.cursor()
+    oc.execute('CREATE TABLE header (id INTEGER PRIMARY KEY, '
+               'wavenumber_grid array)')
+    oc.execute('INSERT INTO header (wavenumber_grid) VALUES (?)',
+               (np.asarray(ts.wno, np.float64),))
+    oc.execute('CREATE TABLE continuum (id INTEGER PRIMARY KEY, '
+               'molecule VARCHAR, temperature FLOAT, opacity array)')
+    oc.executemany('INSERT INTO continuum (molecule, temperature, opacity) '
+                   'VALUES (?,?,?)',
+                   [(m, t, np.asarray(op, np.float64)[idx])
+                    for m, t, op in rows])
+    out_conn.commit()
+    out_conn.close()
+
+    ck_file = str(tmp_path / 'premixed.hdf5')
+    species = [c for c in ts.full_abunds
+               if c not in ('pressure', 'temperature')]
+    tfac.write_ck_hdf5(ck_file, dict(
+        kcoeffs=ts.arrays.ln_kappa.numpy(), wno=ts.wno,
+        delta_wno=ts.delta_wno, temps=ts.temps, pressures=ts.pressures,
+        gauss_pts=ts.gauss_pts, gauss_wts=ts.gauss_wts), species,
+        ts.full_abunds)
+    config = {'calc_type': 'climate',
+              'OpticalProperties': {
+                  'ck_db': ck_file, 'opacity_method': 'preweighted',
+                  'opacity_kwargs': {'dtype': 'float64',
+                                     'continuum_db': cont_db}},
+              'object': {'gravity': {'value': 100.0, 'unit': 'm/(s**2)'}},
+              'climate': {'teff': 700.0, 'nlevel': 25, 'rcb_guess': 18,
+                          'run_kwargs': {}}}
+    _, ref = jdrv.run(copy.deepcopy(config), verbose=False)
+    case, out = tdrv.run(copy.deepcopy(config), device='cpu', verbose=False)
+    assert case.inputs['calculation'] == 'climate'
+    assert out['converged'] == ref['converged'] == 1
+    assert [int(i) for i in out['cvz_locs']] == [int(i)
+                                                 for i in ref['cvz_locs']]
+    np.testing.assert_allclose(out['temperature'], ref['temperature'],
+                               rtol=1e-8)

@@ -300,13 +300,15 @@ def test_wavelength_matches_jax(case):
                                   'climate'])
 def test_unported_parts_raise(call):
     """What the front door does not port yet raises, naming ROADMAP Queue
-    1: loading a CK table from ``ck_db`` (either method) and
-    photochemistry.  The per-gas ('resortrebin') connection and the
-    climate set-up are ported: a thermal spectrum through resort-rebin on
-    the per-gas tables (a 24-bin slice) and ``inputs(climate=True)`` +
-    ``inputs_climate`` against the JAX facade's."""
+    1: photochemistry.  Loading a CK table from ``ck_db`` is ported
+    (tests/test_torch_ck_files.py): a missing file raises the loader's
+    error, and a per-gas load without ``preload_gases`` a ValueError.  The
+    per-gas ('resortrebin') connection and the climate set-up are ported:
+    a thermal spectrum through resort-rebin on the per-gas tables (a
+    24-bin slice) and ``inputs(climate=True)`` + ``inputs_climate``
+    against the JAX facade's."""
     if call == 'resortrebin':
-        with pytest.raises(NotImplementedError, match='item 4.7'):
+        with pytest.raises(ValueError, match='preload_gases'):
             tdi.opannection(method='resortrebin', device='cpu')
         from test_torch_climate_fluxes import sliced_tables
         from torch_climate_modes_cases import port_table
@@ -355,12 +357,12 @@ def test_unported_parts_raise(call):
             tdi.inputs(climate=True).inputs_climate(
                 temp_guess=np.ones(3), pressure=np.ones(3), rcb_guess=1)
         return
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1'):
-        if call == 'ck_db':
+    if call == 'ck_db':
+        with pytest.raises(OSError):
             tdi.opannection(method='preweighted', ck_db='x', device='cpu')
-        else:
-            # the grid chemistry is ported; its photochemistry is not
-            case = tdi.inputs()
-            case.atmosphere(df=profile(), chem_method='visscher',
-                            device='cpu')
-            case.premix_atmosphere_photochem()
+        return
+    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1'):
+        # the grid chemistry is ported; its photochemistry is not
+        case = tdi.inputs()
+        case.atmosphere(df=profile(), chem_method='visscher', device='cpu')
+        case.premix_atmosphere_photochem()
