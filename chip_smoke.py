@@ -25,7 +25,10 @@ virga, ``virga_3d`` and TOML-climate workflows around them; then a CK
 table read from a file (``opannection(ck_db=...)``) into the climate
 (``run_climate``, the host Newton ``t_start``, the TOML driver) and the
 front door's tools (``guillot_pt``, ``get_contribution``,
-``convert_flux_units``).  It goes
+``convert_flux_units``); then the host tools: opacity ingestion from raw
+files into a spectrum, the native (C++) loader, ``build_3d_input`` into a
+100-facet spectrum, ``model_compare``'s literature harnesses and the
+port's examples.  It goes
 through the 14 hand-written CUDA kernels, and checks each kernel against
 its plain PyTorch twin, each forward against a float64 oracle, and each
 climate solve against the JAX package's float64 solve
@@ -241,14 +244,61 @@ Phases (any failure raises, so the exit code is nonzero):
     Jy, mJy and W/(m2 um) (max rel <= 1e-12).  Model save and load need
     h5py and are not run here.  Phases 39-43 each print one JSON line
     with the card's name and power limit
-44. the card, one JSON line with the climate numbers, one with the front
+45. opacity ingestion: a raw source tree written from a seed
+    (``opacities.ingest.synthetic_raw_tree``: an EGP CIA grid, a HITRAN
+    CIA file, H2O as .npy and CH4 as fortran binaries on the 1460 (T, P)
+    points of refdata/opacities/grid1460.csv, 20 000 wavenumbers a point)
+    ingested by the port (``ingest_molecular_1460``, ``ingest_cia_grid``,
+    ``ingest_hitran_cia``, ``add_metadata``) into a sqlite DB under
+    build/host_tools; every table against the JAX package's ingestion of
+    the same tree (tests/host_tools_reference.json, written by
+    tests/host_tools_record.py): the molecular tables and the wavenumber
+    grid bitwise (SHA-256), the continuum (10**, log, exp) within max rel
+    1e-12 of the record's sum, min, max and samples; then
+    ``opannection(filename_db=...)`` on the card and a reflected + thermal
+    spectrum from it (K1, K5 and K6 once each), f32 on the card against
+    the same call f64 on the CPU (phase 7's gates)
+46. the native loader (``picaso_tpu_torch.native``, host C++ built with
+    g++ into build/picaso_tpu_torch/native): ``load_opacity_db(native=
+    True)`` against ``native=False`` on phase 21's '1060' DB and on the
+    ingested DB, float32: the arrays bitwise equal, no warning (the C++
+    decode ran); both loads timed
+47. ``build_3d_input`` at a GCM's size: ``synthetic_gcm()`` (128 lon x 64
+    lat x 53 levels) through ``regrid_xarray`` and
+    ``regrid_to_gauss_cheby``, its temperatures written as a MITgcm dump
+    through ``rebin_mitgcm_pt``, a cloud dump (8 x 4 columns, 52 layers x
+    196 waves) through ``rebin_mitgcm_cld``, all onto 10 x 10
+    Gauss-Chebyshev facets: each array within max rel 1e-12 of the JAX
+    record; then those maps' reflected + thermal spectrum on the
+    production table (100 facets: K1, K5 and K6 100 times each), and the
+    same at nwno 5000 f32 on the card against f64 on the CPU (phase 28's
+    gates, phase 27's)
+48. ``model_compare`` on the card in f32, Toon: ``dlugach_test`` and
+    ``madhu_test`` in full (K5 63 and 48 times) and ``thermal_sh_test``
+    over its whole grid (constant-tau thermal, K6 165 times), every cell
+    against the JAX package's f64 record (max rel <= 5e-3, median rel <=
+    2e-4); the largest difference from DLUGACH_TEST.csv printed (physics,
+    not a gate)
+49. the port's examples (picaso_tpu_torch/examples) through
+    ``integration_testing.run_all``, each in a process of its own with a
+    timeout: every one exits 0 but retrieval_nested.py, whose JAX
+    namesake fails its own posterior assert (the JAX package's CPU run in
+    tests/host_tools_reference.json: T median 1411 K against the truth's
+    1150 +- 250); the port's copy must fail the same way, printing the
+    JAX run's posterior line (their kernels are launched in those
+    processes and not counted here).  Phases 45-49 are timed by
+    ``profiling.Timer``, logged by ``profiling.RunLog``
+    (build/host_tools/host_tools.jsonl) and each prints one JSON line with
+    the card's name and power limit
+50. the card, one JSON line with the climate numbers, one with the front
     door's (each path's launches, wall times, peaks, oracle and uniform-map
     deviations), one with the retrievals' (launches, rates, host and card
     times, oracle deviations), one with the climate modes' (per run: wall
     s, the solve's counts, launches, peak over alive, the gates' numbers),
-    one with phases 39-43's, one with every kernel's summary (launches on
-    the paths counted above, the front door's, the retrievals', the
-    climate modes' and phases 39-43's included and also apart, times, max
+    one with phases 39-43's, one with phases 45-49's, one with every
+    kernel's summary (launches on the paths counted above, the front
+    door's, the retrievals', the climate modes', phases 39-43's and
+    phases 45-48's included and also apart, times, max
     abs error, and the bound: the larger of the
     bytes its inputs and outputs need over 3.35 TB/s and the float32
     operations its twin performs on these inputs, counted per aten call,
@@ -261,6 +311,7 @@ import hashlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -342,6 +393,13 @@ CK_FILES_DIR = 'build/ck_files'
 CK_FILES_RTOL = 1e-12        # loaded vs written: the text round-trips
 T_START_DT_MAX = 1e-6        # K, the card's t_start against the JAX one
 CONTRIB_MAX_REL = 1e-3       # get_contribution, f32 card vs f64 CPU
+# the JAX package's float64 results for the host tools (phases 45, 47, 48;
+# tests/host_tools_record.py), and where the card writes its files
+HOST_TOOLS_REFERENCE = 'tests/host_tools_reference.json'
+HOST_TOOLS_DIR = 'build/host_tools'
+HOST_TOOLS_RTOL = 1e-12      # where 10**, log or exp enter
+GAUSS_CHEBY = dict(num_gangle=10, num_tangle=10)   # 100 facets
+EXAMPLE_TIMEOUT_S = 300
 # one H100 SXM at its 700 W limit (NVIDIA data sheet): memory rate and
 # float32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -1149,19 +1207,22 @@ def main():
     retrieval = retrieval_phases(dev, grid, reset_counts, counts)
     climate_modes = climate_modes_phases(dev, grid, reset_counts, counts)
     ck_files = ck_files_phases(dev, grid, reset_counts, counts, smi[0])
+    host_tools = host_tools_phases(dev, grid, reset_counts, counts, smi[0])
     for paths in (front_door['launches'], retrieval['launches'],
-                  climate_modes['launches'], ck_files['launches']):
+                  climate_modes['launches'], ck_files['launches'],
+                  host_tools['launches']):
         for path in paths.values():
             for name, count in path.items():
                 launches[name] += count
 
-    # phase 44: summary
+    # phase 50: summary
     log(smi[0])
     print(json.dumps({'climate': climate}))
     print(json.dumps({'front_door': front_door}))
     print(json.dumps({'retrieval': retrieval}))
     print(json.dumps({'climate_modes': climate_modes}))
     print(json.dumps({'ck_files': ck_files}))
+    print(json.dumps({'host_tools': host_tools}))
     stats = {
         'interp_tau': dict(max_abs_err=k1_abs, ms=k1_ms,
                            plain_ms=k1_plain_ms, bytes=k1_bytes, ops=k1_ops,
@@ -1204,6 +1265,9 @@ def main():
             'ck_files_launches': sum(
                 path.get(name, 0)
                 for path in ck_files['launches'].values()),
+            'host_tools_launches': sum(
+                path.get(name, 0)
+                for path in host_tools['launches'].values()),
             **st, 'bound_ms': bound_ms, 'bound_by': bound_by,
             'bound_share': bound_ms / st['ms'], 'library_ms': None})
     print(json.dumps({'kernels': kernels}))
@@ -2577,6 +2641,357 @@ def ck_files_phases(dev, grid, reset_counts, counts, card):
                               tau_p_surface_max_rel=p_rel),
         convert_flux_units_round_trip_max_rel=round_trip,
         model_save_load='not run: needs h5py, absent on this machine'))
+    return summary
+
+
+
+def check_record(label, got, want, bitwise):
+    """One array's ``ingest.array_digest`` against the JAX record: the
+    same SHA-256 where ``bitwise``, else the same shape and sum, min, max
+    and samples within HOST_TOOLS_RTOL.  Returns (bitwise equal, max
+    rel)."""
+    if got['shape'] != want['shape']:
+        raise AssertionError(f'{label}: shape {got["shape"]}, JAX '
+                             f'{want["shape"]}')
+    same = got['sha256'] == want['sha256']
+    a = np.array([got['sum'], got['min'], got['max'], *got['samples']])
+    b = np.array([want['sum'], want['min'], want['max'], *want['samples']])
+    rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+    if bitwise and not same:
+        raise AssertionError(f'{label}: SHA-256 differs from the JAX '
+                             f'record (max rel {rel:.3g})')
+    check(f'{label} max rel to the JAX record', rel, HOST_TOOLS_RTOL)
+    return same, rel
+
+
+def ingest_raw_tree(ingest, root, db, params):
+    """tests/host_tools_record.py's ingestion: H2O and CH4 from the raw
+    tree's 1460 (T, P) points at new_R (on the old_R working grid), the
+    EGP CIA grid with its analytic sources, the HITRAN N2N2 file, the
+    metadata.  Returns the wavenumber grid."""
+    for mol in ('H2O', 'CH4'):
+        ingest.ingest_molecular_1460(
+            mol, params['min_wavelength'], params['max_wavelength'], root,
+            db, new_R=params['new_R'], old_R=params['old_R'])
+    cur, conn = ingest.connect(db)
+    cur.execute('SELECT wavenumber_grid FROM header')
+    wno = cur.fetchone()[0]
+    conn.close()
+    ingest.ingest_cia_grid(os.path.join(root, 'master_cia.dat'),
+                           list(ingest.RAW_CIA_COLUMNS), wno, db)
+    ingest.ingest_hitran_cia(os.path.join(root, 'N2-N2_2018.cia'), 'N2N2',
+                             db, wno)
+    ingest.add_metadata(db, version='synthetic', resolution=params['new_R'],
+                        wavemin=params['min_wavelength'],
+                        wavemax=params['max_wavelength'])
+    return wno
+
+
+def host_tools_phases(dev, grid, reset_counts, counts, card):
+    """Phases 45-49: opacity ingestion from raw files into a spectrum, the
+    native loader, ``build_3d_input`` into a 100-facet spectrum,
+    ``model_compare``'s harnesses and the port's examples; each timed by
+    ``profiling.Timer``, its numbers logged by ``profiling.RunLog`` and
+    printed on a JSON line of their own beside the card's name and power
+    limit (``card``), its launches of K1, K5 and K6 counted."""
+    import warnings
+
+    from picaso_tpu_torch import build_3d_input as b3d
+    from picaso_tpu_torch import integration_testing
+    from picaso_tpu_torch import justdoit as jdi
+    from picaso_tpu_torch import model_compare, native
+    from picaso_tpu_torch.opacities import factory, ingest
+    from picaso_tpu_torch.opacities.db import load_opacity_db
+    from picaso_tpu_torch.probes.front_door import production_profile
+    from picaso_tpu_torch.profiling import RunLog, Timer
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, HOST_TOOLS_REFERENCE)) as f:
+        reference = json.load(f)
+    directory = os.path.join(root, HOST_TOOLS_DIR)
+    os.makedirs(directory, exist_ok=True)
+    timer = Timer()
+    runlog = RunLog(os.path.join(directory, 'host_tools.jsonl'))
+    summary = {'launches': {}}
+    kernels = ('interp_tau', 'reflected_toon_props', 'thermal_toon_props')
+
+    def report(key, numbers):
+        runlog.log(key, **numbers)
+        print(json.dumps({key: numbers, 'card': card}), flush=True)
+        summary[key] = numbers
+
+    def counted(label, fn, expected):
+        """fn() timed (Timer, synchronised on its output), K1, K5 and K6
+        counted from 0; each kernel of ``expected`` as often as it says,
+        no other kernel."""
+        reset_counts()
+        with timer(label) as hold:
+            out = fn()
+            hold.append(out)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in counts().items() if v}
+        log(f'{label}: launches {got}')
+        if got != expected:
+            raise AssertionError(f'{label}: launches {got}, expected '
+                                 f'{expected}')
+        summary['launches'][label] = {k: got.get(k, 0) for k in kernels}
+        return out
+
+    # phase 45: a raw source tree ingested into a DB, its tables against
+    # the JAX record, then a spectrum from the DB against its CPU oracle
+    rec = reference['ingest']
+    raw = os.path.join(directory, 'raw')
+    with timer('[45] raw tree'):
+        ingest.synthetic_raw_tree(raw, nwave=rec['nwave'])
+    db = os.path.join(directory, 'ingested.db')
+    if os.path.exists(db):
+        os.remove(db)
+    with timer('[45] ingest'):
+        ingest_raw_tree(ingest, raw, db, rec['params'])
+    tables = ingest.table_digests(db)
+    if sorted(tables) != sorted(rec['tables']):
+        raise AssertionError(f'[45] tables {sorted(tables)}, JAX '
+                             f'{sorted(rec["tables"])}')
+    bitwise, rels = {}, {}
+    for name, want in rec['tables'].items():
+        bitwise[name], rels[name] = check_record(
+            f'[45] {name}', tables[name], want,
+            bitwise=not name.startswith('continuum'))
+    metadata = [[k, v] for k, v in ingest.get_metadata(db)]
+    if metadata != rec['metadata']:
+        raise AssertionError(f'[45] metadata {metadata}, JAX '
+                             f'{rec["metadata"]}')
+    with timer('[45] opannection'):
+        opa = jdi.opannection(filename_db=db, device=dev)
+    nwno = len(opa.wno)
+
+    def db_case(o):
+        case = jdi.inputs()
+        case.phase_angle(0.0, num_gangle=10, num_tangle=1)
+        case.gravity(mass=1.898e30, mass_unit='g', radius=7.1492e9,
+                     radius_unit='cm')
+        case.star(o, temp=5700, radius=6.96e10, radius_unit='cm',
+                  semi_major=0.05, semi_major_unit='AU')
+        case.atmosphere(df=production_profile(o.molecules))
+        case.approx()
+        return case
+    calc = 'reflected+thermal'
+    out = counted('[45] spectrum from the ingested DB',
+                  lambda: db_case(opa).spectrum(opa, calculation=calc),
+                  {'interp_tau': 1, 'reflected_toon_props': 1,
+                   'thermal_toon_props': 1})
+    for key in ('albedo', 'thermal'):
+        if out[key].shape != (nwno,) or not np.isfinite(out[key]).all():
+            raise AssertionError(f'[45] {key}: shape {out[key].shape} or '
+                                 'non-finite')
+    o_cpu = jdi.opannection(filename_db=db, device='cpu')
+    oracle = check_oracle('[45] ingested-DB spectrum', out,
+                          db_case(o_cpu).spectrum(o_cpu, calculation=calc),
+                          ('albedo', 'thermal'))
+    report('ingest', dict(
+        nwave_per_pt=rec['nwave'], params=rec['params'], nwno=nwno,
+        molecules=list(opa.molecules), db_bytes=os.path.getsize(db),
+        tables_bitwise=bitwise, tables_max_rel=rels,
+        seconds={k: timer.times[k] for k in ('[45] raw tree', '[45] ingest',
+                                             '[45] opannection')},
+        jax_cpu_ingest_s=rec['seconds'],
+        spectrum_ms=timer.times['[45] spectrum from the ingested DB'] * 1e3,
+        oracle=oracle))
+    del opa, o_cpu, out
+
+    # phase 46: the native loader against the numpy decode, on phase 21's
+    # '1060' DB and on the ingested DB
+    db_1060 = os.path.join(directory, 'opacity_1060.db')
+    if os.path.exists(db_1060):
+        os.remove(db_1060)
+    factory.build_synthetic_db(db_1060, np.linspace(300.0, 33000.0, DB_NWNO),
+                               molecules=('H2O', 'CO'), pt_layout='1060',
+                               device=dev)
+    if not native.available():
+        raise AssertionError('[46] the native library does not build: '
+                             f'{native.unavailable_reason()}')
+    loads = {}
+    for name, path in (('1060', db_1060), ('ingested', db)):
+        grids = {}
+        for flag in (True, False):
+            label = f'[46] {name} native={flag}'
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter('always')
+                with timer(label) as hold:
+                    grids[flag] = load_opacity_db(
+                        path, device=dev, dtype=torch.float32, native=flag)
+                    hold.append(grids[flag].log_kappa)
+            native_warnings = [str(w.message) for w in caught
+                               if 'native' in str(w.message)]
+            if native_warnings:
+                raise AssertionError(f'{label}: {native_warnings}')
+        equal = {k: torch.equal(getattr(grids[True], k),
+                                getattr(grids[False], k))
+                 for k in ('log_kappa', 'cont_opa', 'wno', 'cia_temps')}
+        log(f'[46] {name}: native vs numpy decode bitwise {equal}')
+        if not all(equal.values()):
+            raise AssertionError(f'[46] {name}: native and numpy decodes '
+                                 f'differ {equal}')
+        loads[name] = dict(
+            shape=list(grids[True].log_kappa.shape),
+            native_s=timer.times[f'[46] {name} native=True'],
+            numpy_s=timer.times[f'[46] {name} native=False'])
+        del grids
+    report('native_loader', dict(loads=loads, bitwise=True,
+                                 library=native.build()))
+    shutil.rmtree(raw)
+    for path in (db, db_1060):
+        os.remove(path)
+
+    # phase 47: build_3d_input at a GCM's size onto 10 x 10 facets, then a
+    # 100-facet spectrum on the production table
+    rec = reference['build_3d']
+    with timer('[47] synthetic GCM and MITgcm files'):
+        ds = b3d.synthetic_gcm()
+        pt_file = b3d.write_mitgcm_pt(os.path.join(directory, 'pt.txt'), ds)
+        cld_file = b3d.write_mitgcm_cld(os.path.join(directory, 'cld.txt'))
+    with timer('[47] regrid'):
+        reg = b3d.regrid_xarray(ds, phase_angle=0.0, **GAUSS_CHEBY)
+        _, cube = b3d.regrid_to_gauss_cheby(
+            ds.coords['lat'].values, ds.coords['lon'].values,
+            ds.data_vars['temperature'].values, phase=0.0, **GAUSS_CHEBY)
+        pt = b3d.rebin_mitgcm_pt(pt_file, phase=0.0, **GAUSS_CHEBY)
+        cld = b3d.rebin_mitgcm_cld(cld_file, phase=0.0, **GAUSS_CHEBY)
+    arrays = {f'regrid_xarray {k}': v for k, v in reg.items()}
+    arrays['regrid_to_gauss_cheby temperature'] = cube
+    arrays.update({f'rebin_mitgcm_pt {k}': v for k, v in pt.items()})
+    arrays.update({f'rebin_mitgcm_cld {k}': v for k, v in cld.items()})
+    if sorted(arrays) != sorted(rec):
+        raise AssertionError(f'[47] arrays {sorted(arrays)}, JAX '
+                             f'{sorted(rec)}')
+    regrid_rel, regrid_bitwise = {}, {}
+    for name, want in rec.items():
+        regrid_bitwise[name], regrid_rel[name] = check_record(
+            f'[47] {name}', ingest.array_digest(arrays[name]), want,
+            bitwise=False)
+
+    def gcm_case(o):
+        case = jdi.inputs()
+        case.phase_angle(0.0, **GAUSS_CHEBY)
+        case.gravity(mass=1.898e30, mass_unit='g', radius=7.1492e9,
+                     radius_unit='cm')
+        case.star(o, temp=5700, radius=6.96e10, radius_unit='cm',
+                  semi_major=0.05, semi_major_unit='AU')
+        column = production_profile(o.molecules, nlevel=len(pt['pressure']))
+        data = {'pressure': pt['pressure'], 'lat': pt['lat'],
+                'lon': pt['lon'], 'temperature': pt['temperature'],
+                'kz': pt['kz']}
+        shape = pt['temperature'].shape
+        for key, col in column.items():
+            if key not in ('pressure', 'temperature'):
+                data[key] = np.broadcast_to(col[:, None, None], shape)
+        data['H2O'] = reg['H2O']
+        case.atmosphere_3d(data)
+        case.clouds_3d(opd=cld['opd'], g0=cld['g0'], w0=cld['w0'],
+                       wavenumber=jdi.get_cld_input_grid())
+        case.approx()
+        return case
+    opa = jdi.Opacity(grid.wno, grid=grid)
+    nfacet = GAUSS_CHEBY['num_gangle'] * GAUSS_CHEBY['num_tangle']
+    out3 = counted('[47] 3D spectrum (100 facets)', lambda: gcm_case(
+        opa).spectrum(opa, calculation=calc, dimension='3d'),
+        {'interp_tau': nfacet, 'reflected_toon_props': nfacet,
+         'thermal_toon_props': nfacet})
+    check_finite('[47] 3D', out3, ('albedo', 'thermal'))
+    o_card, o_cpu = oracle_connections(jdi, dev)
+    with timer('[47] 3D oracle, f64 CPU'):
+        ref3 = gcm_case(o_cpu).spectrum(o_cpu, calculation=calc,
+                                        dimension='3d')
+    oracle3 = check_oracle(
+        '[47] 3D, 100 facets, nwno 5000',
+        gcm_case(o_card).spectrum(o_card, calculation=calc, dimension='3d'),
+        ref3, ('albedo', 'thermal'))
+    report('build_3d', dict(
+        gcm=dict(nlon=len(ds.coords['lon'].values),
+                 nlat=len(ds.coords['lat'].values),
+                 nlevel=len(ds.coords['pressure'].values)),
+        cloud_dump=list(cld['opd'].shape), facets=nfacet,
+        regrid_max_rel=regrid_rel, regrid_bitwise=regrid_bitwise,
+        seconds={k: timer.times[k] for k in (
+            '[47] synthetic GCM and MITgcm files', '[47] regrid',
+            '[47] 3D oracle, f64 CPU')},
+        spectrum_ms=timer.times['[47] 3D spectrum (100 facets)'] * 1e3,
+        oracle=oracle3))
+    del out3, ref3, o_card, o_cpu, opa
+
+    # phase 48: model_compare's harnesses, Toon, f32 on the card, against
+    # the JAX package's f64 cells
+    rec = reference['model_compare']
+    real, dlugach = counted(
+        '[48] dlugach_test', lambda: model_compare.dlugach_test(device=dev),
+        {'reflected_toon_props': 63})
+    madhu = counted('[48] madhu_test',
+                    lambda: model_compare.madhu_test(device=dev),
+                    {'reflected_toon_props': 48})
+    thermal = counted('[48] thermal_sh_test',
+                      lambda: model_compare.thermal_sh_test(device=dev),
+                      {'thermal_toon_props': 165})
+    gates = {}
+    for name, got, index in (('dlugach', dlugach, 'asy'),
+                             ('madhu', madhu, 'ssa'),
+                             ('thermal', thermal, 'asy')):
+        want = rec[name]
+        if ([str(i) for i in got[index]] != [str(i) for i in want[index]]
+                or sorted(got) != sorted(want)):
+            raise AssertionError(f'[48] {name}: rows or columns differ from '
+                                 'the JAX record')
+        a = np.concatenate([np.asarray(got[c], np.float64)
+                            for c in want if c != index])
+        b = np.concatenate([np.asarray(want[c], np.float64)
+                            for c in want if c != index])
+        mx, med = rel_stats(torch.as_tensor(a), torch.as_tensor(b))
+        log(f'[48] {name}: f32 card vs the JAX f64 record, every cell')
+        check(f'{name} max rel', mx, TOL['forward_max_rel'])
+        check(f'{name} median rel', med, TOL['forward_median_rel'])
+        gates[name] = [mx, med]
+    cols = [c for c in real if c != 'asy']
+    pct = np.abs(np.stack([dlugach[c] - real[c] for c in cols])
+                 / np.stack([real[c] for c in cols])) * 100
+    report('model_compare', dict(
+        f32_vs_jax_f64=gates,
+        dlugach_max_pct_diff_from_table=float(pct.max()),
+        dlugach_max_pct_diff_by_row=dict(zip(
+            real['asy'], [float(x) for x in pct.max(axis=0)])),
+        seconds={k: timer.times[f'[48] {k}'] for k in (
+            'dlugach_test', 'madhu_test', 'thermal_sh_test')},
+        jax_cpu_f64_s=rec['seconds']))
+
+    # phase 49: the port's examples, each in a process of its own; those
+    # whose JAX namesakes fail their own asserts held to the JAX run's line
+    rec = reference['examples']
+    examples = integration_testing.discover()
+    with timer('[49] examples'):
+        results = integration_testing.run_all(timeout=EXAMPLE_TIMEOUT_S)
+    failed = sorted(os.path.basename(p) for p, (ok, _) in results.items()
+                    if not ok)
+    if len(results) != len(examples) or failed != sorted(rec):
+        raise AssertionError(f'[49] examples failed: {failed}; the JAX '
+                             f'examples that fail: {sorted(rec)}')
+    as_jax = {}
+    for name, want in rec.items():
+        proc = subprocess.run(
+            [sys.executable, os.path.join(os.path.dirname(examples[0]),
+                                          name)],
+            capture_output=True, text=True, cwd=root,
+            timeout=EXAMPLE_TIMEOUT_S)
+        lines = [ln.split('  (')[0] for ln in proc.stdout.splitlines()]
+        log(f'[49] {name}: exit {proc.returncode}, JAX {want["returncode"]}'
+            f'; JAX printed {want["line"]!r}')
+        if proc.returncode != want['returncode'] or want['line'] not in lines:
+            raise AssertionError(f'[49] {name} does not end as the JAX '
+                                 'example does')
+        as_jax[name] = want['line']
+    report('examples', dict(
+        wall_s={os.path.basename(p): s for p, (_, s) in results.items()},
+        total_s=timer.times['[49] examples'],
+        failing_as_the_jax_example=as_jax,
+        launches='in the examples\' own processes, not counted'))
+    summary['timer'] = timer.summary()
     return summary
 
 

@@ -9,10 +9,8 @@ weights and interpolates between grid members ("gridtrieval");
 ``detection_test`` compares the evidences of nested-sampling fits.  Host
 numpy and scipy, the arithmetic of the JAX module; the grid parameters are
 a dict of numpy columns (a DataFrame there; any mapping of column name to
-values is taken).
-
-Not ported: the plots (``plot_best_fit``, ``plot_chi_posteriors``,
-``plot_atmosphere``; ROADMAP Queue 1 item 8.2), which need matplotlib.
+values is taken).  The plots (``plot_best_fit``, ``plot_chi_posteriors``,
+``plot_atmosphere``) import matplotlib inside each function.
 """
 
 from __future__ import annotations
@@ -21,11 +19,6 @@ import glob
 import os
 
 import numpy as np
-
-
-def _not_ported(what):
-    return NotImplementedError(f'{what} is not ported to picaso_tpu_torch '
-                               'yet: ROADMAP Queue 1 item 8.2 (the plots)')
 
 
 def _param_table(grid_parameters):
@@ -362,11 +355,99 @@ class GridFitter:
         return best_fits
 
     def plot_best_fit(self, grid_names, data_names, plot_kwargs=None):
-        raise _not_ported('GridFitter.plot_best_fit')
+        """Best-fit spectra over the data + a residual panel
+        (analyze.py:408-511, matplotlib instead of the reference's
+        style-sheet block).  Returns (fig, {'A': spectrum axis,
+        'B': residual axis})."""
+        import matplotlib.pyplot as plt
+
+        plot_kwargs = plot_kwargs or {}
+        if isinstance(grid_names, str):
+            grid_names = [grid_names]
+        if isinstance(data_names, str):
+            data_names = [data_names]
+        fig, (ax_a, ax_b) = plt.subplots(
+            2, 1, figsize=plot_kwargs.get('figsize', (10, 7)),
+            sharex=True, gridspec_kw={'height_ratios': [4, 1]})
+        for igrid in grid_names:
+            for idata in data_names:
+                res = self.fit_results[igrid][idata]
+                i = res['best_fit_index']
+                wl = res['wlgrid_center']
+                best = res['binned_models'][i]
+                chi1 = res['chi_sq'][i]
+                line, = ax_a.plot(
+                    wl, best, lw=2,
+                    label=(f'best fit {igrid}+{idata}, '
+                           f'$\\chi^2$={chi1:.2f}'))
+                if 'y_data' in res:
+                    resid = (res['y_data'] - best) / res['e_data']
+                    ax_b.plot(wl, resid, 'o', ms=4,
+                              color=line.get_color())
+        for idata in data_names:
+            for igrid in grid_names:
+                res = self.fit_results[igrid][idata]
+                if 'y_data' in res:
+                    ax_a.errorbar(res['wlgrid_center'], res['y_data'],
+                                  yerr=res['e_data'], fmt='o', ms=4,
+                                  color='k', label=idata)
+                    break
+        ax_b.axhline(0.0, color='k', lw=1)
+        ax_b.set_xlabel(plot_kwargs.get('xlabel',
+                                        r'wavelength [$\mu$m]'))
+        ax_a.set_ylabel(plot_kwargs.get('ylabel', 'spectrum'))
+        ax_b.set_ylabel(r'$\delta/N$')
+        ax_a.legend(fontsize=9)
+        return fig, {'A': ax_a, 'B': ax_b}
 
     def plot_chi_posteriors(self, grid_names, data_name, max_row=None,
                             max_col=3, input_parameters='all'):
-        raise _not_ported('GridFitter.plot_chi_posteriors')
+        """Marginal chi2 posteriors for each grid parameter
+        (analyze.py:548-612).  Returns (fig, {parameter: (values,
+        probabilities)})."""
+        import matplotlib.pyplot as plt
+
+        if isinstance(grid_names, str):
+            grid_names = [grid_names]
+        if input_parameters == 'all':
+            # enumerate parameters from the REQUESTED grids, not from
+            # wherever the flat attributes happen to point
+            params = []
+            for igrid in grid_names:
+                self._use(igrid)
+                for k in self.grid_params.keys():
+                    if k not in params and np.issubdtype(np.asarray(
+                            self.grid_params[k]).dtype, np.number):
+                        params.append(k)
+        else:
+            params = list(input_parameters)
+        n = len(params)
+        ncol = min(max_col, max(n, 1))
+        nrow = max_row or int(np.ceil(n / ncol))
+        fig, axes = plt.subplots(nrow, ncol,
+                                 figsize=(3.2 * ncol, 2.6 * nrow),
+                                 squeeze=False)
+        out = {}
+        for k, par in enumerate(params):
+            ax = axes[k // ncol][k % ncol]
+            for igrid in grid_names:
+                self._use(igrid)
+                if par not in self.grid_params.keys():
+                    continue                    # parameter not in this grid
+                vals, prob = self.parameter_posteriors(igrid, data_name,
+                                                       par)
+                ax.plot(vals, prob, 'o-', label=igrid)
+                # keyed per grid when several are overlaid
+                out_key = par if len(grid_names) == 1 else (igrid, par)
+                out[out_key] = (vals, prob)
+            ax.set_xlabel(par)
+            ax.set_ylabel('probability')
+        for k in range(n, nrow * ncol):
+            axes[k // ncol][k % ncol].axis('off')
+        if len(grid_names) > 1:
+            axes[0][0].legend(fontsize=8)
+        fig.tight_layout()
+        return fig, out
 
     def prep_gridtrieval(self, parameters):
         """Index a full-factorial model grid for multilinear interpolation.
@@ -441,7 +522,48 @@ class GridFitter:
 
 def plot_atmosphere(location, bf_filename, gas_names=None, fig=None,
                     ax=None, linestyle=None, color=None, label=None):
-    raise _not_ported('plot_atmosphere')
+    """PT profile + gas mixing ratios from a saved model file
+    (analyze.py:1339-1460).
+
+    Reads a NetCDF model written by justdoit.output_xarray /
+    io_utils.save_model_nc (profile columns on the 'pressure' coord).
+    Returns (fig, ax); pass fig/ax to overlay several best fits.
+    """
+    import matplotlib.pyplot as plt
+
+    from .ncio import read_netcdf
+
+    ds = read_netcdf(os.path.join(location, bf_filename))
+    pressure = np.asarray(ds.coords['pressure'].values)
+    temp = np.asarray(ds['temperature'].values)
+    if gas_names is None:
+        gas_names = [k for k, v in ds.data_vars.items()
+                     if v.dims == ('pressure',) and k != 'temperature']
+    if ax is None:
+        fig, ax = plt.subplots(1, 2, figsize=(9, 4), sharey=True)
+    axT, axX = ax
+    axT.semilogy(temp, pressure, linestyle or '-',
+                 color=color or 'k', label=label)
+    if not axT.yaxis_inverted():
+        axT.invert_yaxis()
+    axT.set_xlabel('temperature [K]')
+    axT.set_ylabel('pressure [bar]')
+    for gas in gas_names:
+        if gas not in ds.data_vars:
+            continue
+        vmr = np.asarray(ds[gas].values)
+        axX.loglog(np.clip(vmr, 1e-30, None), pressure,
+                   linestyle or '-', label=f'{label} {gas}'.strip()
+                   if label else gas)
+    axX.set_xlabel('volume mixing ratio')
+    axX.set_xlim(1e-12, 1.5)
+    axX.legend(fontsize=7)
+    if label:
+        axT.legend(fontsize=8)
+    if fig is None:                   # overlay call: caller passed ax only
+        fig = axT.get_figure()
+    fig.tight_layout()
+    return fig, ax
 
 
 def sigma(lnz1, lnz2):

@@ -16,7 +16,8 @@ from the TOML and ``run`` solves it with the front door's ``climate``.
 Without a connection it opens ``[OpticalProperties] ck_db`` (a premixed
 hdf5, a legacy ``ascii_data`` directory, or per-gas tables with
 ``opacity_method = 'resortrebin'``) through ``opannection`` on the run's
-device.  Not ported: ``viz`` (the plots, item 8.2).
+device.  ``viz`` draws the run's dashboard with matplotlib, imported
+inside it.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import numpy as np
 
 from . import justdoit as jdi
 from . import units as u
-from .justdoit import _not_ported, _read_csv, _read_table
+from .justdoit import _read_csv, _read_table
 from .parameterizations import Parameterize
 from .sampler import ensemble_sample, nested_sample
 from .wavelength import conv_non_uniform_R, mean_regrid
@@ -494,4 +495,53 @@ def setup_climate_class(config, opa=None, device='cuda'):
 
 
 def viz(case, out, savefile=None):
-    raise _not_ported('the driver dashboard (viz; matplotlib)', 'item 8.2')
+    """One-figure dashboard of a driver spectrum run
+    (driver.py:713-741: spectra + PT + mixing ratios + clouds; the
+    bokeh dashboard becomes a matplotlib panel grid).
+
+    ``case, out`` are what ``run(..., calc_type='spectrum')`` returns.
+    Returns the figure; ``savefile`` writes it (png/pdf).
+    """
+    import matplotlib.pyplot as plt
+
+    from . import justplotit as jpi
+
+    fig, axes = plt.subplots(2, 2, figsize=(11, 7))
+    (ax_spec, ax_pt), (ax_mr, ax_cld) = axes
+
+    wno = np.asarray(out['wavenumber'])
+    plotted = False
+    for key, lbl in (('albedo', 'albedo'),
+                     ('fpfs_thermal', 'Fp/Fs thermal'),
+                     ('thermal', 'thermal flux'),
+                     ('transit_depth', '(Rp/Rs)^2')):
+        if key in out and np.ndim(out[key]) == 1:
+            ax_spec.plot(1e4 / wno, np.asarray(out[key]), lw=0.8,
+                         label=lbl)
+            plotted = True
+    if plotted:
+        ax_spec.set_xlabel('wavelength [um]')
+        ax_spec.legend(fontsize=8)
+    ax_spec.set_title('spectrum')
+
+    prof = case.inputs['atmosphere']['profile']
+    jpi.pt(pressure=np.asarray(prof['pressure']),
+           temperature=np.asarray(prof['temperature']), ax=ax_pt)
+    jpi.mixing_ratio(prof, ax=ax_mr)
+
+    cld = case.inputs.get('clouds', {}).get('profile')
+    if cld is not None:
+        nlayer = len(np.asarray(prof['pressure'])) - 1
+        opd = np.asarray(cld['opd']).reshape(nlayer, -1)
+        ax_cld.semilogy(opd.sum(axis=1),
+                        np.sqrt(np.asarray(prof['pressure'])[1:]
+                                * np.asarray(prof['pressure'])[:-1]))
+        ax_cld.invert_yaxis()
+        ax_cld.set_xlabel('column opd (summed over wavelength)')
+        ax_cld.set_ylabel('pressure [bar]')
+    ax_cld.set_title('clouds')
+
+    fig.tight_layout()
+    if savefile:
+        fig.savefig(savefile, dpi=150)
+    return fig

@@ -601,7 +601,8 @@ class inputs:
         rotated by ``phase + shift_i`` degrees ('night_transit' adds 180
         for thermal curves) and stored as a per-phase profile list for
         :meth:`phase_curve`.  ``ds`` as :meth:`atmosphere_3d` takes it;
-        ``plot`` is not ported."""
+        ``plot`` draws each phase's map at level ``iz_plot``
+        (``justplotit.map_4d``)."""
         ds = _gcm_input(ds)
         if ds is None:
             ds = self.inputs['atmosphere']['profile']
@@ -609,8 +610,6 @@ class inputs:
             raise ValueError("atmosphere_4d needs a 3D GCM dict with "
                              "'lat'/'lon'/'pressure' + [nlevel,nlon,nlat] "
                              "fields (see atmosphere_3d)")
-        if plot:
-            raise _not_ported('plotting', '(the front door)')
         phases = np.atleast_1d(self.inputs['phase_angle'])
         if shift is None:
             shift = np.zeros(len(phases))
@@ -635,6 +634,9 @@ class inputs:
             profiles.append(self._rotate_lon(ds, total, lon_axis=1))
         self.inputs['atmosphere']['profile'] = profiles
         self.nlevel = len(np.asarray(ds['pressure']))
+        if plot:
+            from . import justplotit
+            justplotit.map_4d(profiles, phases, iz_plot=iz_plot)
         return profiles
 
     def clouds_4d(self, ds=None, plot=False, iz_plot=0, iw_plot=0,
@@ -644,7 +646,10 @@ class inputs:
         ``ncio.NCDataset`` or a dict with 'lat'/'lon',
         'wavenumber' [nwno_cld] and [nlayer, nwno_cld, nlon, nlat]
         'opd'/'g0'/'w0'; stores a per-phase list of facet cloud dicts
-        ([nlayer, nwno_cld, ng, nt])."""
+        ([nlayer, nwno_cld, ng, nt]).  ``plot`` draws each phase's rotated
+        opd map at layer ``iz_plot`` and cloud wavenumber ``iw_plot``
+        (``justplotit.map_4d``; the JAX package's ``clouds_4d`` takes the
+        argument and draws nothing)."""
         from .three_d import regrid_to_disco
         ds = _gcm_input(ds)
         if ds is None:
@@ -656,7 +661,7 @@ class inputs:
         shift = np.asarray(self.inputs.get('shift',
                                            np.zeros(len(phases))), float)
         geoms = self.inputs['disco']
-        per_phase = []
+        per_phase, maps = [], []
         for i, iphase in enumerate(phases):
             total = (np.degrees(float(iphase)) + shift[i]) % 360.0
             rot = self._rotate_lon(ds, total, lon_axis=2)
@@ -664,8 +669,14 @@ class inputs:
                 {k: rot[k] for k in ('lat', 'lon', 'opd', 'g0', 'w0')},
                 geoms[float(iphase)], field_lon_axis=2)
             per_phase.append({k: faceted[k] for k in ('opd', 'g0', 'w0')})
+            if plot:
+                maps.append({'lat': rot['lat'], 'lon': rot['lon'],
+                             'opd': np.asarray(rot['opd'])[:, iw_plot]})
         self.inputs['clouds']['profile'] = per_phase
         self.inputs['clouds']['wavenumber'] = np.asarray(ds['wavenumber'])
+        if plot:
+            from . import justplotit
+            justplotit.map_4d(maps, phases, field='opd', iz_plot=iz_plot)
         return per_phase
 
     # -- equilibrium chemistry (justdoit.py:632-656, 1064-1100,

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import io
 import sqlite3
+import warnings
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -102,7 +103,7 @@ def connect(db_filename):
 
 def load_opacity_db(db_filename, wave_range=None, resample=1,
                     molecules: Optional[Sequence[str]] = None, dtype=None,
-                    device='cuda') -> OpacityGrid:
+                    device='cuda', native=None) -> OpacityGrid:
     """Load a reference-format sqlite opacity database into an OpacityGrid
     on ``device`` in ``dtype`` (default: float64 on the CPU, float32 on
     CUDA).
@@ -115,9 +116,17 @@ def load_opacity_db(db_filename, wave_range=None, resample=1,
     pressures of each temperature and ``t_offset`` starts each temperature
     in the flat grid; zero opacities become 1e-50 before the log; each CIA
     row goes to its temperature's place by ``searchsorted``.  The decode
-    runs in numpy on the host, then the arrays move to the device once.
-    The JAX package's C++ loader (``native=True``, picaso_tpu/native) is a
-    host-side speed-up of this decode and is not ported (ROADMAP).
+    runs on the host, then the arrays move to the device once.
+
+    ``native`` picks the decode of the blobs, as the JAX package's
+    ``native`` does (db.py:170-180 there): the C++ library of
+    :mod:`picaso_tpu_torch.native` (multithreaded over molecules, window,
+    stride and log10 fused in; float32 only, bitwise the Python decode's)
+    or numpy.  ``None``: the C++ decode for a float32 load, numpy
+    otherwise.  ``True``: the C++ decode, and where it cannot be used (a
+    float64 load, no g++ or libsqlite3, a blob it cannot read) a
+    ``warnings.warn`` that names the reason before the numpy decode runs.
+    ``False``: numpy.
     """
     device = checked_device(device)
     dtype = default_dtype(device) if dtype is None else dtype
@@ -155,24 +164,34 @@ def load_opacity_db(db_filename, wave_range=None, resample=1,
     nc_p = np.array([(temps_all == t).sum() for t in temps])
     t_offset = np.concatenate([[0], np.cumsum(nc_p)[:-1]])
 
-    log_kappa = np.full((len(avail_mol), len(pt_pairs), len(wno)), -50.0,
-                        dtype=np_dtype)
-    for im, mol in enumerate(avail_mol):
-        cur.execute('SELECT ptid, opacity FROM molecular '
-                    'WHERE molecule = ?', (mol,))
-        for ptid, op in cur.fetchall():
-            arr = op[::resample][loc]
-            log_kappa[im, ptid - 1] = np.log10(
-                np.where(arr != 0, arr, 1e-50)).astype(np_dtype)
+    log_kappa = cont = None
+    if native or (native is None and np_dtype == np.float32):
+        log_kappa, cont, reason = _native_decode(
+            db_filename, avail_mol, len(pt_pairs), avail_continuum,
+            cia_temps, loc, resample, np_dtype)
+        if reason is not None and native:
+            warnings.warn(f'load_opacity_db(native=True): {reason}; '
+                          'decoding with numpy instead', stacklevel=2)
 
-    cont = np.zeros((len(avail_continuum), len(cia_temps), len(wno)),
-                    dtype=np_dtype)
-    for im, mol in enumerate(avail_continuum):
-        cur.execute('SELECT temperature, opacity FROM continuum '
-                    'WHERE molecule = ?', (mol,))
-        for t, op in cur.fetchall():
-            it = int(np.searchsorted(cia_temps, t))
-            cont[im, it] = op[::resample][loc].astype(np_dtype)
+    if log_kappa is None:
+        log_kappa = np.full((len(avail_mol), len(pt_pairs), len(wno)),
+                            -50.0, dtype=np_dtype)
+        for im, mol in enumerate(avail_mol):
+            cur.execute('SELECT ptid, opacity FROM molecular '
+                        'WHERE molecule = ?', (mol,))
+            for ptid, op in cur.fetchall():
+                arr = op[::resample][loc]
+                log_kappa[im, ptid - 1] = np.log10(
+                    np.where(arr != 0, arr, 1e-50)).astype(np_dtype)
+
+        cont = np.zeros((len(avail_continuum), len(cia_temps), len(wno)),
+                        dtype=np_dtype)
+        for im, mol in enumerate(avail_continuum):
+            cur.execute('SELECT temperature, opacity FROM continuum '
+                        'WHERE molecule = ?', (mol,))
+            for t, op in cur.fetchall():
+                it = int(np.searchsorted(cia_temps, t))
+                cont[im, it] = op[::resample][loc].astype(np_dtype)
     conn.close()
 
     def dev(x, dt=dtype):
@@ -184,6 +203,27 @@ def load_opacity_db(db_filename, wave_range=None, resample=1,
                        cont_opa=dev(cont), cia_temps=dev(cia_temps),
                        molecules=tuple(avail_mol),
                        continuum_molecules=tuple(avail_continuum))
+
+
+def _native_decode(db_filename, molecules, npt, continuum, cia_temps, loc,
+                   resample, np_dtype):
+    """(log_kappa, cont, None) from the C++ decode, or (None, None,
+    reason) where it cannot be used."""
+    if np_dtype != np.float32:
+        return None, None, (f'the C++ decode writes float32, not '
+                            f'{np.dtype(np_dtype).name}')
+    from .. import native as native_mod
+    try:
+        log_kappa = native_mod.load_molecular(db_filename, molecules, npt,
+                                              loc, resample)
+        if log_kappa is None:
+            return None, None, ('the C++ library is unavailable ('
+                                f'{native_mod.unavailable_reason()})')
+        cont = native_mod.load_continuum(db_filename, continuum, cia_temps,
+                                         loc, resample)
+    except RuntimeError as e:
+        return None, None, f'the C++ decode failed ({e})'
+    return log_kappa, cont, None
 
 
 def _last_true(mask):

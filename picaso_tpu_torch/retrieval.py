@@ -4,11 +4,9 @@ Copy of ``picaso_tpu/retrieval.py`` for the PyTorch port, which must not
 import the JAX package: stamp runnable retrieval scripts (free / grid /
 grid-plus / line retrievals against the port's driver and samplers, data
 read with numpy), and analyze finished runs (summary statistics,
-equal-weight posterior bands, the max-likelihood chi-square).  Host numpy.
-
-Not ported: the plots (``plot_pair``, ``spread_plot``,
-``plot_spectra_bands``, ``plot_pressure_bands``; ROADMAP Queue 1 item 8.2),
-which need matplotlib.
+equal-weight posterior bands, the max-likelihood chi-square).  Host numpy;
+the plots (``plot_pair``, ``spread_plot``, ``plot_spectra_bands``,
+``plot_pressure_bands``) import matplotlib inside each function.
 """
 
 from __future__ import annotations
@@ -23,9 +21,11 @@ __all__ = ['create_template', 'get_info', 'get_evaluations',
            'summary', 'plot_spectra_bands', 'plot_pressure_bands']
 
 
-def _not_ported(what):
-    return NotImplementedError(f'{what} is not ported to picaso_tpu_torch '
-                               'yet: ROADMAP Queue 1 item 8.2 (the plots)')
+def _numpy(x):
+    """A model's output as numpy (a torch tensor from the card too)."""
+    if hasattr(x, 'detach'):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 _TEMPLATES = {
@@ -146,12 +146,54 @@ def summary(result):
 
 
 def plot_pair(result, parameters=None, bins=25):
-    raise _not_ported('plot_pair')
+    """Corner plot of the equal-weight posterior (retrieval.py:605)."""
+    import matplotlib.pyplot as plt
+    samples = np.asarray(result['samples_equal'])
+    names = [p['path'] for p in result.get('fitpars',
+                                           [{'path': f'p{i}'} for i in
+                                            range(samples.shape[1])])]
+    if parameters is not None:
+        idx = [names.index(p) for p in parameters]
+        samples = samples[:, idx]
+        names = parameters
+    n = samples.shape[1]
+    fig, axes = plt.subplots(n, n, figsize=(2.2 * n, 2.2 * n))
+    axes = np.atleast_2d(axes)
+    for i in range(n):
+        for j in range(n):
+            ax = axes[i][j]
+            if j > i:
+                ax.axis('off')
+            elif i == j:
+                ax.hist(samples[:, i], bins=bins, histtype='step')
+                ax.set_yticks([])
+            else:
+                ax.hist2d(samples[:, j], samples[:, i], bins=bins)
+            if i == n - 1:
+                ax.set_xlabel(names[j], fontsize=8)
+            if j == 0 and i > 0:
+                ax.set_ylabel(names[i], fontsize=8)
+    fig.tight_layout()
+    return fig
 
 
 def spread_plot(result, model_fn, wl, y=None, e=None, n_draws=50,
                 percentiles=(16, 50, 84), seed=0):
-    raise _not_ported('spread_plot')
+    """Posterior predictive band (retrieval.py:370-455)."""
+    import matplotlib.pyplot as plt
+    rng = np.random.default_rng(seed)
+    samples = np.asarray(result['samples_equal'])
+    draws = samples[rng.integers(0, len(samples), n_draws)]
+    models = np.array([_numpy(model_fn(t)) for t in draws])
+    lo, med, hi = np.percentile(models, percentiles, axis=0)
+    fig, ax = plt.subplots(figsize=(9, 5))
+    ax.fill_between(wl, lo, hi, alpha=0.3, label='posterior band')
+    ax.plot(wl, med, label='median model')
+    if y is not None:
+        ax.errorbar(wl, y, yerr=e, fmt='.', color='k', label='data')
+    ax.set_xlabel('wavelength (micron)')
+    ax.legend()
+    return fig, (lo, med, hi)
 
 
 def data_output(result, filename):
@@ -282,9 +324,66 @@ def get_chisq_max(at_evaluations, data_dict):
 
 def plot_spectra_bands(evaluations_dat, colors=('C0', 'C0'), ax=None,
                        subplots_kwargs=None, R=None):
-    raise _not_ported('plot_spectra_bands')
+    """Posterior spectral bands + median + max-logL spectrum
+    (retrieval.py:370-406) from a :func:`get_evaluations` dict.
+
+    Returns (fig, ax); pass R to re-bin for display.
+    """
+    import matplotlib.pyplot as plt
+
+    from .wavelength import mean_regrid
+
+    fig = None
+    if ax is None:
+        fig, ax = plt.subplots(**(subplots_kwargs or {}))
+    um = np.asarray(evaluations_dat['wavelength'])
+    bands = evaluations_dat['bands_spectra']
+
+    def rebin(y):
+        if isinstance(R, (int, float)):
+            wno, yy = mean_regrid(1e4 / um, y, R=float(R))
+            return 1e4 / wno, yy
+        return um, y
+
+    for i in (2, 1):
+        x, lo = rebin(bands[f'{i}sig_lo'])
+        _, hi = rebin(bands[f'{i}sig_hi'])
+        ax.fill_between(x, lo, hi, color=colors[i - 1], alpha=0.2,
+                        label=f'{i} sigma')
+    x, med = rebin(bands['median'])
+    ax.plot(x, med, color='k', lw=1, label='median')
+    x, mx = rebin(np.asarray(evaluations_dat['max_logl_spectra']))
+    ax.plot(x, mx, color='r', lw=0.8, label='max logL')
+    ax.set_xlabel('wavelength [um]')
+    ax.legend(fontsize=8)
+    return fig, ax
 
 
 def plot_pressure_bands(evaluations_dat, key, colors=('C0', 'C0'),
                         ax=None, subplots_kwargs=None, log_x=None):
-    raise _not_ported('plot_pressure_bands')
+    """Posterior pressure-profile bands for one quantity
+    (retrieval.py:407-455): ``key`` is 'temperature' or a molecule from
+    get_evaluations' ``pressure_bands``.  Returns (fig, ax).
+    """
+    import matplotlib.pyplot as plt
+
+    fig = None
+    if ax is None:
+        fig, ax = plt.subplots(**(subplots_kwargs or {}))
+    pressure = np.asarray(evaluations_dat['pressure'])
+    bands = evaluations_dat['bands_ptchem'][key]
+    for i in (2, 1):
+        ax.fill_betweenx(pressure, bands[f'{i}sig_lo'],
+                         bands[f'{i}sig_hi'], color=colors[i - 1],
+                         alpha=0.2, label=f'{i} sigma')
+    ax.plot(bands['median'], pressure, color='k', lw=1, label='median')
+    ax.plot(np.asarray(evaluations_dat['max_logl_ptchem'][key]), pressure,
+            color='r', lw=0.8, label='max logL')
+    ax.set_yscale('log')
+    if log_x or (log_x is None and key != 'temperature'):
+        ax.set_xscale('log')
+    ax.invert_yaxis()
+    ax.set_ylabel('pressure [bar]')
+    ax.set_xlabel(key)
+    ax.legend(fontsize=8)
+    return fig, ax

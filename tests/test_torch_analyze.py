@@ -236,8 +236,14 @@ def test_info_summary_and_data_output(tmp_path):
     fn = tretrieval.data_output(res, str(tmp_path / 'post.npz'))
     saved = np.load(fn)
     np.testing.assert_array_equal(saved['samples'], res['samples_equal'])
-    with pytest.raises(NotImplementedError, match='item 8.2'):
-        tretrieval.plot_pair(res)
+    import matplotlib
+    matplotlib.use('Agg')
+    figs = [mod.plot_pair(res) for mod in (tretrieval, jretrieval)]
+    data = [[np.asarray(c.get_array()) for ax in fig.axes
+             for c in ax.collections] for fig in figs]
+    assert len(data[0]) == len(data[1]) == 1      # the one 2D histogram
+    np.testing.assert_array_equal(data[0][0], data[1][0])
+    matplotlib.pyplot.close('all')
 
 
 @pytest.mark.parametrize('kind', ['free', 'grid', 'gridplus', 'line'])

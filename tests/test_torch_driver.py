@@ -245,8 +245,9 @@ def test_unported_modes_raise(setup):
     ``run`` calls it, against the JAX driver's (the same temperatures,
     cvz_locs and chemistry to rtol 1e-8); without a connection ``run``
     opens ``ck_db`` (a missing file raises the loader's error;
-    test_climate_mode_opens_ck_db runs one).  ``viz`` raises (item
-    8.2)."""
+    test_climate_mode_opens_ck_db runs one).  ``viz`` draws the JAX
+    driver's dashboard of the solved case (Agg backend: the same lines;
+    tests/test_torch_plots.py compares every plot)."""
     from test_torch_climate_fluxes import sliced_tables
     config = {'calc_type': 'climate',
               'object': {'gravity': {'value': 100.0, 'unit': 'm/(s**2)'}},
@@ -273,8 +274,18 @@ def test_unported_modes_raise(setup):
     with pytest.raises(OSError):
         tdrv.run(dict(config, OpticalProperties={'ck_db': 'x.hdf5'}),
                  device='cpu')
-    with pytest.raises(NotImplementedError, match='item 8.2'):
-        tdrv.viz(None, {})
+    import matplotlib
+    matplotlib.use('Agg')
+    spec = {'wavenumber': np.linspace(1000.0, 5000.0, 20),
+            'thermal': np.linspace(1.0, 2.0, 20)}
+    figs = [drv.viz(case, spec) for drv, case in ((tdrv, tcase),
+                                                   (jdrv, jcase))]
+    lines = [[np.asarray(line.get_xydata()) for ax in fig.axes
+              for line in ax.get_lines()] for fig in figs]
+    assert len(lines[0]) == len(lines[1]) > 2
+    for a, b in zip(*lines):
+        np.testing.assert_allclose(a, b, rtol=1e-8)
+    matplotlib.pyplot.close('all')
 
 
 def test_climate_mode_opens_ck_db(tmp_path):
