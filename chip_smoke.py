@@ -28,7 +28,9 @@ front door's tools (``guillot_pt``, ``get_contribution``,
 ``convert_flux_units``); then the host tools: opacity ingestion from raw
 files into a spectrum, the native (C++) loader, ``build_3d_input`` into a
 100-facet spectrum, ``model_compare``'s literature harnesses and the
-port's examples.  It goes
+port's examples; then the device mesh (the sharded forward, phase curve,
+likelihood and climate) and the climate with (mocked) photochemical
+kinetics.  It goes
 through the 14 hand-written CUDA kernels, and checks each kernel against
 its plain PyTorch twin, each forward against a float64 oracle, and each
 climate solve against the JAX package's float64 solve
@@ -281,7 +283,7 @@ Phases (any failure raises, so the exit code is nonzero):
     not a gate)
 49. the port's examples (picaso_tpu_torch/examples) through
     ``integration_testing.run_all``, each in a process of its own with a
-    timeout: every one exits 0 but retrieval_nested.py, whose JAX
+    timeout, 4 at a time (each example's wall s is under that load): every one exits 0 but retrieval_nested.py, whose JAX
     namesake fails its own posterior assert (the JAX package's CPU run in
     tests/host_tools_reference.json: T median 1411 K against the truth's
     1150 +- 250); the port's copy must fail the same way, printing the
@@ -290,15 +292,45 @@ Phases (any failure raises, so the exit code is nonzero):
     ``profiling.Timer``, logged by ``profiling.RunLog``
     (build/host_tools/host_tools.jsonl) and each prints one JSON line with
     the card's name and power limit
-50. the card, one JSON line with the climate numbers, one with the front
+50-54. the device mesh (``picaso_tpu_torch.parallel``) over the visible
+    cards, ``cuda:0`` repeated where there are fewer cards than shards
+    (the mesh's device list printed), and photochemistry; one JSON line
+    per phase with the card's name and power limit:
+50. ``sharded_forward`` at the production shape over 4 wave shards, Toon
+    (K1 + K2) and the int16 table (K8 + K2): each kernel launched once per
+    shard, albedo, thermal and transit bitwise phase 6's and phase 19's
+    unsharded outputs (the transit depth's slant-path product runs once
+    over the gathered optical depths); placement s, wall ms sharded and
+    unsharded, peak
+51. the front door's batched 4-phase reflected curve (phase 29's) with
+    ``phase_curve(mesh=make_mesh(n_wave=2, n_batch=2))``: K1 and K3 once
+    per scene and shard, bitwise ``mesh=None``
+52. ``sampler.nested_sample`` over ``sharded_loglike`` on a 2 x 4 mesh at
+    tests/test_parallel_climate.py:152-199's width (nwno 256, 25 levels,
+    nlive 50, seed 11; reflected-only: the likelihood reads the albedo):
+    K1 and K3 once per point and wave shard, the same dead points and
+    logz as the unsharded run on the card
+53. ``run_climate(mesh=make_mesh(n_wave=4, n_batch=2))`` in f64 on phase
+    24's case (49 bins a shard): the same converged and cvz_locs as phase
+    24's solve, T within rtol 1e-4 / atol 0.05 K of it
+    (tests/test_parallel_climate.py:133-134) and within 1e-6 K of it, and
+    within 2 K of the JAX record; wall s and flux evaluations against
+    phase 24's; no kernel
+54. phase 34's T dwarf (``diseq_t900_91``) with mocked photochemical
+    kinetics in ``inputs['climate']['pc']``: the kinetics once per host
+    iteration, cold then warm, the converged profile's CH4 the mock's
+    constant, converged and cvz_locs as the JAX f64 solve of the same
+    case (tests/photochem_reference.json) and T within 2 K of it
+55. the card, one JSON line with the climate numbers, one with the front
     door's (each path's launches, wall times, peaks, oracle and uniform-map
     deviations), one with the retrievals' (launches, rates, host and card
     times, oracle deviations), one with the climate modes' (per run: wall
     s, the solve's counts, launches, peak over alive, the gates' numbers),
-    one with phases 39-43's, one with phases 45-49's, one with every
+    one with phases 39-43's, one with phases 45-49's, one with phases
+    50-54's, one with every
     kernel's summary (launches on the paths counted above, the front
-    door's, the retrievals', the climate modes', phases 39-43's and
-    phases 45-48's included and also apart, times, max
+    door's, the retrievals', the climate modes', phases 39-43's,
+    phases 45-48's and phases 50-53's included and also apart, times, max
     abs error, and the bound: the larger of the
     bytes its inputs and outputs need over 3.35 TB/s and the float32
     operations its twin performs on these inputs, counted per aten call,
@@ -400,6 +432,22 @@ HOST_TOOLS_DIR = 'build/host_tools'
 HOST_TOOLS_RTOL = 1e-12      # where 10**, log or exp enter
 GAUSS_CHEBY = dict(num_gangle=10, num_tangle=10)   # 100 facets
 EXAMPLE_TIMEOUT_S = 300
+# examples run at a time in phase 49, each in a process of its own (the
+# card's machine has 8 cores; one at a time took 131 s in PR 17)
+EXAMPLE_JOBS = 4
+# phases 50-54, the device mesh (picaso_tpu_torch.parallel): the sharded
+# climate against the unsharded one at the JAX whole-solve test's bound
+# (tests/test_parallel_climate.py:133-134), and the kinetics-coupled
+# climate (mocked, tests/photochem_record.py) against the JAX f64 solve
+MESH_CLIMATE_RTOL, MESH_CLIMATE_ATOL = 1e-4, 0.05
+# and near what it reaches (6.8e-10 K on an H100): the CPU tests' bound
+# between the port and the JAX package, so a shard reduction that lost
+# float64 precision fails
+MESH_CLIMATE_DT_MAX = 1e-6
+PHOTOCHEM_REFERENCE = 'tests/photochem_reference.json'
+PHOTOCHEM_CASE = 'photochem_t900_91'
+PHOTOCHEM_BASE = 'diseq_t900_91'       # phase 34's run of the same case
+RETRIEVAL_NWNO, RETRIEVAL_NLEVEL = 256, 25  # tests/test_parallel_climate.py
 # one H100 SXM at its 700 W limit (NVIDIA data sheet): memory rate and
 # float32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -601,6 +649,12 @@ def perturbed(scene, n):
             for i in range(n)]
 
 
+# results of earlier phases that phases 50-54 hold the sharded runs
+# against (filled as the script runs)
+REUSED = {}
+SCRIPT_T0 = time.perf_counter()
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: no CUDA device; this script runs '
@@ -721,6 +775,7 @@ def main():
     log(f'    albedo mean {a["albedo"].mean().item():.6g}, thermal mean '
         f'{a["thermal"].mean().item():.6g}, transit mean '
         f'{a["transit_depth"].mean().item():.6g}')
+    REUSED['toon'] = (scenes[0], outs[0])    # phase 50's unsharded forward
     del outs
 
     # phase 7: float64 oracle
@@ -1092,6 +1147,7 @@ def main():
     launches['interp_tau_q'] = got['interp_tau_q']
     log('     ' + ', '.join(f'{k} mean {v.mean().item():.6g}'
                             for k, v in outs[0].items()))
+    REUSED['int16'] = (scenes[0], outs[0])   # phase 50's unsharded forward
     del outs
     s0 = scenes[0]
     q_fwd = [wall_ms(lambda: pipeline.forward(s0, g16, config), 10)
@@ -1208,14 +1264,16 @@ def main():
     climate_modes = climate_modes_phases(dev, grid, reset_counts, counts)
     ck_files = ck_files_phases(dev, grid, reset_counts, counts, smi[0])
     host_tools = host_tools_phases(dev, grid, reset_counts, counts, smi[0])
+    mesh = mesh_phases(dev, grid, g16, config, reset_counts, counts, smi[0])
     for paths in (front_door['launches'], retrieval['launches'],
                   climate_modes['launches'], ck_files['launches'],
-                  host_tools['launches']):
+                  host_tools['launches'], mesh['launches']):
         for path in paths.values():
             for name, count in path.items():
                 launches[name] += count
 
-    # phase 50: summary
+    # phase 55: summary
+    log(f'chip_smoke wall {time.perf_counter() - SCRIPT_T0:.1f} s')
     log(smi[0])
     print(json.dumps({'climate': climate}))
     print(json.dumps({'front_door': front_door}))
@@ -1223,6 +1281,7 @@ def main():
     print(json.dumps({'climate_modes': climate_modes}))
     print(json.dumps({'ck_files': ck_files}))
     print(json.dumps({'host_tools': host_tools}))
+    print(json.dumps({'mesh': mesh}))
     stats = {
         'interp_tau': dict(max_abs_err=k1_abs, ms=k1_ms,
                            plain_ms=k1_plain_ms, bytes=k1_bytes, ops=k1_ops,
@@ -1268,6 +1327,8 @@ def main():
             'host_tools_launches': sum(
                 path.get(name, 0)
                 for path in host_tools['launches'].values()),
+            'mesh_launches': sum(path.get(name, 0)
+                                 for path in mesh['launches'].values()),
             **st, 'bound_ms': bound_ms, 'bound_by': bound_by,
             'bound_share': bound_ms / st['ms'], 'library_ms': None})
     print(json.dumps({'kernels': kernels}))
@@ -1490,6 +1551,9 @@ def climate_phases(dev, reset_counts, counts):
         d_t = float(np.abs(out['temperature']
                            - np.asarray(ref['temperature'])).max())
         runs[key]['max_dT_to_jax'] = d_t
+        if key == f'196_{nl}':       # phase 53's unsharded solve
+            REUSED['climate'] = dict(temperature=out['temperature'],
+                                     numbers=runs[key], ck=ck)
         log(f'[{phase}] {table} bins, {nl} levels, against the JAX '
             f'package\'s f64 solve: converged {ref["converged"]}, cvz_locs '
             f'{ref["cvz_locs"]}')
@@ -2177,6 +2241,9 @@ def climate_modes_phases(dev, grid, reset_counts, counts):
                        **dataclasses.asdict(solve))
         if name in ('diseq_t900_91', 'cloudy_91'):
             numbers['layers_ms'] = host_path_layers(ck, spec, out, dev)
+        if name == PHOTOCHEM_BASE:    # phase 54 runs its case with kinetics
+            REUSED['diseq'] = dict(temperature=temp, numbers=numbers,
+                                   ck=ck, opa=opa)
         log(f'{label}: T top {temp[0]:.3f} K, bottom {temp[-1]:.3f} K; '
             f'JAX: converged {rec["converged"]}, cvz_locs '
             f'{rec["cvz_locs"]}')
@@ -2965,8 +3032,10 @@ def host_tools_phases(dev, grid, reset_counts, counts, card):
     # whose JAX namesakes fail their own asserts held to the JAX run's line
     rec = reference['examples']
     examples = integration_testing.discover()
+    procs = {}
     with timer('[49] examples'):
-        results = integration_testing.run_all(timeout=EXAMPLE_TIMEOUT_S)
+        results = integration_testing.run_all(
+            timeout=EXAMPLE_TIMEOUT_S, jobs=EXAMPLE_JOBS, outputs=procs)
     failed = sorted(os.path.basename(p) for p, (ok, _) in results.items()
                     if not ok)
     if len(results) != len(examples) or failed != sorted(rec):
@@ -2974,11 +3043,7 @@ def host_tools_phases(dev, grid, reset_counts, counts, card):
                              f'examples that fail: {sorted(rec)}')
     as_jax = {}
     for name, want in rec.items():
-        proc = subprocess.run(
-            [sys.executable, os.path.join(os.path.dirname(examples[0]),
-                                          name)],
-            capture_output=True, text=True, cwd=root,
-            timeout=EXAMPLE_TIMEOUT_S)
+        proc = procs[os.path.join(os.path.dirname(examples[0]), name)]
         lines = [ln.split('  (')[0] for ln in proc.stdout.splitlines()]
         log(f'[49] {name}: exit {proc.returncode}, JAX {want["returncode"]}'
             f'; JAX printed {want["line"]!r}')
@@ -2992,6 +3057,317 @@ def host_tools_phases(dev, grid, reset_counts, counts, card):
         failing_as_the_jax_example=as_jax,
         launches='in the examples\' own processes, not counted'))
     summary['timer'] = timer.summary()
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# the device mesh (picaso_tpu_torch.parallel) and photochemistry: 50-54
+# ---------------------------------------------------------------------------
+
+class MockPhotochem:
+    """The kinetics stand-in of tests/test_photochem_climate.py:19-36 on
+    the port's dict profile: CH4 frozen at its deepest value."""
+
+    def __init__(self):
+        self.calls = 0
+        self.guesses = []
+
+    def run_for_picaso(self, df, log10metallicity, CtoO, Kzz,
+                       df_comp_guess=None, rainout_condensed_atoms=True):
+        self.calls += 1
+        self.guesses.append(df_comp_guess is not None)
+        if len(Kzz) != len(df['pressure']):
+            raise AssertionError('kinetics: Kzz and the profile differ')
+        out = dict(df)
+        ch4 = np.asarray(out['CH4'])
+        out['CH4'] = np.full(len(ch4), float(ch4[-1]))
+        return out
+
+
+def mesh_devices(n):
+    """``n`` devices for a mesh: the visible cards, ``cuda:0`` repeated
+    where there are fewer cards than shards."""
+    cards = [torch.device('cuda', i)
+             for i in range(torch.cuda.device_count())]
+    return (cards + [cards[0]] * n)[:n]
+
+
+def check_bitwise(label, got, ref):
+    """Each key of ``ref`` (tensors or arrays) equal bit for bit in
+    ``got``."""
+    for key in ref:
+        a, b = torch.as_tensor(got[key]), torch.as_tensor(ref[key])
+        if a.shape != b.shape or not torch.equal(a.cpu(), b.cpu()):
+            diff = ((a.cpu() - b.cpu()).abs().max().item()
+                    if a.shape == b.shape else 'shape')
+            raise AssertionError(f'{label} {key}: not bitwise the unsharded '
+                                 f'result (max abs {diff})')
+    log(f'{label}: bitwise the unsharded result ({sorted(ref)})')
+
+
+def mesh_phases(dev, grid, g16, config, reset_counts, counts, card):
+    """Phases 50-54: the mesh (``picaso_tpu_torch.parallel``) on the
+    visible cards, ``cuda:0`` repeated where there are fewer cards than
+    shards: the sharded forward at the production shape (Toon and the
+    int16 table) bitwise phases 6 and 19; the front door's batched phase
+    curve over a 2 x 2 mesh bitwise ``mesh=None``; the nested sampler over
+    ``sharded_loglike`` with the same dead points as the unsharded run;
+    ``run_climate(mesh=...)`` against phase 24's solve; then the
+    diseq climate with (mocked) photochemical kinetics against the JAX
+    package's f64 solve of the same case.  One JSON line per phase with
+    the card's name and power limit."""
+    from picaso_tpu_torch import justdoit as jdi
+    from picaso_tpu_torch import parallel, pipeline
+    from picaso_tpu_torch.climate import api, fused
+    from picaso_tpu_torch.opacities import factory
+    from picaso_tpu_torch.probes.climate_jacobian import modes_case
+    from picaso_tpu_torch.probes.front_door import facade_case
+    from picaso_tpu_torch.sampler import nested_sample
+
+    summary = {'launches': {}}
+    t_mesh = time.perf_counter()
+
+    def report(phase, what, numbers):
+        numbers = dict(phase=phase, what=what, card=card, **numbers)
+        log(json.dumps(numbers))
+        summary[what] = numbers
+
+    def counted(label, fn, expected):
+        """fn() with the launch counts set to 0 just before and read just
+        after; each kernel of ``expected`` as often as it says, no
+        other."""
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in counts().items() if v}
+        log(f'{label}: launches {got}')
+        if got != expected:
+            raise AssertionError(f'{label}: launches {got}, expected '
+                                 f'{expected}')
+        summary['launches'][label] = got
+        return out
+
+    # phase 50: the sharded forward at the production shape, 4 wave shards
+    m = parallel.make_mesh(n_wave=4, n_batch=1, devices=mesh_devices(4))
+    log(f'[50] {m}')
+    numbers = {'mesh': [[str(d) for d in r] for r in m.devices]}
+    for path, g, kernel in (('toon', grid, 'interp_tau'),
+                            ('int16', g16, 'interp_tau_q')):
+        scene0, ref = REUSED[path]
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        scene_s = parallel.shard_scene(scene0, m)
+        grid_s = parallel.shard_grid(g, m)
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        label = f'[50] sharded forward, {path}'
+        out = counted(label, lambda: parallel.sharded_forward(
+            scene_s, grid_s, config, m), {kernel: 4, 'spectrum_toon': 4})
+        check_bitwise(label, out, ref)
+        peak = torch.cuda.max_memory_allocated()
+        numbers[path] = dict(
+            place_s=place_s, peak_bytes=peak,
+            launches_per_shard={kernel: 1, 'spectrum_toon': 1},
+            sharded_ms=wall_ms(lambda: parallel.sharded_forward(
+                scene_s, grid_s, config, m), 5),
+            unsharded_ms=wall_ms(lambda: pipeline.forward(scene0, g,
+                                                          config), 5))
+        del scene_s, grid_s, out
+    report(50, 'sharded_forward', numbers)
+
+    # phase 51: the front door's batched 4-phase reflected curve (phase
+    # 29's) over a 2 x 2 mesh: the phases over 'batch', the bins over 'wave'
+    m = parallel.make_mesh(n_wave=2, n_batch=2, devices=mesh_devices(4))
+    log(f'[51] {m}')
+    opa = jdi.Opacity(grid.wno, grid=grid)
+    kw_r = dict(phase_grid=np.radians(PHASES_DEG), calculation='reflected')
+    ref, ref_ms, _ = timed_call(lambda: facade_case(
+        opa, disk=(6, 6), **kw_r).phase_curve(opa, verbose=False))
+    got, got_ms, peak = counted(
+        '[51] sharded batched phase curve', lambda: timed_call(
+            lambda: facade_case(opa, disk=(6, 6), **kw_r).phase_curve(
+                opa, verbose=False, mesh=m)),
+        {'interp_tau': 2 * N_SCENES, 'reflected_toon': 2 * N_SCENES})
+    if list(got) != list(ref):
+        raise AssertionError('[51] the sharded curve\'s phases differ')
+    for ph in ref:
+        check_bitwise(f'[51] phase {ph:.3f}', got[ph], ref[ph])
+    report(51, 'sharded_phase_curve', dict(
+        mesh=[[str(d) for d in r] for r in m.devices], sharded_ms=got_ms,
+        unsharded_ms=ref_ms, peak_bytes_over_alive=peak))
+    del opa, got, ref
+
+    # phase 52: the nested sampler over sharded_loglike
+    # (tests/test_parallel_climate.py:152-199 at its width, on the card in
+    # f32); the likelihood reads the albedo alone, so the forward is
+    # reflected-only (K1 + K3), and each point's chi^2 is its own sum
+    wno = np.linspace(2000.0, 18000.0, RETRIEVAL_NWNO)
+    nl = RETRIEVAL_NLEVEL
+    pressure = np.logspace(-6, 2, nl)
+    r_grid = factory.synthetic_opacity_grid(wno, ntemp=6, npress=5,
+                                            dtype=torch.float32, device=dev)
+    r_scene, r_config = pipeline.scene_from_arrays(
+        pressure, 1000.0 * (pressure / 10.0) ** 0.1 + 300.0,
+        {'H2': np.zeros(nl) + 0.85, 'He': np.zeros(nl) + 0.14,
+         'H2O': np.zeros(nl) + 5e-4, 'CH4': np.zeros(nl) + 3e-4}, r_grid,
+        gravity=2500.0, radius=7.1e9, mass=1.9e30, rstar=6.96e10)
+    r_config = dataclasses.replace(r_config, thermal=False,
+                                   transmission=False)
+
+    def scaled(sc, s):
+        return sc._replace(tlevel=sc.tlevel * s, tlayer=sc.tlayer * s)
+
+    y = pipeline.forward(scaled(r_scene, 1.02), r_grid, r_config)['albedo']
+
+    def chi2(albs, y_dev):
+        return torch.stack([-0.5 * ((a - y_dev) ** 2).sum() / 1e-6
+                            for a in albs])
+
+    def ll_ref(x):
+        x = torch.as_tensor(x, dtype=y.dtype, device=dev)
+        return chi2([pipeline.forward(scaled(r_scene, s[0]), r_grid,
+                                      r_config)['albedo'] for s in x],
+                    y).cpu().numpy()
+
+    m = parallel.make_mesh(n_wave=4, n_batch=2, devices=mesh_devices(8))
+    log(f'[52] {m}')
+    scene_s = parallel.shard_scene(r_scene, m)
+    grid_s = parallel.shard_grid(r_grid, m)
+    points = [0]
+
+    def ll_row(x, b):
+        points[0] += x.shape[0]
+        x = x.to(y.dtype)
+        albs = [parallel.sharded_forward(
+            scene_s.row(b).map(lambda sc: scaled(sc, s[0].to(
+                sc.tlevel.device))), grid_s.row(b), r_config,
+            m.row(b))['albedo'] for s in x]
+        return chi2(albs, y.to(x.device))
+
+    def prior(u):
+        return 0.9 + 0.3 * u
+
+    t0 = time.perf_counter()
+    ref = nested_sample(ll_ref, prior, 1, nlive=50, seed=11, dlogz=0.5)
+    ref_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    got = nested_sample(parallel.sharded_loglike(ll_row, m), prior, 1,
+                        nlive=50, seed=11, dlogz=0.5)
+    torch.cuda.synchronize()
+    got_s = time.perf_counter() - t0
+    label = '[52] nested sampler over sharded_loglike'
+    launched = {k: v for k, v in counts().items() if v}
+    log(f'{label}: launches {launched}, {points[0]} points (padding '
+        f'included) x 4 wave shards')
+    if launched != {'interp_tau': 4 * points[0],
+                    'reflected_toon': 4 * points[0]}:
+        raise AssertionError(f'{label}: launches {launched}, expected K1 '
+                             f'and K3 once per point and wave shard')
+    summary['launches'][label] = launched
+    report(52, 'sharded_loglike', dict(
+        mesh=[[str(d) for d in r] for r in m.devices], points=points[0],
+        dead_points=len(ref.samples), logz=ref.logz, sharded_s=got_s,
+        unsharded_s=ref_s))
+    if got.logz != ref.logz or not np.array_equal(got.samples, ref.samples):
+        raise AssertionError('[52] the sharded run\'s dead points or logz '
+                             'differ from the unsharded run\'s')
+    log(f'[52] the same {len(ref.samples)} dead points and logz '
+        f'{ref.logz:.6f} as the unsharded run')
+    del scene_s, grid_s, r_grid, r_scene
+
+    # phase 53: run_climate over a 2 x 4 mesh on phase 24's case
+    m = parallel.make_mesh(n_wave=4, n_batch=2, devices=mesh_devices(8))
+    log(f'[53] {m}')
+    base = REUSED['climate']
+    solve = fused.ClimateCounts()
+    out, wall, peak = counted(
+        '[53] run_climate(mesh=2 x 4), 196 bins, 91 levels, f64',
+        lambda: timed_call(lambda: api.run_climate(
+            climate_inputs(CLIMATE_NLEVEL), base['ck'], verbose=False,
+            counts=solve, device=dev, mesh=m)), {})
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           CLIMATE_REFERENCE)) as f:
+        jax_rec = json.load(f)[f'196_{CLIMATE_NLEVEL}']
+    temp = out['temperature']
+    nstr = [int(i) for i in out['cvz_locs']]
+    d_single = float(np.abs(temp - base['temperature']).max())
+    d_rel = float(np.max(np.abs(temp - base['temperature'])
+                         / np.abs(base['temperature'])))
+    d_jax = float(np.abs(temp - np.asarray(jax_rec['temperature'])).max())
+    report(53, 'sharded_climate', dict(
+        mesh=[[str(d) for d in r] for r in m.devices], wall_s=wall / 1e3,
+        unsharded_wall_s=base['numbers']['wall_s'],
+        converged=int(out['converged']), cvz_locs=nstr,
+        max_dT_to_unsharded=d_single, max_rel_dT_to_unsharded=d_rel,
+        max_dT_to_jax=d_jax, flux_balance=flux_balance(out, CLIMATE_TEFF),
+        peak_bytes_over_alive=peak, **{f'{k}': v for k, v in
+                                       dataclasses.asdict(solve).items()},
+        unsharded_flux_evaluations=base['numbers']['flux_evaluations']))
+    if (int(out['converged']), nstr) != (base['numbers']['converged'],
+                                         base['numbers']['cvz_locs']):
+        raise AssertionError('[53] converged / cvz_locs differ from phase '
+                             '24\'s unsharded solve')
+    if not np.allclose(temp, base['temperature'], rtol=MESH_CLIMATE_RTOL,
+                       atol=MESH_CLIMATE_ATOL):
+        raise AssertionError(f'[53] T differs from phase 24\'s beyond rtol '
+                             f'{MESH_CLIMATE_RTOL} / atol '
+                             f'{MESH_CLIMATE_ATOL} K: max {d_single} K')
+    check('[53] sharded climate max |dT| to the unsharded solve (K)',
+          d_single, MESH_CLIMATE_DT_MAX)
+    check('[53] sharded climate max |dT| to the JAX package (K)', d_jax,
+          CLIMATE_DT_MAX)
+    del out
+
+    # phase 54: the diseq climate of phase 34's T dwarf with (mocked)
+    # photochemical kinetics each host iteration
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           PHOTOCHEM_REFERENCE)) as f:
+        rec = json.load(f)[PHOTOCHEM_CASE]
+    spec = rec['case']
+    diseq = REUSED['diseq']
+    case = modes_case(jdi, spec)
+    pc = MockPhotochem()
+    case.inputs['climate']['pc'] = pc
+    solve = fused.ClimateCounts()
+    out, wall, peak = counted(
+        f'[54] {PHOTOCHEM_CASE}: diseq_chem with mocked kinetics',
+        lambda: timed_call(lambda: case.climate(
+            diseq['opa'], diseq_chem=True, verbose=False, counts=solve,
+            save_all_profiles=True)), {})
+    temp = out['temperature']
+    nstr = [int(i) for i in out['cvz_locs']]
+    prof = case.inputs['atmosphere']['profile']
+    d_t = float(np.abs(temp - np.asarray(rec['temperature'])).max())
+    numbers = dict(
+        wall_s=wall / 1e3, jax_cpu_s=rec['seconds'],
+        converged=int(out['converged']), cvz_locs=nstr, max_dT_to_jax=d_t,
+        kinetics_calls=pc.calls, jax_kinetics_calls=rec['calls'],
+        max_dT_to_phase_34=float(np.abs(temp - diseq['temperature']).max()),
+        flux_balance=flux_balance(out, spec['teff']),
+        jax_flux_balance=flux_balance(rec, spec['teff']),
+        peak_bytes_over_alive=peak, **dataclasses.asdict(solve))
+    report(54, 'photochem_climate', numbers)
+    if not np.isfinite(temp).all():
+        raise AssertionError('[54] non-finite temperatures')
+    if pc.calls < 2 or pc.guesses[0] or not all(pc.guesses[1:]):
+        raise AssertionError(f'[54] kinetics calls {pc.guesses}: not cold '
+                             f'once, then warm each host iteration')
+    if not np.allclose(prof['CH4'], prof['CH4'][-1]):
+        raise AssertionError('[54] the profile lost the kinetics\' CH4')
+    if (int(out['converged']), nstr) != (rec['converged'], rec['cvz_locs']):
+        raise AssertionError('[54] converged / cvz_locs differ from the JAX '
+                             'package\'s')
+    check(f'[54] {PHOTOCHEM_CASE} max |dT| to the JAX package (K)', d_t,
+          CLIMATE_DT_MAX)
+    if rec['converged'] and numbers['jax_flux_balance'] <= CLIMATE_BALANCE:
+        check(f'[54] {PHOTOCHEM_CASE} flux balance',
+              numbers['flux_balance'], CLIMATE_BALANCE)
+    summary['wall_s'] = time.perf_counter() - t_mesh
+    log(f'[50-54] mesh and photochemistry phases: {summary["wall_s"]:.1f} s')
     return summary
 
 

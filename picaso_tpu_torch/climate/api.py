@@ -2,11 +2,13 @@
 user entry point.
 
 Port of ``picaso_tpu/climate/api.py`` (reference climate.py:126-330
-workflows, :2542-2839 ``find_strat``, :2926-3249 ``profile``) in every mode
-but the device mesh: chemical equilibrium, disequilibrium chemistry
-(self-consistent Kzz, Zahnle & Marley quenching, resort-rebin mixing of
-per-gas CK tables), virga clouds in the loop, the moist adiabat, energy
-injection and the spectrum of the result (``with_spec``).  The zone
+workflows, :2542-2839 ``find_strat``, :2926-3249 ``profile``) in every
+mode: chemical equilibrium, disequilibrium chemistry (self-consistent Kzz,
+Zahnle & Marley quenching, resort-rebin mixing of per-gas CK tables, or
+photochemical kinetics through the front door's ``pc``), virga clouds in
+the loop, the moist adiabat, energy injection, the spectrum of the result
+(``with_spec``), and any of them over a device mesh (``mesh=``,
+``parallel.shard_climate_state``).  The zone
 bookkeeping stays host Python (a few ints per iteration); everything
 touching [nlayer, nwno, ngauss] arrays is device work, through
 ``climate/fused.py``.
@@ -24,8 +26,10 @@ facade's defaults (``picaso_tpu/justdoit.py:996-1018``, ``:1041-1046``,
 ``:1451-1472``); ``justdoit.inputs.climate`` builds one from its bundle.
 The JAX state writes the adjusted chemistry and the Kzz back into the
 bundle; here they come back in the output (``ptchem_df``, ``kzz``) and the
-facade writes them back.  Photochemical kinetics (the JAX ``pc`` branch)
-and device meshes raise.
+facade writes them back.  The kinetics branch (a ``pc`` in the bundle's
+``inputs['climate']``) hands the quench-adjusted profile to the bundle's
+``premix_atmosphere_photochem`` each host iteration, as the JAX package
+does.
 """
 
 from __future__ import annotations
@@ -159,6 +163,9 @@ class _ClimateState:
         self.geom = core.make_climate_geometry(device, dtype)
         self.verbose = verbose
         self.counts = counts
+        # the front door's case (run_climate's bundle=): its 'pc' drives
+        # photochemical kinetics in update_diseq_chem
+        self.bundle = None
         self.all_profiles = []
         self.profile = None     # the chemistry profile of the last refresh
         # host-driven workflow flags (set by run_climate)
@@ -289,6 +296,21 @@ class _ClimateState:
             x_h2=np.asarray(df.get('H2', np.ones(len(temp)))),
             strict=False)
         self.quench = qlv
+        pc = (self.bundle.inputs['climate'].get('pc')
+              if self.bundle is not None else None)
+        if pc is not None:
+            # full kinetics: the kinetics' steady state each iteration from
+            # the quench-adjusted guess (climate.py:3107-3109; the JAX
+            # package's api.py:292-296), on the bundle's profile and Kzz
+            atmo = self.bundle.inputs['atmosphere']
+            atmo['profile'] = df
+            store = atmo.get('kzz')
+            if not isinstance(store, dict):
+                store = atmo['kzz'] = {}
+            store['sc_kzz'] = kz
+            df = self.bundle.premix_atmosphere_photochem(quench_levels=qlv)
+            self.profile = df
+            return df
         chem_params = self.inputs.chem_params or {}
         df = chemistry.adjust_quench_chemistry(df, qlv)
         if chem_params.get('vol_rainout'):
@@ -476,6 +498,7 @@ def profile(state: _ClimateState, nofczns, nstr, temp, pressure_bar,
                 taudif = state.last_taudif
                 taudif_tol = state.last_taudif_tol
             props, _ = state.build_props_host(df, cld_df=cld_df)
+            props = state.data.wave.split_props(props)
             temp_dev, _, fnil, fnvl, fpit = fused.newton_solve(
                 state._tensor(temp), props, zones, state.data, state.geom,
                 state.ck.arrays, state.adiabat, config, state.counts)
@@ -686,8 +709,13 @@ def run_climate(inputs: ClimateInputs, ck: CKTable, save_all_profiles=False,
     (``spectrum_output``) through the front door: ``bundle`` (the
     ``justdoit.inputs`` case) on ``opacity`` (its connection, which holds a
     CUDA table in float32, the front door's spectra's dtype); both are
-    required with ``with_spec``.  ``mesh`` raises: the port runs on one
-    card.
+    required with ``with_spec``; ``bundle``'s ``inputs['climate']['pc']``
+    (``inputs.photochem_init``, or any object with its ``run_for_picaso``)
+    turns the diseq chemistry into photochemical kinetics.  ``mesh`` (a
+    ``parallel.make_mesh`` mesh whose first device is ``device``) runs the
+    solve over the mesh (``parallel.shard_climate_state``): the CK bins
+    over 'wave', the Jacobian's perturbed profiles over 'batch'; the wave
+    sums then add in another order, so the result moves by rounding only.
 
     Runs on ``device`` (default ``'cuda'``; raises where there is none) in
     ``dtype``, float64 on every device unless asked: the solve is bound by
@@ -702,10 +730,6 @@ def run_climate(inputs: ClimateInputs, ck: CKTable, save_all_profiles=False,
     package's keys (``ptchem_df`` a dict of numpy columns), with
     ``quench_levels`` for diseq runs.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            'mesh= shards the climate solve over several cards; the port '
-            'runs on one (ROADMAP Queue 1 item 8.1)')
     if with_spec and (bundle is None or opacity is None):
         raise ValueError('with_spec needs the front door\'s case (bundle=) '
                          'and connection (opacity=): justdoit.inputs.'
@@ -713,6 +737,10 @@ def run_climate(inputs: ClimateInputs, ck: CKTable, save_all_profiles=False,
     state = climate_state(inputs, ck, device, dtype, verbose=verbose,
                           counts=counts)
     state.diseq = bool(diseq_chem)
+    state.bundle = bundle
+    if mesh is not None:
+        from ..parallel import shard_climate_state
+        shard_climate_state(state, mesh)
     state.self_consistent_kzz = self_consistent_kzz
     state.virga_kwargs = dict(inputs.virga_kwargs or {})
     state.cloudy = bool(inputs.cloudy or state.virga_kwargs)

@@ -14,6 +14,13 @@ time, the JAX ``lax.map`` batch size): each column's arithmetic is the JAX
 one, so the chunk size changes no number.  The padded columns of the JAX program
 (index >= n_total, masked to the identity there) are not computed.
 
+The steps that read the CK-bin axis (the opacities, the thermal and the
+visible fluxes, each summed over the bins) go through ``data.wave``: a
+:class:`WaveSums` runs them on one device over the whole grid;
+``parallel.ClimateShards`` runs them per wave shard of a mesh, adds the
+bin sums on the first device and splits the Jacobian's perturbed
+profiles over the mesh's batch rows.
+
 All reference numerics preserved, including the deliberate quirks: the
 compounding non-EGP ``step_max`` (climate.py:907, :1082), the NaN rescue
 (:1523-1527).  With ``config.moist`` the adiabat re-stitch follows the
@@ -41,7 +48,8 @@ from .adiabat import AdiabatGrid
 from .core import (ClimateGeometry, ZoneMaps, _pack_residual,
                    reconstruct_profile, thermal_fluxes, visible_fluxes)
 
-__all__ = ['ClimateConfig', 'ClimateData', 'ClimateCounts',
+__all__ = ['ClimateConfig', 'ClimateData', 'ClimateCounts', 'WaveSums',
+           'LayerChemistry', 'layer_chemistry', 'opacities_from_chemistry',
            'build_opacities', 'jacobian', 'newton_solve', 'profile_step']
 
 
@@ -70,6 +78,34 @@ class ClimateConfig:
     jac_batch: Optional[int] = None
 
 
+class WaveSums:
+    """The steps of a flux evaluation that read the CK-bin axis, on one
+    device over the whole grid.  ``parallel.ClimateShards`` is the same
+    four steps over a mesh's wave shards."""
+
+    def opacities(self, lc, data, ck, config):
+        """RTProps [ngauss, nlayer, nwno] from the layer chemistry."""
+        return opacities_from_chemistry(lc, data, ck, config)
+
+    def split_props(self, props):
+        """RTProps built whole on the host (the diseq and cloudy optics),
+        as the flux steps take them."""
+        return props
+
+    def thermal_fluxes(self, temp, props, data, geom, ck):
+        """``core.thermal_fluxes``: (fni, fnil, fpit)."""
+        return thermal_fluxes(temp, props, data.plevel, geom, ck.wno,
+                              ck.delta_wno, ck.gauss_wts, data.surf_reflect)
+
+    def visible_fluxes(self, props, data, ck, controls):
+        """``core.visible_fluxes``: (fnv, fnvl)."""
+        return visible_fluxes(props, data.plevel, data.F0PI, ck.gauss_wts,
+                              data.surf_reflect, controls)
+
+
+ONE_DEVICE = WaveSums()
+
+
 class ClimateData(NamedTuple):
     """Per-run arrays and scalars.  The cloud arrays (None: cloud-free) are
     what ``build_opacities`` combines; the cloudy mode builds its optics on
@@ -91,6 +127,7 @@ class ClimateData(NamedTuple):
     cld_g0: Optional[torch.Tensor] = None
     cld_w0: Optional[torch.Tensor] = None
     cond_abunds: Optional[torch.Tensor] = None  # [nlayer, ncond]: moist
+    wave: WaveSums = ONE_DEVICE    # how the bin sums run (see WaveSums)
 
 
 @dataclasses.dataclass
@@ -105,10 +142,22 @@ class ClimateCounts:
     flux_profiles: int = 0
 
 
-def build_opacities(temp, data: ClimateData, chem: ChemGrid, ck: CKArrays,
-                    config: ClimateConfig):
-    """Chemistry + opacity assembly at T(P), the calculate_atm equivalent:
-    RTProps [ngauss, nlayer, nwno]."""
+class LayerChemistry(NamedTuple):
+    """The wavenumber-independent half of ``build_opacities``: the
+    chemistry at T(P) and the layer quantities the opacities read."""
+    temp: torch.Tensor             # [nlevel] K
+    p_bar: torch.Tensor            # [nlevel] bar
+    tlayer: torch.Tensor           # [nlayer] K
+    player_bar: torch.Tensor       # [nlayer] bar
+    mmw_layer: torch.Tensor        # [nlayer] amu
+    mix_layer: torch.Tensor        # [nlayer, nspecies]
+    colden: torch.Tensor           # [nlayer] g/cm^2
+
+
+def layer_chemistry(temp, data: ClimateData, chem: ChemGrid,
+                    config: ClimateConfig) -> LayerChemistry:
+    """Equilibrium chemistry at T(P) and the layer quantities of the
+    opacity assembly (no wavenumber axis)."""
     plevel = data.plevel
     p_bar = plevel / PCONV
     tlayer = 0.5 * (temp[1:] + temp[:-1])
@@ -120,7 +169,16 @@ def build_opacities(temp, data: ClimateData, chem: ChemGrid, ck: CKArrays,
     mmw_layer = 0.5 * (mmw_level[1:] + mmw_level[:-1])
     mix_layer = 0.5 * (mix_level[1:] + mix_level[:-1])  # [nlayer, nspecies]
     colden = (plevel[1:] - plevel[:-1]) / data.gravity
+    return LayerChemistry(temp, p_bar, tlayer, player_bar, mmw_layer,
+                          mix_layer, colden)
 
+
+def opacities_from_chemistry(lc: LayerChemistry, data: ClimateData,
+                             ck: CKArrays, config: ClimateConfig):
+    """The CK opacity assembly on ``ck``'s bins from a layer chemistry:
+    RTProps [ngauss, nlayer, nwno]."""
+    temp, tlayer, player_bar = lc.temp, lc.tlayer, lc.player_bar
+    mmw_layer, mix_layer, colden = lc.mmw_layer, lc.mix_layer, lc.colden
     nwno = ck.wno.shape[0]
     nlayer = tlayer.shape[0]
     ngauss = ck.gauss_wts.shape[0]
@@ -132,7 +190,7 @@ def build_opacities(temp, data: ClimateData, chem: ChemGrid, ck: CKArrays,
         cont = ck_continuum(ck, tlayer)
         cont_kappa = {s.name: cont[ci] for s, ci in
                       zip(config.continuum_specs, config.cont_indices)}
-        coef1 = assemble.amagat_coef1(temp, p_bar, tlayer, player_bar,
+        coef1 = assemble.amagat_coef1(temp, lc.p_bar, tlayer, player_bar,
                                       data.gravity, mmw_layer)
         sp_index = {s: i for i, s in enumerate(config.species)}
         zeros = torch.zeros_like(tlayer)
@@ -167,6 +225,15 @@ def build_opacities(temp, data: ClimateData, chem: ChemGrid, ck: CKArrays,
                           stream=config.stream)
 
 
+def build_opacities(temp, data: ClimateData, chem: ChemGrid, ck: CKArrays,
+                    config: ClimateConfig):
+    """Chemistry + opacity assembly at T(P), the calculate_atm equivalent:
+    RTProps [ngauss, nlayer, nwno] (over a mesh, the chemistry runs once
+    and each wave shard assembles its own bins: ``data.wave``)."""
+    return data.wave.opacities(layer_chemistry(temp, data, chem, config),
+                               data, ck, config)
+
+
 def _device_zones(zones: ZoneMaps, device):
     """The zone index arrays as device tensors (is_conv stays host numpy:
     the profile reconstruction loops over it)."""
@@ -186,8 +253,7 @@ def _ir_fluxes(temp, props, data, geom, ck, counts):
     if counts is not None:
         counts.flux_evaluations += 1
         counts.flux_profiles += temp.shape[0] if temp.dim() == 2 else 1
-    return thermal_fluxes(temp, props, data.plevel, geom, ck.wno,
-                          ck.delta_wno, ck.gauss_wts, data.surf_reflect)
+    return data.wave.thermal_fluxes(temp, props, data, geom, ck)
 
 
 def jacobian(beta, temp_old, fni_old, fnil_old, props, zones: ZoneMaps,
@@ -282,9 +348,8 @@ def newton_solve(temp, props, zones: ZoneMaps, data: ClimateData,
     tidal0 = abs(float(data.tidal[0]))
 
     if config.compute_reflected:
-        fnv, fnvl = visible_fluxes(props, data.plevel, data.F0PI,
-                                   ck.gauss_wts, data.surf_reflect,
-                                   config.controls)
+        fnv, fnvl = data.wave.visible_fluxes(props, data, ck,
+                                             config.controls)
     else:
         fnv = torch.zeros(nlevel, dtype=dtype, device=device)
         fnvl = torch.zeros(nlevel, dtype=dtype, device=device)

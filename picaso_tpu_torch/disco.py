@@ -156,7 +156,7 @@ def compress_disco(xint_at_top, gweight, tweight, cos_theta, F0PI):
     nt = xint_at_top.shape[1]
     sym_fac = 2.0 * math.pi if nt == 1 else 1.0
     w = gweight[:, None] * tweight[None, :]
-    albedo = torch.einsum('gtw,gt->w', xint_at_top, w)
+    albedo = _angle_sum(xint_at_top, w)
     return sym_fac * 0.5 * albedo / F0PI * (cos_theta + 1.0)
 
 
@@ -168,5 +168,14 @@ def compress_thermal(flux_at_top, gweight, tweight):
     nt = flux_at_top.shape[1]
     sym_fac = 1.0 if nt == 1 else 1.0 / (2.0 * math.pi)
     w = gweight[:, None] * tweight[None, :]
-    flux = torch.einsum('gt...,gt->...', flux_at_top, w)
-    return flux * sym_fac
+    return _angle_sum(flux_at_top, w) * sym_fac
+
+
+def _angle_sum(x, w):
+    """sum over (g, t) of x[g, t, ...] * w[g, t]: a product and a sum over
+    the two angle axes, so each element's terms add in one order whatever
+    the trailing (wavenumber) width -- a wave shard's result is then
+    bitwise the whole grid's (a matrix-vector product may pick another
+    order for another width)."""
+    w = w.reshape(w.shape + (1,) * (x.dim() - 2))
+    return (x * w).sum(dim=(0, 1))

@@ -18,6 +18,7 @@ Usage::
 
 from __future__ import annotations
 
+import concurrent.futures
 import os
 import subprocess
 import sys
@@ -39,28 +40,38 @@ def discover(pattern='', examples_dir=None):
                   if f.endswith('.py') and pattern in f)
 
 
-def run_all(pattern='', examples_dir=None, timeout=1800, verbose=True):
+def run_all(pattern='', examples_dir=None, timeout=1800, verbose=True,
+            jobs=1, outputs=None):
     """Run each matching example in a subprocess; returns {path: (ok, s)}.
 
     A script passes when it exits 0 (each example ends in asserts on its
     own outputs).  Each runs from the repository's root, with the
-    interpreter running this function.
+    interpreter running this function.  ``jobs`` examples run at a time,
+    each in a process of its own; the report follows the examples' order.
+    ``outputs``, a dict, receives each example's ``CompletedProcess``
+    (return code, standard output and error) by path.
     """
-    results = {}
-    for path in discover(pattern, examples_dir):
+    paths = discover(pattern, examples_dir)
+
+    def one(path):
         t0 = time.time()
         proc = subprocess.run([sys.executable, path], capture_output=True,
-                              text=True, timeout=timeout,
-                              cwd=_ROOT)
-        dt = time.time() - t0
-        ok = proc.returncode == 0
-        results[path] = (ok, dt)
-        if verbose:
-            status = 'PASS' if ok else 'FAIL'
-            print(f'{status} {os.path.basename(path)} ({dt:.1f}s)')
-            if not ok:
-                print(proc.stdout[-2000:])
-                print(proc.stderr[-2000:])
+                              text=True, timeout=timeout, cwd=_ROOT)
+        return proc, time.time() - t0
+
+    results = {}
+    with concurrent.futures.ThreadPoolExecutor(max(1, jobs)) as pool:
+        for path, (proc, dt) in zip(paths, pool.map(one, paths)):
+            ok = proc.returncode == 0
+            results[path] = (ok, dt)
+            if outputs is not None:
+                outputs[path] = proc
+            if verbose:
+                status = 'PASS' if ok else 'FAIL'
+                print(f'{status} {os.path.basename(path)} ({dt:.1f}s)')
+                if not ok:
+                    print(proc.stdout[-2000:])
+                    print(proc.stderr[-2000:])
     return results
 
 

@@ -63,9 +63,13 @@ connection's device, plain torch) and ``find_press``,
 ``convert_flux_units`` and ``check_units``, the evolution tracks
 (``evolution_track``, ``young_planets``, numpy over
 ``refdata/evolution``), and model save and load (``output_xarray``,
-``input_xarray`` over ``io_utils``, ``merge_xarrays``).  Not ported yet
-(ROADMAP Queue 1): the Sonora profiles, photochemistry and the planet
-catalogue (``get_targets``/``load_planet``, which need the network).
+``input_xarray`` over ``io_utils``, ``merge_xarrays``).  Photochemistry
+(``atmosphere(photochem_init_args=...)``, ``photochem_init``,
+``premix_atmosphere_photochem``, ``photochem.py``) and device meshes
+(``phase_curve(mesh=...)``, ``climate(mesh=...)``, ``parallel.py``) are
+ported.  Not ported (ROADMAP Queue 1, blocked): the Sonora profiles and
+the planet catalogue (``get_targets``/``load_planet``, which need the
+network).
 """
 
 from __future__ import annotations
@@ -519,20 +523,30 @@ class inputs:
 
     # -- atmosphere --------------------------------------------------------
     def atmosphere(self, df=None, filename=None, exclude_mol=None,
-                   verbose=True, mh=None, cto_relative=None,
-                   cto_absolute=None, chem_method=None, device='cuda',
-                   **pd_kwargs):
+                   verbose=True, photochem_init_args=None,
+                   photochem_TOA_pressure=1e-7 * 1e6, mh=None,
+                   cto_relative=None, cto_absolute=None, chem_method=None,
+                   device='cuda', **pd_kwargs):
         """The 1D profile: ``df`` a mapping of column name to array (a
         DataFrame is one, as is a dict) or ``filename`` a whitespace table
         with a header line (``sep=r'\\s+'``); stored as a dict of numpy
         columns sorted by pressure.  ``mh`` is linear metallicity (1.0 =
         solar); a ``chem_method`` ('visscher', '1060' or '2121') replaces
         the abundances with the grid's at the profile's (T, P) through
-        :meth:`chemistry_handler`, interpolated on ``device``."""
+        :meth:`chemistry_handler`, interpolated on ``device``.
+        ``photochem_init_args`` (with ``photochem_TOA_pressure``, dyn/cm^2)
+        are kept for :meth:`photochem_init`."""
         for key, val in (('mh', mh), ('cto_relative', cto_relative),
                          ('cto_absolute', cto_absolute)):
             if val is not None:
                 self.inputs['atmosphere'][key] = float(val)
+        if photochem_init_args is not None:
+            # stored for photochem_init (justdoit.py:411-416 of the JAX
+            # package)
+            photochem_init_args = dict(photochem_init_args)
+            photochem_init_args['TOA_pressure'] = photochem_TOA_pressure
+            self.inputs['atmosphere']['photochem_init_args'] = \
+                photochem_init_args
         if filename is not None:
             df = _read_table(filename, pd_kwargs)
         if df is None:
@@ -780,9 +794,64 @@ class inputs:
         self.inputs['atmosphere']['profile'] = prof
         return self._apply_chem_grid(table, opa.device)
 
-    def premix_atmosphere_photochem(self, *args, **kwargs):
-        raise _not_ported('photochemistry (premix_atmosphere_photochem; the '
-                          'photochem package)', 'item 7.2')
+    def premix_atmosphere_photochem(self, opa=None, quench_levels=None,
+                                    verbose=False, **kwargs):
+        """Run the photochemical kinetics and load their steady-state gas
+        concentrations into the profile (justdoit.py:666-705 of the JAX
+        package): refresh the equilibrium chemistry when ``opa`` is given
+        (:meth:`premix_atmosphere`), quench-adjust it as the kinetics'
+        initial guess, then ``pc.run_for_picaso`` warm-started from the
+        previous steady state (``inputs['photochemistry']
+        ['initial_guess']``, else the newest record of ``pc``'s save file,
+        ``pc.initial_guess``).  Needs :meth:`photochem_init`, or any object
+        with the same ``run_for_picaso`` in ``inputs['climate']['pc']``."""
+        if opa is not None:
+            self.premix_atmosphere(opa=opa, **kwargs)
+        if quench_levels is not None:
+            self.adjust_quench_chemistry(quench_levels)
+        pc = self.inputs['climate'].get('pc')
+        if pc is None:
+            raise ValueError('initialize kinetics with photochem_init() '
+                             'before premix_atmosphere_photochem()')
+        kz = self.find_kzz()
+        if kz is None:
+            raise ValueError('photochem kinetics needs a kzz profile')
+        store = self.inputs.setdefault('photochemistry',
+                                       {'initial_guess': None})
+        mh = float(self.inputs['atmosphere'].get('mh') or 1.0)
+        cto = float(self.inputs['atmosphere'].get('cto_relative') or 1.0)
+        guess = store.get('initial_guess')
+        if guess is None:
+            guess = getattr(pc, 'initial_guess', None)
+        df = pc.run_for_picaso(self.inputs['atmosphere']['profile'],
+                               np.log10(mh), cto, kz, df_comp_guess=guess)
+        store['initial_guess'] = {k: np.array(v) for k, v in df.items()}
+        self.inputs['atmosphere']['profile'] = df
+        return df
+
+    def photochem_init(self):
+        """The kinetics wrapper (``photochem.EvoAtmosphereGasGiantPicaso``)
+        from the arguments that ``atmosphere(photochem_init_args=...)``
+        stored (justdoit.py:707-728 of the JAX package); needs the optional
+        ``photochem`` package and the planet's mass and radius."""
+        args = self.inputs['atmosphere'].get('photochem_init_args')
+        if args is None:
+            raise ValueError('pass photochem_init_args to atmosphere() '
+                             'before photochem_init()')
+        mass = self.inputs['planet']['mass']
+        radius = self.inputs['planet']['radius']
+        if np.isnan(mass) or np.isnan(radius):
+            raise ValueError('photochem needs mass and radius via '
+                             'gravity(mass=..., radius=...)')
+        args = dict(args)
+        toa_pressure = args.pop('TOA_pressure')
+        args['planet_mass'] = mass
+        args['planet_radius'] = radius
+        from .photochem import EvoAtmosphereGasGiantPicaso
+        pc = EvoAtmosphereGasGiantPicaso(**args)
+        pc.gdat.TOA_pressure_avg = toa_pressure
+        self.inputs['climate']['pc'] = pc
+        return pc
 
     def sonora(self, sonora_path, teff, chem='low'):
         raise _not_ported('the Sonora Bobcat profiles (sonora)', 'item 7.2')
@@ -1236,13 +1305,13 @@ class inputs:
         card).  Afterwards the case holds the solve's chemistry as its
         profile and, where one was computed, its Kzz
         (``inputs['atmosphere']['kzz']['sc_kzz']``), as in the JAX
-        package.  Photochemical kinetics and ``mesh`` raise."""
+        package.  With ``diseq_chem``, a ``pc`` in ``inputs['climate']``
+        (:meth:`photochem_init`) runs photochemical kinetics each host
+        iteration (:meth:`premix_atmosphere_photochem`).  ``mesh`` (a
+        ``parallel.make_mesh`` mesh starting at the connection's device)
+        runs the solve over a device mesh."""
         from .climate import api
         cl = self.inputs['climate']
-        if cl.get('pc') is not None:
-            raise _not_ported('photochemistry in the climate loop (the pc '
-                              'branch of update_diseq_chem; the photochem '
-                              'package)', 'item 7.2')
         ck = opacityclass.climate_ck
         if ck is None:
             raise ValueError('climate runs need a CK connection '
@@ -1322,12 +1391,12 @@ class inputs:
         phase becomes one scene of a batch through ``pipeline.forward_batch``
         (:meth:`_phase_curve_batched`); 3D (GCM) profiles take the
         per-phase path, each phase a ``three_d.picaso_3d`` run.  ``n_cpu``
-        is accepted for API parity and unused; ``mesh`` (sharding over
-        several cards) raises.
+        is accepted for API parity and unused.  ``mesh`` (a
+        ``parallel.make_mesh`` mesh) shards the batched curve, the phases
+        over 'batch' and the wavenumbers over 'wave'
+        (``parallel.sharded_forward_batch``); the per-phase path ignores
+        it, as in the JAX package.
         """
-        if mesh is not None:
-            raise NotImplementedError('mesh= shards a phase curve over '
-                                      'several cards; the port runs on one')
         phases = np.atleast_1d(self.inputs['phase_angle'])
         calculation = self.inputs['disco_calculation']
         all_geom = self.inputs['disco']
@@ -1348,7 +1417,7 @@ class inputs:
                 raise ValueError('batched phase curves need 1D profiles')
             return self._phase_curve_batched(
                 opacityclass, phases, calculation, all_geom, all_profiles,
-                all_clds, verbose=verbose)
+                all_clds, mesh=mesh, verbose=verbose)
         out = {}
         for i, iphase in enumerate(phases):
             case = copy.copy(self)
@@ -1370,12 +1439,14 @@ class inputs:
         return out
 
     def _phase_curve_batched(self, opacityclass, phases, calculation,
-                             all_geom, all_profiles, all_clds,
+                             all_geom, all_profiles, all_clds, mesh=None,
                              verbose=True):
         """All phases as one batch of scenes (justdoit.py:1215-1281 of the
         JAX package): ``pipeline.scene_from_case`` per phase, then
         ``pipeline.forward_batch``, which runs the scenes one after
-        another through ``forward``'s kernels."""
+        another through ``forward``'s kernels; with ``mesh``, the batch and
+        the grid sharded (``parallel.shard_scene``, ``shard_grid``) and
+        ``parallel.sharded_forward_batch``."""
         import dataclasses as _dc
         from . import pipeline as _pl
 
@@ -1401,8 +1472,14 @@ class inputs:
             transmission='transmission' in calculation)
         if verbose:
             print(f'Batched phase curve: {len(phases)} phases in one batch')
-        res = _pl.forward_batch(_pl.stack_scenes(scenes), opacityclass.grid,
-                                config)
+        batch = _pl.stack_scenes(scenes)
+        if mesh is not None:
+            from . import parallel as _par
+            res = _par.sharded_forward_batch(
+                _par.shard_scene(batch, mesh, batched=True),
+                _par.shard_grid(opacityclass.grid, mesh), config, mesh)
+        else:
+            res = _pl.forward_batch(batch, opacityclass.grid, config)
 
         wno = np.asarray(opacityclass.wno)
         sa = self.inputs['star'].get('semi_major', np.nan)

@@ -60,8 +60,9 @@ from .rt import cuda_sh, cuda_toon, sh, toon
 from .rt.cuda_toon import REFLECTED_FIELDS, spectrum_toon
 from .rt.transit import transit_depth
 
-__all__ = ['SceneTensors', 'SpectrumConfig', 'forward', 'forward_batch',
-           'stack_scenes', 'with_geometry', 'with_raman',
+__all__ = ['SceneTensors', 'SpectrumConfig', 'forward', 'forward_parts',
+           'scene_transit_depth', 'forward_batch', 'stack_scenes',
+           'unstack_scene', 'with_geometry', 'with_raman',
            'stellar_shifts_5700k', 'gather_args', 'gather_taugas',
            'rt_sources', 'spectrum_args', 'reflected_args', 'thermal_args',
            'sh_args', 'scene_from_arrays', 'scene_from_case', 'build_problem',
@@ -407,10 +408,12 @@ def _sh_rt(scene: SceneTensors, grid: OpacityGrid, config, tg, tr, rf):
     return xint, flux_top, props.dtau_og
 
 
-def forward(scene: SceneTensors, grid: OpacityGrid, config: SpectrumConfig):
-    """Full 1D spectrum: a dict of tensors albedo [nwno] (when
-    ``config.reflected``), thermal [nwno] (when ``config.thermal``) and,
-    with ``config.transmission``, transit_depth [nwno]."""
+def forward_parts(scene: SceneTensors, grid: OpacityGrid,
+                  config: SpectrumConfig):
+    """``forward`` but the transit depth: (the dict of albedo and thermal,
+    the total optical depth [nlayer, nwno] that the transit depth reads).
+    ``parallel.sharded_forward`` runs this per wave shard and the transit
+    depth once over the gathered optical depths."""
     _check_config(config)
     tg, tr, rf = rt_sources(scene, grid, config)
     rt = _sh_rt if config.rt_method == 1 else _toon_rt
@@ -422,10 +425,24 @@ def forward(scene: SceneTensors, grid: OpacityGrid, config: SpectrumConfig):
     if flux_top is not None:
         out['thermal'] = disco_mod.compress_thermal(
             flux_top, scene.gweight, scene.tweight)
+    return out, dtau_total
+
+
+def scene_transit_depth(scene: SceneTensors, dtau_total):
+    """The transit depth [nwno] of ``scene`` from its total optical depth
+    [nlayer, nwno] (``forward_parts``)."""
+    return transit_depth(scene.z, scene.dz, scene.rstar, scene.mmw_layer,
+                         scene.plevel, scene.tlevel, scene.colden,
+                         dtau_total)
+
+
+def forward(scene: SceneTensors, grid: OpacityGrid, config: SpectrumConfig):
+    """Full 1D spectrum: a dict of tensors albedo [nwno] (when
+    ``config.reflected``), thermal [nwno] (when ``config.thermal``) and,
+    with ``config.transmission``, transit_depth [nwno]."""
+    out, dtau_total = forward_parts(scene, grid, config)
     if config.transmission:
-        out['transit_depth'] = transit_depth(
-            scene.z, scene.dz, scene.rstar, scene.mmw_layer, scene.plevel,
-            scene.tlevel, scene.colden, dtau_total)
+        out['transit_depth'] = scene_transit_depth(scene, dtau_total)
     return out
 
 
@@ -465,15 +482,17 @@ def forward_batch(scenes: SceneTensors, grid: OpacityGrid,
     the batch axis.  The scenes run one after another through ``forward``
     (each launching its kernels); a batch axis inside the kernels is a
     later ROADMAP item."""
-    nbatch = scenes.tlevel.shape[0]
-    outs = []
-    for b in range(nbatch):
-        one = {}
-        for name, val in scenes._asdict().items():
-            shared = _SCALARISH_RANK.get(name) == val.dim()
-            one[name] = val if shared else val[b]
-        outs.append(forward(SceneTensors(**one), grid, config))
+    outs = [forward(unstack_scene(scenes, b), grid, config)
+            for b in range(scenes.tlevel.shape[0])]
     return {key: torch.stack([o[key] for o in outs]) for key in outs[0]}
+
+
+def unstack_scene(scenes: SceneTensors, b) -> SceneTensors:
+    """Scene ``b`` of a :func:`stack_scenes` batch (a batch-constant
+    geometry field, at its unbatched rank, is shared)."""
+    return SceneTensors(**{
+        name: val if _SCALARISH_RANK.get(name) == val.dim() else val[b]
+        for name, val in scenes._asdict().items()})
 
 
 def with_geometry(scene: SceneTensors, geom):

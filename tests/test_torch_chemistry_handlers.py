@@ -168,9 +168,14 @@ def test_unported_handlers_raise(monkeypatch):
     with pytest.raises(FileNotFoundError):
         b.chemeq_visscher_2121(0.458, 0.0, device='cpu')
     for call in (lambda: b.sonora('.', 1000), lambda: b.sonora_profile(
-            '.', 1000), lambda: b.premix_atmosphere_photochem()):
+            '.', 1000)):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             call()
+    # photochemistry is ported: without a kinetics object it raises the
+    # JAX package's error
+    for case in (a, b):
+        with pytest.raises(ValueError, match='photochem_init'):
+            case.premix_atmosphere_photochem()
     # find_kzz (ported): none, the profile's kz column, a constant, the
     # self-consistent one first, an int placeholder skipped
     assert a.find_kzz() is None and b.find_kzz() is None

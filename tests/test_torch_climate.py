@@ -13,7 +13,8 @@ float64, sliced, carried across by ``convert``):
   file stays under a minute on one CPU thread; ``fused.newton_solve`` at
   fixed opacities is in tests/test_torch_climate_fluxes.py);
 - each mode's option runs one profile step against the JAX package's
-  (``mesh`` alone raises, naming the ROADMAP); the cloud history over five
+  (``mesh``: the diseq step over a 2 x 4 mesh in both packages); the
+  cloud history over five
   virga refreshes; the stellar flux's climate binning.  Whole solves of
   the modes are in tests/test_torch_climate_solve_*.py.
 """
@@ -101,11 +102,12 @@ def test_run_climate_matches_jax():
 
 UNPORTED = {'diseq_chem': True, 'cloudy': True,
             'virga_kwargs': {'fsed': 3.0}, 'moistgrad': True,
-            'inject_energy': True, 'with_spec': True, 'mesh': object()}
+            'inject_energy': True, 'with_spec': True, 'mesh': True}
 # the recorded small case each option runs (tests/climate_modes_record.py)
 OPTION_CASE = {'diseq_chem': 'diseq_31', 'cloudy': 'cloudy_31',
                'virga_kwargs': 'cloudy_31', 'moistgrad': 'moist_31',
-               'inject_energy': 'inject_31', 'with_spec': 'inject_31'}
+               'inject_energy': 'inject_31', 'with_spec': 'inject_31',
+               'mesh': 'diseq_31'}
 
 
 def one_profile_step(option):
@@ -137,6 +139,14 @@ def one_profile_step(option):
         st.diseq = spec['diseq_chem']
         st.cloudy = inputs.cloudy
         st.virga_kwargs = dict(inputs.virga_kwargs or {})
+    if option == 'mesh':
+        # the 48 bins over 4 wave shards, the Jacobian over 2 batch rows
+        from picaso_tpu import parallel as jparallel
+        from picaso_tpu_torch import parallel as tparallel
+        jparallel.shard_climate_state(
+            jst, jparallel.make_mesh(n_wave=4, n_batch=2))
+        tparallel.shard_climate_state(tst, tparallel.make_mesh(
+            n_wave=4, n_batch=2, devices=[torch.device('cpu')] * 8))
     nstr = [0, spec['rcb_guess'], spec['nlevel'] - 2, 0, 0, 0]
     step = dict(it_max=4, itmx=1, conv=10.0, convt=5.0, x_max_mult=7.0,
                 final=False)
@@ -148,19 +158,13 @@ def one_profile_step(option):
 
 @pytest.mark.parametrize('option', UNPORTED)
 def test_unported_options_raise(option):
-    """``mesh`` raises; each other option runs one profile step of its
-    mode (with_spec: the spectrum of the step's structure) against the
-    JAX package's: temperatures rtol 1e-8 (a Newton step of a stiff solve
-    amplifies last-bit differences: measured <= 4.3e-9 rel), the fluxes,
-    chemistry, Kzz, cloud history and spectrum rtol 1e-6."""
-    if option == 'mesh':
-        inputs = tapi.ClimateInputs(t_eff=700.0, gravity=1e4,
-                                    pressure=np.logspace(-4, 2, 11),
-                                    guess=np.full(11, 700.0),
-                                    nstr=(0, 5, 9, 0, 0, 0))
-        with pytest.raises(NotImplementedError, match='item 8.1'):
-            tapi.run_climate(inputs, None, device='cpu', mesh=object())
-        return
+    """Each option, every one of them ported now, runs one profile step of
+    its mode (with_spec: the spectrum of the step's structure; mesh: the
+    diseq step with both states sharded over a 2 x 4 mesh, of CPU devices
+    in the port and of the 8 virtual devices in the JAX package) against
+    the JAX package's: temperatures rtol 1e-8 (a Newton step of a stiff
+    solve amplifies last-bit differences: measured <= 4.3e-9 rel), the
+    fluxes, chemistry, Kzz, cloud history and spectrum rtol 1e-6."""
     jst, jres, tst, tres = one_profile_step(option)
     flag, temp, dtdp, fnil, fnvl, fpit = tres
     assert flag == jres[0]
@@ -172,7 +176,9 @@ def test_unported_options_raise(option):
     for col in chem.columns:
         np.testing.assert_allclose(tst.profile[col], chem[col].values,
                                    rtol=1e-6)
-    if option == 'diseq_chem':
+    if option == 'mesh':
+        assert tst.data.wave is not tfused.ONE_DEVICE
+    if option in ('diseq_chem', 'mesh'):
         np.testing.assert_allclose(
             tst.sc_kzz, jst.bundle.inputs['atmosphere']['kzz']['sc_kzz'],
             rtol=1e-6)

@@ -43,7 +43,8 @@ def test_port_has_modules_to_check():
             'refdata.py', 'fits_lite.py', 'stellar.py', 'sampler.py',
             'driver.py', 'parameterizations.py', 'analyze.py',
             'retrieval.py', 'ncio.py', 'moist.py', 'kzz.py', 'virga.py',
-            'resortrebin.py', 'legacy.py', 'io_utils.py'} <= names
+            'resortrebin.py', 'legacy.py', 'io_utils.py', 'parallel.py',
+            'photochem.py'} <= names
     probes = {p.name for p in (ROOT / 'picaso_tpu_torch' / 'probes').glob(
         '*.py')}
     assert {'front_door.py', 'retrieval.py'} <= probes

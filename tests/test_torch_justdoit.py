@@ -299,8 +299,10 @@ def test_wavelength_matches_jax(case):
 @pytest.mark.parametrize('call', ['resortrebin', 'ck_db', 'chem_method',
                                   'climate'])
 def test_unported_parts_raise(call):
-    """What the front door does not port yet raises, naming ROADMAP Queue
-    1: photochemistry.  Loading a CK table from ``ck_db`` is ported
+    """The front door's parts once left unported, each now ported.
+    Photochemistry: ``premix_atmosphere_photochem`` without a kinetics
+    object raises the JAX package's ValueError, after the grid chemistry
+    ran.  Loading a CK table from ``ck_db`` is ported
     (tests/test_torch_ck_files.py): a missing file raises the loader's
     error, and a per-gas load without ``preload_gases`` a ValueError.  The
     per-gas ('resortrebin') connection and the climate set-up are ported:
@@ -361,8 +363,13 @@ def test_unported_parts_raise(call):
         with pytest.raises(OSError):
             tdi.opannection(method='preweighted', ck_db='x', device='cpu')
         return
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1'):
-        # the grid chemistry is ported; its photochemistry is not
-        case = tdi.inputs()
-        case.atmosphere(df=profile(), chem_method='visscher', device='cpu')
+    # the grid chemistry runs; the kinetics need photochem_init first, in
+    # both packages
+    case = tdi.inputs()
+    case.atmosphere(df=profile(), chem_method='visscher', device='cpu')
+    with pytest.raises(ValueError, match='photochem_init'):
         case.premix_atmosphere_photochem()
+    jcase = jdi.inputs()
+    jcase.atmosphere(df=pd.DataFrame(profile()))
+    with pytest.raises(ValueError, match='photochem_init'):
+        jcase.premix_atmosphere_photochem()

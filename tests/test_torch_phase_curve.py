@@ -136,6 +136,18 @@ def test_4d_phase_curve_matches_jax(opas, calculation):
 
 
 def test_mesh_raises(opas):
-    _, topa = opas
-    with pytest.raises(NotImplementedError, match='one'):
-        _case_1d(tdi, topa, 'reflected').phase_curve(topa, mesh=object())
+    """A mesh whose batch axis does not divide the phases raises, in the
+    port as in the JAX package (3 phases over 2 batch rows); the sharded
+    curves are in tests/test_torch_parallel.py."""
+    from picaso_tpu import parallel as jparallel
+    from picaso_tpu_torch import parallel as tparallel
+    jopa, topa = opas
+    mesh = tparallel.make_mesh(n_wave=1, n_batch=2,
+                               devices=[torch.device('cpu')] * 2)
+    with pytest.raises(ValueError, match='divide'):
+        _case_1d(tdi, topa, 'reflected').phase_curve(
+            topa, verbose=False, mesh=mesh)
+    with pytest.raises(ValueError, match='divisible'):
+        _case_1d(jdi, jopa, 'reflected').phase_curve(
+            jopa, verbose=False, mesh=jparallel.make_mesh(n_wave=1,
+                                                         n_batch=2))
