@@ -287,8 +287,18 @@ Phases (any failure raises, so the exit code is nonzero):
     namesake fails its own posterior assert (the JAX package's CPU run in
     tests/host_tools_reference.json: T median 1411 K against the truth's
     1150 +- 250); the port's copy must fail the same way, printing the
-    JAX run's posterior line (their kernels are launched in those
-    processes and not counted here).  Phases 45-49 are timed by
+    JAX run's posterior line.  The mesh and photochemistry examples'
+    printed lines are logged beside the JAX examples' CPU runs in x64 and
+    f32 (tests/examples_reference.json) and gated where the JAX example's
+    own asserts stand: the retrieved scale within 2e-2 of the truth, the
+    sharded climate converged, at least 2 kinetics calls (finite T and
+    flat CH4 are the example's own asserts); the photochemistry
+    example's converged and T range are logged, not gated.  The mesh
+    example's retrieval line must be the JAX runs' exactly (x64 and f32
+    printed the same).  It prints its sharded forwards and its process's
+    kernel launches: K1 and K2 (the JAX example's config: reflected,
+    thermal and transit) exactly 4 (wave shards) a forward, counted
+    among phases 45-49's.  Phases 45-49 are timed by
     ``profiling.Timer``, logged by ``profiling.RunLog``
     (build/host_tools/host_tools.jsonl) and each prints one JSON line with
     the card's name and power limit
@@ -305,11 +315,15 @@ Phases (any failure raises, so the exit code is nonzero):
 51. the front door's batched 4-phase reflected curve (phase 29's) with
     ``phase_curve(mesh=make_mesh(n_wave=2, n_batch=2))``: K1 and K3 once
     per scene and shard, bitwise ``mesh=None``
-52. ``sampler.nested_sample`` over ``sharded_loglike`` on a 2 x 4 mesh at
+52. on each of the 8 shards of phase 49's mesh example's scene (its
+    config and truth; [24 layers x 64 bins] a shard), K1 and K2 against
+    their twins with phases 4 and 5's gates; then
+    ``sampler.nested_sample`` over ``sharded_loglike`` on a 2 x 4 mesh at
     tests/test_parallel_climate.py:152-199's width (nwno 256, 25 levels,
-    nlive 50, seed 11; reflected-only: the likelihood reads the albedo):
+    nlive 25, seed 11; reflected-only: the likelihood reads the albedo):
     K1 and K3 once per point and wave shard, the same dead points and
-    logz as the unsharded run on the card
+    logz as the unsharded run on the card (nlive 25: phase 49's mesh
+    example runs the JAX test's 50 at the same width)
 53. ``run_climate(mesh=make_mesh(n_wave=4, n_batch=2))`` in f64 on phase
     24's case (49 bins a shard): the same converged and cvz_locs as phase
     24's solve, T within rtol 1e-4 / atol 0.05 K of it
@@ -330,7 +344,7 @@ Phases (any failure raises, so the exit code is nonzero):
     50-54's, one with every
     kernel's summary (launches on the paths counted above, the front
     door's, the retrievals', the climate modes', phases 39-43's,
-    phases 45-48's and phases 50-53's included and also apart, times, max
+    phases 45-49's and phases 50-53's included and also apart, times, max
     abs error, and the bound: the larger of the
     bytes its inputs and outputs need over 3.35 TB/s and the float32
     operations its twin performs on these inputs, counted per aten call,
@@ -343,6 +357,7 @@ import hashlib
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -435,6 +450,13 @@ EXAMPLE_TIMEOUT_S = 300
 # examples run at a time in phase 49, each in a process of its own (the
 # card's machine has 8 cores; one at a time took 131 s in PR 17)
 EXAMPLE_JOBS = 4
+# the JAX package's runs of the mesh and photochemistry examples
+# (tests/examples_record.py), and the JAX examples' own assert on the
+# retrieved scale
+EXAMPLES_REFERENCE = 'tests/examples_reference.json'
+MESH_EXAMPLE = 'mesh_sharded_retrieval_climate.py'
+PHOTOCHEM_EXAMPLE = 'photochem_coupled_climate.py'
+MESH_EXAMPLE_TRUTH, MESH_EXAMPLE_TOL = 1.05, 2e-2
 # phases 50-54, the device mesh (picaso_tpu_torch.parallel): the sharded
 # climate against the unsharded one at the JAX whole-solve test's bound
 # (tests/test_parallel_climate.py:133-134), and the kinetics-coupled
@@ -448,6 +470,8 @@ PHOTOCHEM_REFERENCE = 'tests/photochem_reference.json'
 PHOTOCHEM_CASE = 'photochem_t900_91'
 PHOTOCHEM_BASE = 'diseq_t900_91'       # phase 34's run of the same case
 RETRIEVAL_NWNO, RETRIEVAL_NLEVEL = 256, 25  # tests/test_parallel_climate.py
+# phase 52's live points (the JAX test's 50 run in phase 49's mesh example)
+RETRIEVAL_NLIVE = 25
 # one H100 SXM at its 700 W limit (NVIDIA data sheet): memory rate and
 # float32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -683,15 +707,10 @@ def main():
                                                spectrum_toon_plain)
     from picaso_tpu_torch.rt.toon import ScatteringControls
     dev = torch.device('cuda')
-    wrappers = {'interp_tau': interp_tau, 'spectrum_toon': spectrum_toon}
-    wrappers.update({name: getattr(cuda_sh, name) for name in SH_REPLACES})
-    wrappers.update({name: getattr(cuda_toon, name)
-                     for name in SPLIT_REPLACES})
-    wrappers.update({
-        'interp_tau_q': interp_tau_q,
-        'interp_tau_layer_inner': gather_probe.interp_tau_layer_inner,
-        'sweep_rows': sweep_layout_probe.sweep_rows,
-        'sweep_staged': sweep_layout_probe.sweep_staged})
+    wrappers = _build.kernel_wrappers()
+    if sorted(wrappers) != sorted(KERNELS):
+        raise AssertionError(f'kernel wrappers {sorted(wrappers)} are not '
+                             f'KERNELS {sorted(KERNELS)}')
 
     def reset_counts():
         for w in wrappers.values():
@@ -3051,46 +3070,96 @@ def host_tools_phases(dev, grid, reset_counts, counts, card):
             raise AssertionError(f'[49] {name} does not end as the JAX '
                                  'example does')
         as_jax[name] = want['line']
+    beside, gates = example_gates(
+        os.path.join(root, EXAMPLES_REFERENCE),
+        {name: procs[os.path.join(os.path.dirname(examples[0]), name)]
+         for name in (MESH_EXAMPLE, PHOTOCHEM_EXAMPLE)})
+    summary['launches'][f'[49] {MESH_EXAMPLE}'] = gates['launches']
     report('examples', dict(
         wall_s={os.path.basename(p): s for p, (_, s) in results.items()},
         total_s=timer.times['[49] examples'],
-        failing_as_the_jax_example=as_jax,
-        launches='in the examples\' own processes, not counted'))
+        failing_as_the_jax_example=as_jax, lines_beside_jax=beside,
+        gates=gates,
+        launches=f'counted in the example\'s own process: {MESH_EXAMPLE} '
+                 'only'))
     summary['timer'] = timer.summary()
     return summary
+
+
+def example_gates(reference, procs):
+    """Phase 49's checks of the mesh and photochemistry examples
+    (``procs``: name -> CompletedProcess): each exits 0, its printed lines
+    logged beside the JAX runs' in ``reference`` (x64 and f32); the JAX
+    examples' own asserts; the mesh example's retrieval line exactly the
+    JAX runs', and K1 and K2 launched in it once per sharded forward and
+    wave shard.  Returns the lines side by side and the gated numbers."""
+    with open(reference) as f:
+        jax_runs = json.load(f)
+    beside = {}
+    for name, proc in procs.items():
+        if proc.returncode:
+            raise AssertionError(f'[49] {name} exited {proc.returncode}')
+        beside[name] = dict(card=proc.stdout.splitlines(), **{
+            f'jax_{prec}': jax_runs[name][prec]['lines']
+            for prec in ('x64', 'f32')})
+        for key, lines in beside[name].items():
+            for ln in lines:
+                log(f'[49] {name} {key}: {ln}')
+
+    def number(name, pattern):
+        text = '\n'.join(beside[name]['card'])
+        found = re.search(pattern, text, re.M)
+        if not found:
+            raise AssertionError(f'[49] {name} printed no {pattern!r}')
+        return found
+
+    retrieval = number(MESH_EXAMPLE, r'^retrieved scale = ([\d.]+).*$')
+    scale = float(retrieval[1])
+    converged = number(MESH_EXAMPLE, r'^sharded RCE: converged=(\w+)')[1]
+    forwards = int(number(MESH_EXAMPLE, r'^sharded forwards: (\d+)$')[1])
+    launches = json.loads(number(MESH_EXAMPLE,
+                                 r'^kernel launches: (.*)$')[1])
+    calls = int(number(PHOTOCHEM_EXAMPLE,
+                       r'^kinetics solves during the climate run: (\d+)')[1])
+    t_range = [int(t) for t in number(
+        PHOTOCHEM_EXAMPLE, r'^T range: (\d+) - (\d+) K').groups()]
+    pc_converged = number(PHOTOCHEM_EXAMPLE, r'^converged: (\w+)')[1]
+    gates = dict(retrieval_line=retrieval[0], retrieved_scale=scale,
+                 sharded_climate_converged=converged,
+                 sharded_forwards=forwards, launches=launches,
+                 kinetics_calls=calls,
+                 photochem_converged_logged=pc_converged,
+                 photochem_t_range_logged=t_range)
+    check(f'[49] {MESH_EXAMPLE} |scale - truth|',
+          abs(scale - MESH_EXAMPLE_TRUTH), MESH_EXAMPLE_TOL)
+    # the sampler is the JAX one bit for bit, and the JAX example printed
+    # this line in x64 and in f32 alike: a kernel fault that the
+    # likelihood's own data would cancel shows here
+    for prec in ('x64', 'f32'):
+        if retrieval[0] not in beside[MESH_EXAMPLE][f'jax_{prec}']:
+            raise AssertionError(f'[49] {MESH_EXAMPLE}: {retrieval[0]!r} is '
+                                 f'not the JAX {prec} run\'s line')
+    if converged != 'True':
+        raise AssertionError(f'[49] {MESH_EXAMPLE}: the sharded climate did '
+                             'not converge')
+    want = {'interp_tau': 4 * forwards, 'spectrum_toon': 4 * forwards}
+    if forwards < 1 or launches != want:
+        raise AssertionError(f'[49] {MESH_EXAMPLE}: launches {launches}, '
+                             f'expected {want}: K1 and K2 once per sharded '
+                             'forward and wave shard')
+    if calls < 2:
+        raise AssertionError(f'[49] {PHOTOCHEM_EXAMPLE}: {calls} kinetics '
+                             'calls')
+    log(f'[49] {MESH_EXAMPLE}: {retrieval[0]!r} as the JAX runs, converged '
+        f'{converged}, launches {launches} over {forwards} sharded forwards; '
+        f'{PHOTOCHEM_EXAMPLE}: {calls} kinetics calls, '
+        f'converged {pc_converged} (logged), T {t_range} K (logged)')
+    return beside, gates
 
 
 # ---------------------------------------------------------------------------
 # the device mesh (picaso_tpu_torch.parallel) and photochemistry: 50-54
 # ---------------------------------------------------------------------------
-
-class MockPhotochem:
-    """The kinetics stand-in of tests/test_photochem_climate.py:19-36 on
-    the port's dict profile: CH4 frozen at its deepest value."""
-
-    def __init__(self):
-        self.calls = 0
-        self.guesses = []
-
-    def run_for_picaso(self, df, log10metallicity, CtoO, Kzz,
-                       df_comp_guess=None, rainout_condensed_atoms=True):
-        self.calls += 1
-        self.guesses.append(df_comp_guess is not None)
-        if len(Kzz) != len(df['pressure']):
-            raise AssertionError('kinetics: Kzz and the profile differ')
-        out = dict(df)
-        ch4 = np.asarray(out['CH4'])
-        out['CH4'] = np.full(len(ch4), float(ch4[-1]))
-        return out
-
-
-def mesh_devices(n):
-    """``n`` devices for a mesh: the visible cards, ``cuda:0`` repeated
-    where there are fewer cards than shards."""
-    cards = [torch.device('cuda', i)
-             for i in range(torch.cuda.device_count())]
-    return (cards + [cards[0]] * n)[:n]
-
 
 def check_bitwise(label, got, ref):
     """Each key of ``ref`` (tensors or arrays) equal bit for bit in
@@ -3120,8 +3189,13 @@ def mesh_phases(dev, grid, g16, config, reset_counts, counts, card):
     from picaso_tpu_torch import parallel, pipeline
     from picaso_tpu_torch.climate import api, fused
     from picaso_tpu_torch.opacities import factory
+    from picaso_tpu_torch.opacities.cuda_interp import (interp_tau,
+                                                        interp_tau_plain)
+    from picaso_tpu_torch.photochem import MockKinetics
     from picaso_tpu_torch.probes.climate_jacobian import modes_case
     from picaso_tpu_torch.probes.front_door import facade_case
+    from picaso_tpu_torch.rt.cuda_toon import (spectrum_toon,
+                                               spectrum_toon_plain)
     from picaso_tpu_torch.sampler import nested_sample
 
     summary = {'launches': {}}
@@ -3148,7 +3222,7 @@ def mesh_phases(dev, grid, g16, config, reset_counts, counts, card):
         return out
 
     # phase 50: the sharded forward at the production shape, 4 wave shards
-    m = parallel.make_mesh(n_wave=4, n_batch=1, devices=mesh_devices(4))
+    m = parallel.make_mesh(n_wave=4, n_batch=1, devices=parallel.mesh_devices(4))
     log(f'[50] {m}')
     numbers = {'mesh': [[str(d) for d in r] for r in m.devices]}
     for path, g, kernel in (('toon', grid, 'interp_tau'),
@@ -3180,7 +3254,7 @@ def mesh_phases(dev, grid, g16, config, reset_counts, counts, card):
 
     # phase 51: the front door's batched 4-phase reflected curve (phase
     # 29's) over a 2 x 2 mesh: the phases over 'batch', the bins over 'wave'
-    m = parallel.make_mesh(n_wave=2, n_batch=2, devices=mesh_devices(4))
+    m = parallel.make_mesh(n_wave=2, n_batch=2, devices=parallel.mesh_devices(4))
     log(f'[51] {m}')
     opa = jdi.Opacity(grid.wno, grid=grid)
     kw_r = dict(phase_grid=np.radians(PHASES_DEG), calculation='reflected')
@@ -3200,10 +3274,11 @@ def mesh_phases(dev, grid, g16, config, reset_counts, counts, card):
         unsharded_ms=ref_ms, peak_bytes_over_alive=peak))
     del opa, got, ref
 
-    # phase 52: the nested sampler over sharded_loglike
-    # (tests/test_parallel_climate.py:152-199 at its width, on the card in
-    # f32); the likelihood reads the albedo alone, so the forward is
-    # reflected-only (K1 + K3), and each point's chi^2 is its own sum
+    # phase 52: the mesh example's kernels at its shape, then the nested
+    # sampler over sharded_loglike (tests/test_parallel_climate.py:152-199
+    # at its width, on the card in f32); the likelihood reads the albedo
+    # alone, so the sampler's forward is reflected-only (K1 + K3), and
+    # each point's chi^2 is its own sum
     wno = np.linspace(2000.0, 18000.0, RETRIEVAL_NWNO)
     nl = RETRIEVAL_NLEVEL
     pressure = np.logspace(-6, 2, nl)
@@ -3214,6 +3289,7 @@ def mesh_phases(dev, grid, g16, config, reset_counts, counts, card):
         {'H2': np.zeros(nl) + 0.85, 'He': np.zeros(nl) + 0.14,
          'H2O': np.zeros(nl) + 5e-4, 'CH4': np.zeros(nl) + 3e-4}, r_grid,
         gravity=2500.0, radius=7.1e9, mass=1.9e30, rstar=6.96e10)
+    ex_config = r_config       # the mesh example's: reflected and thermal
     r_config = dataclasses.replace(r_config, thermal=False,
                                    transmission=False)
 
@@ -3232,10 +3308,31 @@ def mesh_phases(dev, grid, g16, config, reset_counts, counts, card):
                                       r_config)['albedo'] for s in x],
                     y).cpu().numpy()
 
-    m = parallel.make_mesh(n_wave=4, n_batch=2, devices=mesh_devices(8))
+    m = parallel.make_mesh(n_wave=4, n_batch=2, devices=parallel.mesh_devices(8))
     log(f'[52] {m}')
     scene_s = parallel.shard_scene(r_scene, m)
     grid_s = parallel.shard_grid(r_grid, m)
+    # K1 and K2 on every shard of the mesh example's scene (its config,
+    # its truth), each against its twin with phases 4 and 5's gates
+    twin_abs = {'interp_tau': 0.0, 'spectrum_toon': 0.0}
+    for b, row in enumerate(scene_s.shards):
+        for w, sc in enumerate(row):
+            sc, g = scaled(sc, MESH_EXAMPLE_TRUTH), grid_s.shards[b][w]
+            g_args = pipeline.gather_args(sc, g, ex_config)
+            k1, k1_ref = interp_tau(*g_args), interp_tau_plain(*g_args)
+            check(f'[52] shard ({b}, {w}) {tuple(k1.shape)} gather max rel',
+                  rel_stats(k1, k1_ref)[0], TOL['gather_max_rel'])
+            twin_abs['interp_tau'] = max(twin_abs['interp_tau'],
+                                         (k1 - k1_ref).abs().max().item())
+            s_args, s_kw = pipeline.spectrum_args(
+                sc, g, ex_config, *pipeline.rt_sources(sc, g, ex_config))
+            for name, out, ref in zip(
+                    ('xint', 'thermal'), spectrum_toon(*s_args, **s_kw),
+                    spectrum_toon_plain(*s_args, **s_kw)):
+                twin_abs['spectrum_toon'] = max(
+                    twin_abs['spectrum_toon'], check_twin(
+                        f'shard ({b}, {w}) spectrum {name}', out, ref,
+                        phase=52))
     points = [0]
 
     def ll_row(x, b):
@@ -3251,12 +3348,13 @@ def mesh_phases(dev, grid, g16, config, reset_counts, counts, card):
         return 0.9 + 0.3 * u
 
     t0 = time.perf_counter()
-    ref = nested_sample(ll_ref, prior, 1, nlive=50, seed=11, dlogz=0.5)
+    ref = nested_sample(ll_ref, prior, 1, nlive=RETRIEVAL_NLIVE, seed=11,
+                        dlogz=0.5)
     ref_s = time.perf_counter() - t0
     reset_counts()
     t0 = time.perf_counter()
     got = nested_sample(parallel.sharded_loglike(ll_row, m), prior, 1,
-                        nlive=50, seed=11, dlogz=0.5)
+                        nlive=RETRIEVAL_NLIVE, seed=11, dlogz=0.5)
     torch.cuda.synchronize()
     got_s = time.perf_counter() - t0
     label = '[52] nested sampler over sharded_loglike'
@@ -3271,7 +3369,8 @@ def mesh_phases(dev, grid, g16, config, reset_counts, counts, card):
     report(52, 'sharded_loglike', dict(
         mesh=[[str(d) for d in r] for r in m.devices], points=points[0],
         dead_points=len(ref.samples), logz=ref.logz, sharded_s=got_s,
-        unsharded_s=ref_s))
+        unsharded_s=ref_s, example_shard_shape=list(k1.shape),
+        example_kernels_vs_twins_max_abs=twin_abs))
     if got.logz != ref.logz or not np.array_equal(got.samples, ref.samples):
         raise AssertionError('[52] the sharded run\'s dead points or logz '
                              'differ from the unsharded run\'s')
@@ -3280,7 +3379,7 @@ def mesh_phases(dev, grid, g16, config, reset_counts, counts, card):
     del scene_s, grid_s, r_grid, r_scene
 
     # phase 53: run_climate over a 2 x 4 mesh on phase 24's case
-    m = parallel.make_mesh(n_wave=4, n_batch=2, devices=mesh_devices(8))
+    m = parallel.make_mesh(n_wave=4, n_batch=2, devices=parallel.mesh_devices(8))
     log(f'[53] {m}')
     base = REUSED['climate']
     solve = fused.ClimateCounts()
@@ -3330,7 +3429,7 @@ def mesh_phases(dev, grid, g16, config, reset_counts, counts, card):
     spec = rec['case']
     diseq = REUSED['diseq']
     case = modes_case(jdi, spec)
-    pc = MockPhotochem()
+    pc = MockKinetics()
     case.inputs['climate']['pc'] = pc
     solve = fused.ClimateCounts()
     out, wall, peak = counted(

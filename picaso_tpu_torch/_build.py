@@ -25,7 +25,7 @@ import os
 import shutil
 import subprocess
 
-__all__ = ['library', 'check', 'NVCC_FLAGS']
+__all__ = ['library', 'check', 'kernel_wrappers', 'NVCC_FLAGS']
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, 'csrc')
@@ -187,3 +187,23 @@ def check(code, name):
     """Raise if a launch returned a nonzero cudaError_t."""
     if code != 0:
         raise RuntimeError(f'{name}: CUDA error {code} at launch')
+
+
+def kernel_wrappers():
+    """{name: wrapper} of every hand-written kernel's Python wrapper; each
+    adds one to its ``.launches`` where it launches its kernel and nowhere
+    else (its twin, on CPU tensors, counts nothing)."""
+    from .opacities import cuda_interp
+    from .probes import gather_probe, sweep_layout_probe
+    from .rt import cuda_sh, cuda_toon
+    return {
+        'interp_tau': cuda_interp.interp_tau,
+        'interp_tau_q': cuda_interp.interp_tau_q,
+        **{name: getattr(cuda_toon, name) for name in (
+            'spectrum_toon', 'reflected_toon', 'thermal_toon',
+            'reflected_toon_props', 'thermal_toon_props')},
+        **{name: getattr(cuda_sh, name) for name in (
+            'reflected_sh4', 'thermal_sh4', 'reflected_sh2', 'thermal_sh2')},
+        'interp_tau_layer_inner': gather_probe.interp_tau_layer_inner,
+        'sweep_rows': sweep_layout_probe.sweep_rows,
+        'sweep_staged': sweep_layout_probe.sweep_staged}

@@ -46,7 +46,7 @@ from .opacities.db import OpacityGrid, PTGrid
 from .pipeline import (_SCALARISH_RANK, SceneTensors, forward_parts,
                        scene_transit_depth, unstack_scene)
 
-__all__ = ['Mesh', 'make_mesh', 'ShardedScene', 'ShardedGrid',
+__all__ = ['Mesh', 'make_mesh', 'mesh_devices', 'ShardedScene', 'ShardedGrid',
            'shard_scene', 'shard_grid', 'sharded_forward',
            'sharded_forward_batch', 'sharded_loglike', 'ClimateShards',
            'shard_climate', 'shard_climate_state', 'sharded_profile_step']
@@ -106,6 +106,21 @@ def make_mesh(n_wave=None, n_batch=1, devices=None) -> Mesh:
         grid[i // n_wave, i % n_wave] = d
     return Mesh(grid)
 
+
+
+def mesh_devices(n, device='cuda'):
+    """``n`` devices for :func:`make_mesh`: the visible cards, the first
+    named again where there are fewer cards than shards (as the JAX
+    examples' virtual CPU devices); ``n`` times the CPU for a CPU
+    ``device``.  No card and a CUDA ``device`` raises."""
+    device = torch.device(device)
+    if device.type == 'cpu':
+        return [device] * n
+    cards = [torch.device('cuda', i)
+             for i in range(torch.cuda.device_count())]
+    if not cards:
+        raise RuntimeError('mesh_devices: no CUDA device is visible')
+    return (cards + [cards[0]] * n)[:n]
 
 def _split(x, n, dim, what):
     """``x`` cut into ``n`` equal pieces along ``dim``; raises where ``n``

@@ -17,8 +17,8 @@ import pickle
 
 import numpy as np
 
-__all__ = ['EvoAtmosphereGasGiantPicaso', 'photochem_available',
-           'generate_photochem_rx_and_thermo_files']
+__all__ = ['EvoAtmosphereGasGiantPicaso', 'MockKinetics',
+           'photochem_available', 'generate_photochem_rx_and_thermo_files']
 
 # profile columns that are not gases
 _NOT_GASES = ('pressure', 'temperature', 'kz')
@@ -151,6 +151,32 @@ class EvoAtmosphereGasGiantPicaso:
                 pickle.dump(sol, f)
         return self._with_solution(df, sol)
 
+
+
+class MockKinetics:
+    """A stand-in for :class:`EvoAtmosphereGasGiantPicaso` where photochem
+    is not installed (the JAX package's examples and tests use one too):
+    ``run_for_picaso`` on the dict profile freezes CH4 at its deepest
+    (quenched) value, a signature an equilibrium update would erase, and
+    keeps the other columns.  ``calls`` counts the solves, ``guesses``
+    whether each was warm-started."""
+
+    def __init__(self):
+        self.calls = 0
+        self.guesses = []
+
+    def run_for_picaso(self, df, log10metallicity, CtoO, Kzz,
+                       df_comp_guess=None, rainout_condensed_atoms=True):
+        if len(Kzz) != len(df['pressure']):
+            raise ValueError('MockKinetics: Kzz and the profile differ in '
+                             'length')
+        self.calls += 1
+        self.guesses.append(df_comp_guess is not None)
+        out = dict(df)
+        if 'CH4' in out:
+            ch4 = np.asarray(out['CH4'])
+            out['CH4'] = np.full(len(ch4), float(ch4[-1]))
+        return out
 
 def generate_photochem_rx_and_thermo_files(*args, **kwargs):
     """Passthrough to photochem's file generator (photochem.py:185)."""

@@ -137,6 +137,11 @@ class SpectrumConfig:
     # the kernels that read its RTProps (as does any test_mode)
     fuse_optics: bool = True
 
+    def mix_row(self, name):
+        """Row of ``SceneTensors.mix`` that holds molecule ``name``;
+        ``KeyError`` for a molecule the scene does not carry."""
+        return dict(self.mix_index)[name]
+
 
 def _check_config(config: SpectrumConfig):
     if config.rt_method not in (0, 1):

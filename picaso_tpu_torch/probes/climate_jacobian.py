@@ -56,21 +56,13 @@ def modes_case(jdi, spec):
     return case
 
 
-def watch(name, device, ratio=1e-12):
-    """The report of the module docstring for the recorded case ``name``
-    on ``device``."""
-    from .. import justdoit as jdi
+def watching(run, ratio=1e-12):
+    """``run()`` (a climate solve) with every ``torch.linalg.solve_ex`` of
+    its Newton solves watched: its output, the first solve per profile
+    step whose smallest Jacobian column is at most ``ratio`` of the
+    largest, how many such solves, the wall seconds."""
     from ..climate import fused
-    from ..opacities.ck import synthetic_ck_table
 
-    with open(REFERENCE) as f:
-        rec = json.load(f)[name]
-    spec = rec['case']
-    ck = synthetic_ck_table(grid661=spec['table'] == 661, device='cpu',
-                            with_per_gas=True)
-    if spec['slice']:
-        ck = ck.take_bins(slice(None, spec['slice'][1], spec['slice'][0]))
-    opa = jdi.opannection(ck_table=ck, device=device)
     state = {'step': 0, 'conv': []}
     found = []
     newton, solve_ex = fused.newton_solve, torch.linalg.solve_ex
@@ -95,18 +87,37 @@ def watch(name, device, ratio=1e-12):
     fused.newton_solve, torch.linalg.solve_ex = counted, watched
     try:
         t0 = time.perf_counter()
-        out = modes_case(jdi, spec).climate(
-            opa, diseq_chem=spec['diseq_chem'], with_spec=False,
-            verbose=False, save_all_profiles=True)
+        out = run()
         wall = time.perf_counter() - t0
     finally:
         fused.newton_solve, torch.linalg.solve_ex = newton, solve_ex
-    steps = np.asarray(out['all_profiles'])
-    ref_steps = np.asarray(rec.get('all_profiles', np.zeros((0, 1))))
-    n = min(len(steps), len(ref_steps))
     first = {}
     for f in found:     # the first report of each step: a summary
         first.setdefault(f['step'], f)
+    return out, list(first.values()), len(found), wall
+
+
+def watch(name, device, ratio=1e-12):
+    """The report of the module docstring for the recorded case ``name``
+    on ``device``."""
+    from .. import justdoit as jdi
+    from ..opacities.ck import synthetic_ck_table
+
+    with open(REFERENCE) as f:
+        rec = json.load(f)[name]
+    spec = rec['case']
+    ck = synthetic_ck_table(grid661=spec['table'] == 661, device='cpu',
+                            with_per_gas=True)
+    if spec['slice']:
+        ck = ck.take_bins(slice(None, spec['slice'][1], spec['slice'][0]))
+    opa = jdi.opannection(ck_table=ck, device=device)
+    case = modes_case(jdi, spec)
+    out, small, n_small, wall = watching(lambda: case.climate(
+        opa, diseq_chem=spec['diseq_chem'], with_spec=False,
+        verbose=False, save_all_profiles=True), ratio)
+    steps = np.asarray(out['all_profiles'])
+    ref_steps = np.asarray(rec.get('all_profiles', np.zeros((0, 1))))
+    n = min(len(steps), len(ref_steps))
     return dict(
         case=name, device=str(device), wall_s=wall,
         converged=int(out['converged']),
@@ -118,8 +129,7 @@ def watch(name, device, ratio=1e-12):
         profile_steps=len(steps), jax_profile_steps=len(ref_steps),
         steps_max_dT=[float(np.abs(steps[i] - ref_steps[i]).max())
                       for i in range(n)],
-        small_solves=len(found),
-        small_by_step=list(first.values()))
+        small_solves=n_small, small_by_step=small)
 
 
 def main():

@@ -34,10 +34,7 @@ def main():
     from picaso_tpu_torch import _build, pipeline
     from picaso_tpu_torch import justdoit as jdi
     from picaso_tpu_torch.opacities.ck import synthetic_ck_table
-    from picaso_tpu_torch.opacities.cuda_interp import (interp_tau,
-                                                        interp_tau_q)
     from picaso_tpu_torch.probes.climate_jacobian import modes_case
-    from picaso_tpu_torch.rt import cuda_sh, cuda_toon
 
     card = cs.subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -45,10 +42,7 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     cs.log(card)
     dev = torch.device('cuda')
-    wrappers = {'interp_tau': interp_tau, 'interp_tau_q': interp_tau_q,
-                'spectrum_toon': cuda_toon.spectrum_toon}
-    wrappers.update({n: getattr(cuda_sh, n) for n in cs.SH_REPLACES})
-    wrappers.update({n: getattr(cuda_toon, n) for n in cs.SPLIT_REPLACES})
+    wrappers = _build.kernel_wrappers()
 
     def reset_counts():
         for w in wrappers.values():

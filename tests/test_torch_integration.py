@@ -1,8 +1,8 @@
 """picaso_tpu_torch.integration_testing against
 picaso_tpu.integration_testing: discovery, a run over a directory that
 holds one script exiting 0 and one exiting 1, and the console entry
-point; and the port's examples directory (every JAX example but the mesh
-and photochemistry ones, not ported yet)."""
+point; and the port's examples directory (a port of every JAX
+example)."""
 
 import os
 
@@ -10,8 +10,7 @@ from picaso_tpu import integration_testing as jit
 
 from picaso_tpu_torch import integration_testing as tit
 
-LEFT_OUT = {'mesh_sharded_retrieval_climate.py',
-            'photochem_coupled_climate.py'}
+LEFT_OUT = set()
 
 
 def scripts(tmp_path):

@@ -311,8 +311,9 @@ def test_sharded_loglike_nested_sampler(retrieval_problem):
     exactly), and the sharded model on the 2 x 4 mesh is the JAX package's
     sharded model within rtol 2e-5.  The likelihood reads the albedo
     alone, so the forward runs reflected-only (K3's twin); nlive 10 and
-    dlogz 2 (the JAX test's 50 and 0.5 are chip_smoke.py's) keep the two
-    runs to ~1200 likelihood points each, ~40 s on one CPU thread."""
+    dlogz 2 (the JAX test's 50 and 0.5 run in the mesh example on the
+    card; chip_smoke.py's phase 52 runs 25 and 0.5) keep the two runs to
+    ~1200 likelihood points each, ~40 s on one CPU thread."""
     (scene, grid, config), (jscene, jgrid, jconfig) = retrieval_problem
     config = dataclasses.replace(config, thermal=False, transmission=False)
     truth = 1.02
@@ -564,3 +565,16 @@ def test_width_mesh_does_not_divide(problem):
         tparallel.sharded_forward_batch(
             tparallel.shard_scene(scene, mesh(8, 1)),
             tparallel.shard_grid(grid, mesh(8, 1)), None, mesh(8, 1))
+
+
+def test_mesh_devices():
+    """The examples' and chip_smoke.py's devices for a mesh: n times the
+    CPU for a CPU device; the visible cards, the first repeated, else a
+    refusal, for a CUDA one (nothing falls back to the CPU)."""
+    assert tparallel.mesh_devices(3, 'cpu') == [CPU] * 3
+    if torch.cuda.is_available():
+        got = tparallel.mesh_devices(8)
+        assert len(got) == 8 and {d.type for d in got} == {'cuda'}
+    else:
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            tparallel.mesh_devices(8)

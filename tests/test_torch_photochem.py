@@ -31,33 +31,13 @@ from picaso_tpu import photochem as jpc
 from picaso_tpu_torch import justdoit as tdi
 from picaso_tpu_torch import photochem as tpc
 from picaso_tpu_torch.opacities.ck import synthetic_ck_table
+from picaso_tpu_torch.photochem import MockKinetics
 
 torch.set_num_threads(1)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REFERENCE = os.path.join(HERE, 'photochem_reference.json')
 DT_MAX = 1e-6   # K, the port's whole solves against the JAX package's
-
-
-class MockPhotochem:
-    """tests/test_photochem_climate.py:19-36's stand-in for
-    EvoAtmosphereGasGiantPicaso, on the port's dict profile: CH4 frozen at
-    its deepest value (a signature an equilibrium update would erase)."""
-
-    def __init__(self):
-        self.calls = 0
-        self.guesses = []
-
-    def run_for_picaso(self, df, log10metallicity, CtoO, Kzz,
-                       df_comp_guess=None, rainout_condensed_atoms=True):
-        self.calls += 1
-        self.guesses.append(df_comp_guess is not None)
-        assert len(Kzz) == len(df['pressure'])
-        out = dict(df)
-        if 'CH4' in out:
-            ch4 = np.asarray(out['CH4'])
-            out['CH4'] = np.full(len(ch4), float(ch4[-1]))
-        return out
 
 
 def _setup_case(teff=700, nlevel=31):
@@ -83,7 +63,7 @@ def test_premix_atmosphere_photochem_drives_kinetics():
         'CH4': np.linspace(1e-4, 5e-4, nlevel)}
     case.inputs['atmosphere'].setdefault('kzz', {})['sc_kzz'] = \
         np.zeros(nlevel) + 1e9
-    pc = MockPhotochem()
+    pc = MockKinetics()
     case.inputs['climate']['pc'] = pc
     df = case.premix_atmosphere_photochem()
     assert pc.calls == 1
@@ -105,7 +85,7 @@ def test_premix_atmosphere_photochem_requires_pc():
         'temperature': np.zeros(nlevel) + 900.0}
     with pytest.raises(ValueError, match='photochem_init'):
         case.premix_atmosphere_photochem()
-    case.inputs['climate']['pc'] = MockPhotochem()
+    case.inputs['climate']['pc'] = MockKinetics()
     with pytest.raises(ValueError, match='kzz'):
         case.premix_atmosphere_photochem()
 
@@ -115,7 +95,7 @@ def test_photochem_coupled_climate_converges():
     """The full RCE loop with per-iteration kinetics (mocked) converges
     and carries the kinetic abundances into the converged profile."""
     opa, case = _setup_case()
-    pc = MockPhotochem()
+    pc = MockKinetics()
     case.inputs['climate']['pc'] = pc
     out = case.climate(opa, diseq_chem=True, verbose=False)
     temp = out['temperature']
@@ -305,7 +285,7 @@ def test_mocked_climate_matches_jax_record():
     _, ts = tables(spec)
     opa = tdi.opannection(ck_table=ts, device='cpu')
     case = jax_facade_case(tdi, spec)
-    pc = MockPhotochem()
+    pc = MockKinetics()
     case.inputs['climate']['pc'] = pc
     out = case.climate(opa, diseq_chem=True, verbose=False,
                        save_all_profiles=True)

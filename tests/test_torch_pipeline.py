@@ -132,6 +132,26 @@ def test_scene_from_arrays_matches_jax(jax_problem):
     assert config.transmission == jconfig.transmission
 
 
+def test_mix_row_matches_jax(jax_problem):
+    """``SpectrumConfig.mix_row``: the row of the scene's mix that holds a
+    molecule, as the JAX package's, for every molecule of the profile;
+    ``KeyError`` for one it does not carry, as there."""
+    jgrid, jscene, jconfig, _ = jax_problem
+    grid, _, _ = _port_problem(jgrid, jscene, jconfig)
+    pressure, temperature, mix, cld = _profile()
+    scene, config = tpipeline.scene_from_arrays(
+        pressure, temperature, mix, grid, cld=cld, **_KW)
+    assert len(mix) == scene.mix.shape[0] == 18
+    for name in mix:
+        row = config.mix_row(name)
+        assert row == jconfig.mix_row(name)
+        np.testing.assert_array_equal(scene.mix[row].numpy(),
+                                      np.asarray(jscene.mix[row]))
+    for cfg in (config, jconfig):
+        with pytest.raises(KeyError):
+            cfg.mix_row('XeF2')
+
+
 @pytest.fixture(scope='module')
 def jax_sh(jax_problem):
     """The JAX SH forwards (plain path, f64) at stream 2 and 4."""
