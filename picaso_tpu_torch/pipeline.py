@@ -49,6 +49,7 @@ import torch
 
 from . import checked_device, default_dtype
 from . import disco as disco_mod
+from . import profiling
 from . import raman as raman_mod
 from .constants import PCONV
 from .opacities import assemble
@@ -187,51 +188,58 @@ def gather_taugas(scene: SceneTensors, grid: OpacityGrid,
     """The molecular-opacity stage alone: taugas [nlayer, nwno].  With
     ``use_kernels`` the gather kernel of :func:`gather_args` (K8 on an
     int16 grid, else K1); without, the plain float path on ``log_kappa``,
-    as in the JAX package."""
-    if config.use_kernels:
-        gather = interp_tau_q if _quantized(grid) else interp_tau
-        return gather(*gather_args(scene, grid, config))
-    rows = [dict(config.mix_index)[grid.molecules[i]]
-            for i in config.mol_indices]
-    kappa = interp_molecular(grid, scene.tlayer, scene.player / PCONV)
-    kappa = kappa[list(config.mol_indices)]
-    return assemble.molecular_tau(kappa, scene.mix[rows], scene.colden,
-                                  scene.mmw_layer)
+    as in the JAX package.  Recorded as the span ``picaso.gather``."""
+    with profiling.span('picaso.gather'):
+        if config.use_kernels:
+            gather = interp_tau_q if _quantized(grid) else interp_tau
+            return gather(*gather_args(scene, grid, config))
+        rows = [dict(config.mix_index)[grid.molecules[i]]
+                for i in config.mol_indices]
+        kappa = interp_molecular(grid, scene.tlayer, scene.player / PCONV)
+        kappa = kappa[list(config.mol_indices)]
+        return assemble.molecular_tau(kappa, scene.mix[rows], scene.colden,
+                                      scene.mmw_layer)
 
 
 def rt_sources(scene: SceneTensors, grid: OpacityGrid,
                config: SpectrumConfig):
     """Per-source optical depths (taugas with continua, tauray) and the
-    Raman factor, each [nlayer, nwno] and contiguous."""
+    Raman factor, each [nlayer, nwno] and contiguous.  The spans
+    ``picaso.gather`` (:func:`gather_taugas`) and ``picaso.sources`` (the
+    rest) record the two stages."""
     nlayer = scene.tlayer.shape[0]
     dtype = scene.cld_opd.dtype
     dev = scene.cld_opd.device
 
     taugas = gather_taugas(scene, grid, config)
-    if config.continuum_specs:
-        cont = nearest_continuum(grid, scene.tlayer)
-        # layer gravity from the column-density definition colden = dP/g
-        gravity_layer = (scene.plevel[1:] - scene.plevel[:-1]) / scene.colden
-        coef1 = assemble.amagat_coef1(
-            scene.tlevel, scene.plevel / PCONV, scene.tlayer,
-            scene.player / PCONV, gravity_layer, scene.mmw_layer)
-        mix_named = {name: scene.mix[row] for name, row in config.mix_index}
-        cont_kappa = {spec.name: cont[ci] for spec, ci in
-                      zip(config.continuum_specs, config.cont_indices)}
-        for spec in config.continuum_specs:
-            for m in (spec.mol1, spec.mol2):
-                if m and m not in mix_named:
-                    mix_named[m] = torch.zeros(nlayer, dtype=dtype,
-                                               device=dev)
-        taugas = taugas + assemble.continuum_tau(
-            config.continuum_specs, cont_kappa, mix_named, scene.electrons,
-            coef1, scene.player, scene.tlayer, scene.colden,
-            scene.mmw_layer)
-    tauray = assemble.rayleigh_tau(scene.sigma_ray, scene.mix_ray,
-                                   scene.colden, scene.mmw_layer)
-    rf = _raman_factor(config, scene, grid.wno)
-    return (taugas.to(dtype).contiguous(), tauray.to(dtype).contiguous(),
-            rf.contiguous())
+    with profiling.span('picaso.sources'):
+        if config.continuum_specs:
+            cont = nearest_continuum(grid, scene.tlayer)
+            # layer gravity from the column-density definition colden =
+            # dP/g
+            gravity_layer = ((scene.plevel[1:] - scene.plevel[:-1])
+                             / scene.colden)
+            coef1 = assemble.amagat_coef1(
+                scene.tlevel, scene.plevel / PCONV, scene.tlayer,
+                scene.player / PCONV, gravity_layer, scene.mmw_layer)
+            mix_named = {name: scene.mix[row]
+                         for name, row in config.mix_index}
+            cont_kappa = {spec.name: cont[ci] for spec, ci in
+                          zip(config.continuum_specs, config.cont_indices)}
+            for spec in config.continuum_specs:
+                for m in (spec.mol1, spec.mol2):
+                    if m and m not in mix_named:
+                        mix_named[m] = torch.zeros(nlayer, dtype=dtype,
+                                                   device=dev)
+            taugas = taugas + assemble.continuum_tau(
+                config.continuum_specs, cont_kappa, mix_named,
+                scene.electrons, coef1, scene.player, scene.tlayer,
+                scene.colden, scene.mmw_layer)
+        tauray = assemble.rayleigh_tau(scene.sigma_ray, scene.mix_ray,
+                                       scene.colden, scene.mmw_layer)
+        rf = _raman_factor(config, scene, grid.wno)
+        return (taugas.to(dtype).contiguous(),
+                tauray.to(dtype).contiguous(), rf.contiguous())
 
 
 def _raman_factor(config, scene: SceneTensors, wno):
@@ -418,18 +426,23 @@ def forward_parts(scene: SceneTensors, grid: OpacityGrid,
     """``forward`` but the transit depth: (the dict of albedo and thermal,
     the total optical depth [nlayer, nwno] that the transit depth reads).
     ``parallel.sharded_forward`` runs this per wave shard and the transit
-    depth once over the gathered optical depths."""
+    depth once over the gathered optical depths.  Spans: ``picaso.gather``,
+    ``picaso.sources``, ``picaso.rt`` and ``picaso.disco``, in that
+    order."""
     _check_config(config)
     tg, tr, rf = rt_sources(scene, grid, config)
     rt = _sh_rt if config.rt_method == 1 else _toon_rt
-    xint, flux_top, dtau_total = rt(scene, grid, config, tg, tr, rf)
+    with profiling.span('picaso.rt'):
+        xint, flux_top, dtau_total = rt(scene, grid, config, tg, tr, rf)
     out = {}
-    if xint is not None:
-        out['albedo'] = disco_mod.compress_disco(
-            xint, scene.gweight, scene.tweight, scene.cos_theta, scene.F0PI)
-    if flux_top is not None:
-        out['thermal'] = disco_mod.compress_thermal(
-            flux_top, scene.gweight, scene.tweight)
+    with profiling.span('picaso.disco'):
+        if xint is not None:
+            out['albedo'] = disco_mod.compress_disco(
+                xint, scene.gweight, scene.tweight, scene.cos_theta,
+                scene.F0PI)
+        if flux_top is not None:
+            out['thermal'] = disco_mod.compress_thermal(
+                flux_top, scene.gweight, scene.tweight)
     return out, dtau_total
 
 
@@ -444,10 +457,19 @@ def scene_transit_depth(scene: SceneTensors, dtau_total):
 def forward(scene: SceneTensors, grid: OpacityGrid, config: SpectrumConfig):
     """Full 1D spectrum: a dict of tensors albedo [nwno] (when
     ``config.reflected``), thermal [nwno] (when ``config.thermal``) and,
-    with ``config.transmission``, transit_depth [nwno]."""
+    with ``config.transmission``, transit_depth [nwno].  Recorded as the
+    span ``picaso.forward``, the transit depth inside it as
+    ``picaso.transit``."""
+    with profiling.span('picaso.forward'):
+        return _forward(scene, grid, config)
+
+
+def _forward(scene: SceneTensors, grid: OpacityGrid,
+             config: SpectrumConfig):
     out, dtau_total = forward_parts(scene, grid, config)
     if config.transmission:
-        out['transit_depth'] = scene_transit_depth(scene, dtau_total)
+        with profiling.span('picaso.transit'):
+            out['transit_depth'] = scene_transit_depth(scene, dtau_total)
     return out
 
 
@@ -465,18 +487,19 @@ def stack_scenes(scenes):
     points, grid members.  A geometry-like field (``_SCALARISH_RANK``) that
     is the same in every scene -- the retrieval case -- stays unbatched;
     one that varies -- phase curves -- gains the axis like every other
-    field."""
-    fields = {}
-    for name in SceneTensors._fields:
-        leaves = [getattr(s, name) for s in scenes]
-        first = leaves[0]
-        if name in _SCALARISH_RANK and all(
-                leaf is first or torch.equal(leaf, first)
-                for leaf in leaves[1:]):
-            fields[name] = first
-        else:
-            fields[name] = torch.stack(leaves)
-    return SceneTensors(**fields)
+    field.  Recorded as the span ``picaso.stack_scenes``."""
+    with profiling.span('picaso.stack_scenes'):
+        fields = {}
+        for name in SceneTensors._fields:
+            leaves = [getattr(s, name) for s in scenes]
+            first = leaves[0]
+            if name in _SCALARISH_RANK and all(
+                    leaf is first or torch.equal(leaf, first)
+                    for leaf in leaves[1:]):
+                fields[name] = first
+            else:
+                fields[name] = torch.stack(leaves)
+        return SceneTensors(**fields)
 
 
 def forward_batch(scenes: SceneTensors, grid: OpacityGrid,
@@ -485,11 +508,18 @@ def forward_batch(scenes: SceneTensors, grid: OpacityGrid,
     leading batch axis except the batch-constant geometry fields, which sit
     at their unbatched rank (picaso_tpu/pipeline.py:454-475).  Outputs gain
     the batch axis.  The scenes run one after another through ``forward``
-    (each launching its kernels); a batch axis inside the kernels is a
-    later ROADMAP item."""
-    outs = [forward(unstack_scene(scenes, b), grid, config)
-            for b in range(scenes.tlevel.shape[0])]
-    return {key: torch.stack([o[key] for o in outs]) for key in outs[0]}
+    (each launching its kernels); a batch axis inside the kernels is
+    ROADMAP Queue 6 item 3.  Spans: ``picaso.forward_batch`` around the
+    call, ``picaso.forward`` around each scene's unstacking and forward,
+    ``picaso.outputs`` around the final stack."""
+    with profiling.span('picaso.forward_batch'):
+        outs = []
+        for b in range(scenes.tlevel.shape[0]):
+            with profiling.span('picaso.forward'):
+                outs.append(_forward(unstack_scene(scenes, b), grid, config))
+        with profiling.span('picaso.outputs'):
+            return {key: torch.stack([o[key] for o in outs])
+                    for key in outs[0]}
 
 
 def unstack_scene(scenes: SceneTensors, b) -> SceneTensors:
@@ -503,15 +533,18 @@ def unstack_scene(scenes: SceneTensors, b) -> SceneTensors:
 def with_geometry(scene: SceneTensors, geom):
     """``scene`` with the disk geometry ``geom`` (a ``disco.Geometry``), as
     the JAX package's bench builds phase-curve scenes
-    (bench.py:627-636)."""
+    (bench.py:627-636).  Recorded as the span ``picaso.with_geometry``."""
     def t(x):
         return torch.as_tensor(np.asarray(x), dtype=scene.ubar0.dtype,
                                device=scene.ubar0.device)
-    return scene._replace(ubar0=t(geom.ubar0), ubar1=t(geom.ubar1),
-                          gweight=t(geom.gweight), tweight=t(geom.tweight),
-                          cos_theta=t(geom.cos_theta))
+    with profiling.span('picaso.with_geometry'):
+        return scene._replace(ubar0=t(geom.ubar0), ubar1=t(geom.ubar1),
+                              gweight=t(geom.gweight),
+                              tweight=t(geom.tweight),
+                              cos_theta=t(geom.cos_theta))
 
 
+@profiling.counted('scene_from_arrays')
 def scene_from_arrays(profile_bar, t_level, mix_named, grid: OpacityGrid,
                       gravity, radius=np.nan, mass=np.nan, p_reference=1.0,
                       num_gangle=10, cld=None, F0PI=None, rstar=np.nan,
@@ -523,7 +556,10 @@ def scene_from_arrays(profile_bar, t_level, mix_named, grid: OpacityGrid,
 
     Raman inputs as in the JAX package: ``raman_shifts`` [nwno, nrow] from
     ``raman.compute_stellar_shifts``, ``raman_db`` the dict of
-    ``raman.load_raman_db``, ``raman_pollack_row`` [nwno]."""
+    ``raman.load_raman_db``, ``raman_pollack_row`` [nwno].
+
+    Recorded as the span ``picaso.scene_from_arrays``; every call adds its
+    host seconds to ``profiling.counters()['scene_from_arrays']``."""
     from .atmosphere import build_atmosphere
     from .rayleigh import RAYLEIGH_MOLECULES, rayleigh_sigma_table
 

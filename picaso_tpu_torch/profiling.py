@@ -12,12 +12,18 @@ Port of ``picaso_tpu/profiling.py`` to PyTorch:
 - :func:`cost_analysis` -- the floating-point operations of ``fn(*args)``
   counted by ``torch.utils.flop_counter.FlopCounterMode``;
 - :class:`RunLog` -- append-only JSONL structured logs, taking numpy
-  arrays and torch tensors.
+  arrays and torch tensors;
+- :func:`span` -- a named span of the program (``picaso.forward_batch``,
+  ``picaso.gather``, ...) in the trace of an active ``torch.profiler``
+  profile, on the clock of the card's kernels; a shared no-op otherwise;
+- :func:`counted`, :func:`counters`, :func:`reset_counters` -- calls and
+  host seconds of a function, counted always (``scene_from_arrays``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import time
@@ -25,7 +31,12 @@ import time
 import numpy as np
 import torch
 
-__all__ = ['trace', 'Timer', 'device_timer', 'cost_analysis', 'RunLog']
+__all__ = ['trace', 'Timer', 'device_timer', 'cost_analysis', 'RunLog',
+           'span', 'counted', 'counters', 'reset_counters']
+
+_NO_SPAN = contextlib.nullcontext()
+_profiling = torch._C._autograd._profiler_enabled
+_COUNTERS = {}
 
 
 def _cuda_devices(obj, found=None):
@@ -165,3 +176,47 @@ class RunLog:
 
     def __iter__(self):
         return iter(self.records)
+
+
+def span(name):
+    """A span of the program named ``name`` (``picaso.<stage>``): while a
+    ``torch.profiler`` profile records, ``record_function(name)``, which
+    writes into the trace beside the card's kernels and runtime calls and
+    takes its parent from the spans open on the calling thread; else one
+    shared no-op context, so an unprofiled call pays a flag check (a bare
+    ``record_function`` costs microseconds even with no profiler)."""
+    if _profiling():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def counted(name):
+    """Decorator: each call of the function runs inside
+    ``span('picaso.' + name)`` and adds one call and its host seconds to
+    ``counters()[name]``.  The count is always on: two
+    ``time.perf_counter()`` reads a call, for functions that take
+    milliseconds and run where no profile records (set-up)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def timed(*args, **kwargs):
+            start = time.perf_counter()
+            with span('picaso.' + name):
+                out = fn(*args, **kwargs)
+            c = _COUNTERS.setdefault(name, {'calls': 0, 'seconds': 0.0})
+            c['calls'] += 1
+            c['seconds'] += time.perf_counter() - start
+            return out
+        return timed
+    return wrap
+
+
+def counters():
+    """``{name: {'calls': n, 'seconds': s}}`` of every :func:`counted`
+    function called since the process started or the last
+    :func:`reset_counters` (a copy)."""
+    return {k: dict(v) for k, v in _COUNTERS.items()}
+
+
+def reset_counters():
+    """Clear every counter of :func:`counters`."""
+    _COUNTERS.clear()
