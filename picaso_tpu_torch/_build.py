@@ -98,9 +98,11 @@ _SIGNATURES = {
     # surf_reflect, ubar1, ptfac, out, scratch, nlayer, nwno, nang,
     # delta_eddington, hard_surface, stage (0: A, 1: B), cuda stream
     'sh_thermal_launch': [_I] + [_P] * 12 + [_I] * 6 + [_P],
-    # scratch slots of the SH kernels: (stream, nang) and (stream)
+    # scratch slots of the SH kernels: (stream, nang) and (stream); the
+    # length of a slot's rows (nwno)
     'sh_reflected_scratch_slots': [_I, _I],
     'sh_thermal_scratch_slots': [_I],
+    'sh_scratch_row': [_I],
 }
 
 

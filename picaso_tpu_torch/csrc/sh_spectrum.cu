@@ -32,11 +32,16 @@
 // angle-independent rows from a scratch 16 times the 50 MB L2, so from HBM.
 //
 // Design: two launches on one stream, as in toon_spectrum.cu.
-//  Stage A, one thread per column.  Reflected (sh_reflected_columns): the
-//  optics rows, then the matrix half of the elimination: block row k
-//  rebuilt from the coefficients of layers k-1, k, k+1 (a rolling window),
-//  the pivoted Gauss-Jordan step on [B | C], Cp[k] and the step's replay
-//  record (row swap flags packed into one slot, pivot inverses,
+//  Stage A, one thread per column.  Reflected (sh_reflected_columns): one
+//  top-down loop computes each layer's optics and coefficients once, in
+//  eliminate's rolling window, and writes the optics rows and every
+//  per-layer value stage B reads that no angle changes (36 slots at SH4,
+//  13 at SH2: the coefficients, the multi-scattering weights, the beam
+//  source's factor f0pi w0 w_single, the single-scattering phase function
+//  at cos_theta or its Legendre weights); then the matrix half of the
+//  elimination: block row k built from the coefficients of layers k-1, k,
+//  k+1, the pivoted Gauss-Jordan step on [B | C], Cp[k] and the step's
+//  replay record (row swap flags packed into one slot, pivot inverses,
 //  multipliers: 17 slots at SH4, 5 at SH2) to scratch; no beam source, no
 //  right-hand side.  Thermal (sh_thermal_columns): one top-down loop
 //  computes each layer's optics and coefficients once, in the same rolling
@@ -56,17 +61,22 @@
 //  replays layer k's record on them; Dp[k] (S slots per angle) is its only
 //  scratch.  Bottom up, one loop substitutes back (X[k] = Dp[k] - Cp[k]
 //  X[k+1], in registers) and advances the TOA intensity sweep with X[k] as
-//  soon as it is known.  Thermal (sh_thermal_angles): the bottom-up sweep
-//  of its angle over X[k] and the layer values stage A stored (recomputing
-//  them per angle instead made stage B 55 % slower at SH4).
+//  soon as it is known.  Both loops read the layer values stage A stored
+//  and compute only what the angle changes: the beam's particular
+//  solution and its dither, the sources and the sweep (recomputing the
+//  values in both loops of every angle instead made stage B 52 % slower
+//  at SH4 and 36 angles, 33 % at SH2 and 5 angles).  Thermal
+//  (sh_thermal_angles): the bottom-up sweep of its angle over X[k] and the
+//  layer values stage A stored (recomputing them per angle instead made
+//  stage B 55 % slower at SH4).
 //
 // Each value is computed by the same operations in the same order as in
 // the one-thread design (the record holds the very swaps, inverses and
-// multipliers; the thermal layer values are stored as computed; reflected
-// coefficients and beams are recomputed from the stored optics), so the
-// outputs are bitwise those of that design.  Per-layer
-// values go to global scratch [slot, row, nwno] (coalesced across a warp),
-// which the wrapper allocates.  Expressions keep the TPU kernel's order of
+// multipliers; the layer values are stored as computed), so the outputs
+// are bitwise those of that design.  Per-layer
+// values go to global scratch [slot, row, column] (coalesced across a
+// warp; rows padded to 128 bytes, scratch_row), which the wrapper
+// allocates.  Expressions keep the TPU kernel's order of
 // operations (integer powers as lax.integer_pow's products, the Taylor
 // expm1 below |x| 0.05, the exp clip at 35, beam dither 1e-3); built with
 // -fmad=false, so each operation rounds as in the eager PyTorch twin
@@ -74,8 +84,9 @@
 //
 // Without nvcc (__CUDACC__ undefined) the file compiles as host C++
 // (g++ -std=c++17 -ffp-contract=off -x c++): the qualifiers are empty, the
-// thread indices are globals, and sh_thermal_host runs the thermal stages'
-// threads as loops (tests/test_torch_sh_thermal_host.py).
+// thread indices are globals, and sh_reflected_host and sh_thermal_host
+// run the stages' threads as loops (tests/test_torch_sh_reflected_host.py,
+// tests/test_torch_sh_thermal_host.py).
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -116,13 +127,16 @@ constexpr float kSixth = (float)(1.0 / 6.0);
 constexpr float kDitherDelta = 1e-3f;
 constexpr float kOnePlusDelta = (float)(1.0 + 1e-3);
 
-// scratch slots, each [nlayer + 1, nwno].  Reflected: the optics, Cp
-// (S * S), the replay record (kRecSlots), then S Dp rows per angle;
-// thermal: dtau and w0, Cp, Dp (X after the back-substitution), then the
-// layer values of the sweep (kThermCoefSlots: lam, ex, R/Q/Sg or q, a0,
-// a1, wm).
+// scratch slots, each [nlayer + 1, ld] (scratch_row: nwno rounded up to
+// kRowAlign floats, so that every row starts on a 128-byte line and a
+// warp's 32 columns write whole 32-byte sectors, not two partial ones
+// that memory must read back and merge).  Reflected: the optics, Cp
+// (S * S), the replay record (kRecSlots), the layer values of stage B
+// (kReflVals to kDp), then S Dp rows per angle; thermal: dtau and w0, Cp, Dp
+// (X after the back-substitution), then the layer values of the sweep
+// (kThermCoefSlots: lam, ex, R/Q/Sg or q, a0, a1, wm).
 enum ReflSlot { R_DTAU, R_TAU, R_W0, R_W0_OG, R_DTAU_OG, R_TAU_OG,
-                R_COSB_OG, R_FTC, R_FTR, kReflSlots };
+                kReflSlots };
 enum ThermSlot { T_DTAU, T_W0, kThermSlots };
 constexpr int kThermCp = kThermSlots;
 template <int S> constexpr int kThermX = kThermSlots + S * S;
@@ -136,13 +150,24 @@ constexpr int kThermScratch = kThermCoef<S> + kThermCoefSlots<S>;
 template <int S> constexpr int kRecSlots = 1 + S + S * (S - 1);
 constexpr int kCp = kReflSlots;
 template <int S> constexpr int kRec = kReflSlots + S * S;
-template <int S> constexpr int kDp = kRec<S> + kRecSlots<S>;
+// one layer's values of stage B (refl_values' order): the coefficients
+// (a, lam, ex, x, y, then beta, gama, R, Q, Sg at SH4 or q at SH2: 24 or
+// 7), wm and bf (S each), then S slots of the single-scattering term
+template <int S> constexpr int kReflVals = kRec<S> + kRecSlots<S>;
+template <int S> constexpr int kSingle = kReflVals<S> + (S == 4 ? 24 : 7)
+                                         + 2 * S;
+template <int S> constexpr int kDp = kSingle<S> + S;
+
+constexpr int kRowAlign = 32;
+int scratch_row(int nwno) {
+  return (nwno + kRowAlign - 1) / kRowAlign * kRowAlign;
+}
 
 struct Params {
   const float *all_b, *taugas, *tauray, *cld_opd, *cld_w0, *cld_g0, *rf;
   const float *sr, *f0pi, *u0, *u1, *cos_theta, *ptfac;
   float *out, *scr;
-  int nlayer, nwno, nang, dedd, hard_surface;
+  int nlayer, nwno, ld, nang, dedd, hard_surface;
   int w_single_form, w_multi_form, psingle_form, w_single_rayleigh,
       w_multi_rayleigh, psingle_rayleigh, single_form;
   float frac_a, frac_b, frac_c, constant_back, constant_forward, b_top;
@@ -154,7 +179,7 @@ struct Col {
   const Params& p;
   long long w;
   __device__ float& s(int slot, int row) const {
-    return p.scr[((long long)slot * (p.nlayer + 1) + row) * p.nwno + w];
+    return p.scr[((long long)slot * (p.nlayer + 1) + row) * p.ld + w];
   }
   __device__ float in(const float* a, int row) const {
     return a[(long long)row * p.nwno + w];
@@ -345,6 +370,14 @@ __device__ void coeffs(Coef<4>& c, float w0, float dtau, const float wm[4]) {
   }
 }
 
+// a layer's values that stage A stores for stage B: its coefficients, the
+// multi-scattering weights wm and the beam source's angle-free factor
+// bf[l] = f0pi * (w0 * w_single[l])
+template <int S>
+struct ReflVals : Coef<S> {
+  float wm[S], bf[S];
+};
+
 // beam particular solution of one angle (pallas_sh.py:_eta2_sources and
 // _eta_sources): eta, the z rows in block-row order, the dithered angle
 template <int S>
@@ -352,14 +385,13 @@ struct Beam {
   float eta[S], z[S], u0b;
 };
 
-__device__ Beam<2> beam(const Coef<2>& c, float u0, float w0, const float ws[2],
-                        float f0pi) {
+__device__ Beam<2> beam(const ReflVals<2>& c, float u0) {
   Beam<2> r;
   r.u0b = dither_u0(c.lam[0], u0);
   const float t = 1.0f / r.u0b;
   const float Del = t * t - c.a[0] * c.a[1];
-  const float b0 = (f0pi * (w0 * ws[0])) / k4Pi;
-  const float b1 = (f0pi * (w0 * ws[1])) * -u0 / k4Pi;
+  const float b0 = c.bf[0] / k4Pi;
+  const float b1 = c.bf[1] * -u0 / k4Pi;
   r.eta[0] = (b1 / r.u0b - c.a[1] * b0) / Del;
   r.eta[1] = (b0 / r.u0b - c.a[0] * b1) / Del;
   r.z[0] = (0.5f * r.eta[0] - r.eta[1]) * 2.0f * kPi;
@@ -367,8 +399,7 @@ __device__ Beam<2> beam(const Coef<2>& c, float u0, float w0, const float ws[2],
   return r;
 }
 
-__device__ Beam<4> beam(const Coef<4>& c, float u0, float w0, const float ws[4],
-                        float f0pi) {
+__device__ Beam<4> beam(const ReflVals<4>& c, float u0) {
   Beam<4> r;
   r.u0b = dither_u0(c.lam[1], dither_u0(c.lam[0], u0));
   const float u0i = 1.0f / r.u0b;
@@ -377,9 +408,9 @@ __device__ Beam<4> beam(const Coef<4>& c, float u0, float w0, const float ws[4],
   float P[4];
   legp(-u0, P);
   float b[4];
-  b[0] = (f0pi * (w0 * ws[0])) / k4Pi;
+  b[0] = c.bf[0] / k4Pi;
 #pragma unroll
-  for (int l = 1; l < 4; ++l) b[l] = (f0pi * (w0 * ws[l])) * P[l] / k4Pi;
+  for (int l = 1; l < 4; ++l) b[l] = c.bf[l] * P[l] / k4Pi;
   const float a0 = c.a[0], a1 = c.a[1], a2 = c.a[2], a3 = c.a[3];
   const float d0 = (a1 * b[0] - b[1] * u0i) * (a2 * a3 - 9.0f * u0i2)
                    + 2.0f * (a3 * b[2] - 2.0f * a3 * b[0] - 3.0f * b[3] * u0i)
@@ -577,32 +608,10 @@ __device__ void back_substitute(const Col& c, int cp0, int d0) {
 // ---------------------------------------------------------------------
 // reflected (pallas_sh.py:_sh{4,2}_reflected_core)
 // ---------------------------------------------------------------------
-template <int S>
-struct ReflLayer {
-  const Col& c;
-  __device__ Coef<S> operator()(int j) const {
-    const Params& p = c.p;
-    const float cosb_og = c.s(R_COSB_OG, j);
-    const float fdm = p.dedd ? ipow(cosb_og, S) : 0.0f;
-    float wm[S];
-    w_expansions<S>(p, p.w_multi_form, p.w_multi_rayleigh, cosb_og,
-                    c.s(R_FTC, j), c.s(R_FTR, j), fdm, wm);
-    Coef<S> cf;
-    coeffs(cf, c.s(R_W0, j), c.s(R_DTAU, j), wm);
-    return cf;
-  }
-};
-
-template <int S>
-__device__ float p_single(const Params& p, float cosb_og, float ftc, float ftr,
-                          float ct, const float ws[S], const float P0[4],
-                          const float P1[4]) {
-  if (p.single_form != 0) {  // legendre form
-    float ps = 0.0f;
-#pragma unroll
-    for (int l = 0; l < S; ++l) ps = ps + ws[l] * P0[l] * P1[l];
-    return ps;
-  }
+// the single-scattering phase function at ct in the Henyey-Greenstein
+// forms (single_form 0); with ct = cos_theta[0] no angle changes it
+__device__ float p_single_hg(const Params& p, float cosb_og, float ftc,
+                             float ftr, float ct) {
   float ps = 0.0f;
   if (p.psingle_form == 1) {  // OTHG
     ps = (1.0f - cosb_og * cosb_og)
@@ -619,6 +628,96 @@ __device__ float p_single(const Params& p, float cosb_og, float ftc, float ftr,
     ps = ftc * ps + ftr * (0.75f * (1.0f + ct * ct));
   return ps;
 }
+
+// a layer's values of stage B in slot order from kReflVals: f(slot, value)
+// for a, lam and ex, x and y, then beta, gama, R, Q, Sg (SH4) or q (SH2),
+// wm, bf
+template <int S, class F>
+__device__ void refl_values(ReflVals<S>& v, const F& f) {
+  constexpr int H = S / 2;
+  int slot = kReflVals<S>;
+#pragma unroll
+  for (int l = 0; l < S; ++l) f(slot++, v.a[l]);
+#pragma unroll
+  for (int m = 0; m < H; ++m) {
+    f(slot++, v.lam[m]);
+    f(slot++, v.ex[m]);
+  }
+#pragma unroll
+  for (int r = 0; r < H; ++r) {
+#pragma unroll
+    for (int m = 0; m < H; ++m) {
+      f(slot++, v.x[r][m]);
+      f(slot++, v.y[r][m]);
+    }
+  }
+  if constexpr (S == 4) {
+    f(slot++, v.beta);
+    f(slot++, v.gama);
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      f(slot++, v.R[m]);
+      f(slot++, v.Q[m]);
+      f(slot++, v.Sg[m]);
+    }
+  } else {
+    f(slot++, v.q);
+  }
+#pragma unroll
+  for (int l = 0; l < S; ++l) f(slot++, v.wm[l]);
+#pragma unroll
+  for (int l = 0; l < S; ++l) f(slot++, v.bf[l]);
+}
+
+template <int S>
+__device__ ReflVals<S> load_values(const Col& c, int j) {
+  ReflVals<S> v;
+  refl_values<S>(v, [&](int slot, float& x) { x = c.s(slot, j); });
+  return v;
+}
+
+// layer j of stage A, called for j = 0, 1, ... in turn (eliminate's
+// window): writes its optics rows (tau and tau_og sum the layers above
+// it), its values of stage B and its single-scattering term (single_form
+// 0: p_single_hg at cos_theta; the legendre form: the weights w_single),
+// and returns its coefficients
+template <int S>
+struct ReflLayer {
+  const Col& c;
+  mutable float tau = 0.0f, tau_og = 0.0f;
+  __device__ Coef<S> operator()(int j) const {
+    const Params& p = c.p;
+    const Optics o = optics(c, j, S);
+    c.s(R_DTAU, j) = o.dtau;
+    c.s(R_TAU, j) = tau;
+    c.s(R_W0, j) = o.w0;
+    c.s(R_W0_OG, j) = o.w0_og;
+    c.s(R_DTAU_OG, j) = o.dtau_og;
+    c.s(R_TAU_OG, j) = tau_og;
+    tau = tau + o.dtau;
+    tau_og = tau_og + o.dtau_og;
+    const float fdm = p.dedd ? ipow(o.cosb_og, S) : 0.0f;
+    ReflVals<S> v;
+    w_expansions<S>(p, p.w_multi_form, p.w_multi_rayleigh, o.cosb_og, o.ftc,
+                    o.ftr, fdm, v.wm);
+    coeffs(v, o.w0, o.dtau, v.wm);
+    float ws[S];
+    w_expansions<S>(p, p.w_single_form, p.w_single_rayleigh, o.cosb_og,
+                    o.ftc, o.ftr, fdm, ws);
+    const float f0pi = p.f0pi[c.w];
+#pragma unroll
+    for (int l = 0; l < S; ++l) v.bf[l] = f0pi * (o.w0 * ws[l]);
+    refl_values<S>(v, [&](int slot, float& x) { c.s(slot, j) = x; });
+    if (p.single_form == 0) {
+      c.s(kSingle<S>, j) =
+          p_single_hg(p, o.cosb_og, o.ftc, o.ftr, p.cos_theta[0]);
+    } else {
+#pragma unroll
+      for (int l = 0; l < S; ++l) c.s(kSingle<S> + l, j) = ws[l];
+    }
+    return v;
+  }
+};
 
 // the replay record of block row k: slot kRec holds the swap flags as the
 // bits of an int, then the inverses, then the multipliers
@@ -665,17 +764,11 @@ __device__ GJ<S> load_record(const Col& c, int k) {
 }
 
 // the beam source of layer j for one angle at the layer's top (zd) and
-// bottom (zu); cf = ReflLayer(j)
+// bottom (zu); v = the layer's stored values
 template <int S>
-__device__ void beam_rows(const Col& c, const Coef<S>& cf, int j, float u0,
-                          float f0pi, float zd[S], float zu[S]) {
-  const Params& p = c.p;
-  const float cosb_og = c.s(R_COSB_OG, j);
-  const float fdm = p.dedd ? ipow(cosb_og, S) : 0.0f;
-  float ws[S];
-  w_expansions<S>(p, p.w_single_form, p.w_single_rayleigh, cosb_og,
-                  c.s(R_FTC, j), c.s(R_FTR, j), fdm, ws);
-  const Beam<S> bm = beam(cf, u0, c.s(R_W0, j), ws, f0pi);
+__device__ void beam_rows(const Col& c, const ReflVals<S>& v, int j, float u0,
+                          float zd[S], float zu[S]) {
+  const Beam<S> bm = beam(v, u0);
   const float ex_dn = expf(-clip35(c.s(R_TAU, j) / bm.u0b));
   const float ex_up = expf(-clip35(c.s(R_TAU, j + 1) / bm.u0b));
 #pragma unroll
@@ -685,40 +778,27 @@ __device__ void beam_rows(const Col& c, const Coef<S>& cf, int j, float u0,
   }
 }
 
-// stage A: optics rows top down, then Cp[k] and the replay record of
-// every block row
+// stage A: one top-down loop over the layers (ReflLayer in eliminate's
+// window), Cp[k] and the replay record of every block row
 template <int S>
 __global__ void __launch_bounds__(kThreads)
     sh_reflected_columns(const Params p) {
   const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (w >= p.nwno) return;
   const Col c{p, w};
-  const int L = p.nlayer;
-  float tau = 0.0f, tau_og = 0.0f;
-  for (int j = 0; j < L; ++j) {
-    const Optics o = optics(c, j, S);
-    c.s(R_DTAU, j) = o.dtau;
-    c.s(R_TAU, j) = tau;
-    c.s(R_W0, j) = o.w0;
-    c.s(R_W0_OG, j) = o.w0_og;
-    c.s(R_DTAU_OG, j) = o.dtau_og;
-    c.s(R_TAU_OG, j) = tau_og;
-    c.s(R_COSB_OG, j) = o.cosb_og;
-    c.s(R_FTC, j) = o.ftc;
-    c.s(R_FTR, j) = o.ftr;
-    tau = tau + o.dtau;
-    tau_og = tau_og + o.dtau_og;
-  }
-  c.s(R_TAU, L) = tau;
-  c.s(R_TAU_OG, L) = tau_og;
-  eliminate<S>(c, ReflLayer<S>{c}, kCp, p.sr[w],
+  const ReflLayer<S> layer{c};
+  eliminate<S>(c, layer, kCp, p.sr[w],
                [&](int k, const Coef<S>&, const Coef<S>&, const Coef<S>&,
                    const GJ<S>& g) { store_record<S>(c, k, g); });
+  c.s(R_TAU, p.nlayer) = layer.tau;
+  c.s(R_TAU_OG, p.nlayer) = layer.tau_og;
 }
 
 // Registers of stage B: at most 65536 / (256 * min blocks) a thread (SH4
-// 80 registers instead of the 86 it takes unbounded, so 25 warps fit an
-// SM instead of 23; SH2 54, unbounded as well)
+// 72, so 3 blocks of 8 warps fit an SM; (256, 4) holds it to 64 and
+// spills 24 B, and carrying fewer values from layer to layer to fit 64
+// without a spill made SH4 at 5 angles and SH2 slower; SH2 56, under its
+// bound)
 template <int S> constexpr int kAnglesMinBlocks = S == 4 ? 3 : 4;
 
 // stage B: one thread per (column, angle).  Block b holds column tile
@@ -736,11 +816,10 @@ __global__ void __launch_bounds__(kTileCols * kMaxAngles, kAnglesMinBlocks<S>)
   const Col c{p, w};
   const int L = p.nlayer;
   const int dp0 = kDp<S> + S * a;  // this angle's Dp rows
-  const float sr = p.sr[w], f0pi = p.f0pi[w], ct = p.cos_theta[0];
+  const float sr = p.sr[w], f0pi = p.f0pi[w];
   const float u0 = p.u0[a], u1 = p.u1[a];
   const float bt = p.b_top;
   const float btv[2] = {bt, -bt / 4.0f};
-  const ReflLayer<S> layer{c};
 
   // Top down: D[k] (pallas_sh.py:_stage_system) from z_up of layer k-1,
   // z_down/z_up of layer k and z_down of layer k+1; the Schur update of
@@ -749,14 +828,14 @@ __global__ void __launch_bounds__(kTileCols * kMaxAngles, kAnglesMinBlocks<S>)
   // rows of F of layer k and the Schur products F(k-1)[i][kk] Dp[k-1][kk].
   float zu[S], dtop[H], fn[H][S], schur[H][S], d[S];
   {
-    const Coef<S> cf = layer(0);
+    const ReflVals<S> v = load_values<S>(c, 0);
     float zd[S];
-    beam_rows<S>(c, cf, 0, u0, f0pi, zd, zu);
+    beam_rows<S>(c, v, 0, u0, zd, zu);
 #pragma unroll
     for (int i = 0; i < H; ++i) {
       dtop[i] = btv[i] - zd[i];
 #pragma unroll
-      for (int j = 0; j < S; ++j) fn[i][j] = cf.F(i, j);
+      for (int j = 0; j < S; ++j) fn[i][j] = v.F(i, j);
     }
   }
   for (int k = 0; k < L; ++k) {
@@ -769,14 +848,14 @@ __global__ void __launch_bounds__(kTileCols * kMaxAngles, kAnglesMinBlocks<S>)
       for (int j = 0; j < S; ++j) f[i][j] = fn[i][j];
     }
     if (k < L - 1) {
-      const Coef<S> cf = layer(k + 1);
+      const ReflVals<S> v = load_values<S>(c, k + 1);
       float zd[S], zu_next[S];
-      beam_rows<S>(c, cf, k + 1, u0, f0pi, zd, zu_next);
+      beam_rows<S>(c, v, k + 1, u0, zd, zu_next);
 #pragma unroll
       for (int i = 0; i < H; ++i) {
         dtop[i] = zd[i] - zu[i];
 #pragma unroll
-        for (int j = 0; j < S; ++j) fn[i][j] = cf.F(i, j);
+        for (int j = 0; j < S; ++j) fn[i][j] = v.F(i, j);
       }
 #pragma unroll
       for (int i = H; i < S; ++i) d[i] = zd[i] - zu[i];
@@ -828,17 +907,10 @@ __global__ void __launch_bounds__(kTileCols * kMaxAngles, kAnglesMinBlocks<S>)
       for (int i = 0; i < S; ++i) X[i] = Xn[i];
     }
     const float dtau = c.s(R_DTAU, k), tau_k = c.s(R_TAU, k);
-    const float w0 = c.s(R_W0, k), cosb_og = c.s(R_COSB_OG, k);
-    const float ftc = c.s(R_FTC, k), ftr = c.s(R_FTR, k);
-    const float fdm = p.dedd ? ipow(cosb_og, S) : 0.0f;
-    float ws[S], wm[S];
-    w_expansions<S>(p, p.w_single_form, p.w_single_rayleigh, cosb_og, ftc,
-                    ftr, fdm, ws);
-    w_expansions<S>(p, p.w_multi_form, p.w_multi_rayleigh, cosb_og, ftc,
-                    ftr, fdm, wm);
-    Coef<S> cf;
-    coeffs(cf, w0, dtau, wm);
-    const Beam<S> bm = beam(cf, u0, w0, ws, f0pi);
+    const float w0 = c.s(R_W0, k);
+    const ReflVals<S> cf = load_values<S>(c, k);
+    const float* wm = cf.wm;
+    const Beam<S> bm = beam(cf, u0);
     if (k == L - 1) {
       float flux_bot = cf.F(H, 0) * X[0];
 #pragma unroll
@@ -865,7 +937,15 @@ __global__ void __launch_bounds__(kTileCols * kMaxAngles, kAnglesMinBlocks<S>)
            + X[1] * (wm[0] + wm[1] * u1 * q) * bet
            + wm[0] * (bm.eta[0] * expon1) + wm[1] * u1 * (bm.eta[1] * expon1);
     }
-    const float ps = p_single<S>(p, cosb_og, ftc, ftr, ct, ws, P0, P1);
+    float ps;
+    if (p.single_form != 0) {  // legendre form, from the stored weights
+      ps = 0.0f;
+#pragma unroll
+      for (int l = 0; l < S; ++l)
+        ps = ps + c.s(kSingle<S> + l, k) * P0[l] * P1[l];
+    } else {
+      ps = c.s(kSingle<S>, k);
+    }
     const float em_mus1 = -expm1_(-clip35(mus * c.s(R_DTAU_OG, k)));
     const float intgrl =
         w0 * ms
@@ -1113,9 +1193,57 @@ Params thermal_params(const void* all_b, const void* taugas,
   p.scr = (float*)scratch;
   p.nlayer = nlayer;
   p.nwno = nwno;
+  p.ld = scratch_row(nwno);
   p.nang = nang;
   p.dedd = delta_eddington;
   p.hard_surface = hard_surface;
+  return p;
+}
+
+Params reflected_params(
+    const void* taugas, const void* tauray, const void* cld_opd,
+    const void* cld_w0, const void* cld_g0, const void* rf,
+    const void* surf_reflect, const void* F0PI, const void* ubar0,
+    const void* ubar1, const void* cos_theta, void* out, void* scratch,
+    int nlayer, int nwno, int nang, int delta_eddington, int w_single_form,
+    int w_multi_form, int psingle_form, int w_single_rayleigh,
+    int w_multi_rayleigh, int psingle_rayleigh, int single_form,
+    float frac_a, float frac_b, float frac_c, float constant_back,
+    float constant_forward, float b_top, float cf_pow, float cb_pow) {
+  Params p = {};
+  p.taugas = (const float*)taugas;
+  p.tauray = (const float*)tauray;
+  p.cld_opd = (const float*)cld_opd;
+  p.cld_w0 = (const float*)cld_w0;
+  p.cld_g0 = (const float*)cld_g0;
+  p.rf = (const float*)rf;
+  p.sr = (const float*)surf_reflect;
+  p.f0pi = (const float*)F0PI;
+  p.u0 = (const float*)ubar0;
+  p.u1 = (const float*)ubar1;
+  p.cos_theta = (const float*)cos_theta;
+  p.out = (float*)out;
+  p.scr = (float*)scratch;
+  p.nlayer = nlayer;
+  p.nwno = nwno;
+  p.ld = scratch_row(nwno);
+  p.nang = nang;
+  p.dedd = delta_eddington;
+  p.w_single_form = w_single_form;
+  p.w_multi_form = w_multi_form;
+  p.psingle_form = psingle_form;
+  p.w_single_rayleigh = w_single_rayleigh;
+  p.w_multi_rayleigh = w_multi_rayleigh;
+  p.psingle_rayleigh = psingle_rayleigh;
+  p.single_form = single_form;
+  p.frac_a = frac_a;
+  p.frac_b = frac_b;
+  p.frac_c = frac_c;
+  p.constant_back = constant_back;
+  p.constant_forward = constant_forward;
+  p.b_top = b_top;
+  p.cf_pow = cf_pow;
+  p.cb_pow = cb_pow;
   return p;
 }
 
@@ -1152,16 +1280,17 @@ int launch_thermal(const Params& p, int stage, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 #else
-// the thermal stages on the host: stage A's threads, then stage B's
-template <int S>
-int run_thermal_host(const Params& p) {
+// one kernel's two stages on the host: stage A's threads (columns), then
+// stage B's (angles)
+template <class Columns, class Angles>
+int run_host(const Params& p, Columns columns, Angles angles) {
   blockDim = {kThreads, 1, 1};
   threadIdx.y = 0;
   for (int b = 0; b < blocks(p.nwno); ++b) {
     blockIdx.x = b;
     for (int t = 0; t < kThreads; ++t) {
       threadIdx.x = t;
-      sh_thermal_columns<S>(p);
+      columns(p);
     }
   }
   if (p.nang < 1) return 0;
@@ -1173,7 +1302,7 @@ int run_thermal_host(const Params& p) {
       threadIdx.y = y;
       for (int x = 0; x < kTileCols; ++x) {
         threadIdx.x = x;
-        sh_thermal_angles<S>(p, g.chunks);
+        angles(p, g.chunks);
       }
     }
   }
@@ -1183,7 +1312,10 @@ int run_thermal_host(const Params& p) {
 
 }  // namespace
 
-// scratch slots ([nlayer + 1, nwno] each) of the SH kernels
+// scratch slots ([nlayer + 1, sh_scratch_row(nwno)] each) of the SH
+// kernels
+extern "C" int sh_scratch_row(int nwno) { return scratch_row(nwno); }
+
 extern "C" int sh_reflected_scratch_slots(int stream, int nang) {
   if (stream == 4) return kDp<4> + 4 * nang;
   if (stream == 2) return kDp<2> + 2 * nang;
@@ -1211,39 +1343,12 @@ extern "C" int sh_reflected_launch(
     float frac_a, float frac_b, float frac_c, float constant_back,
     float constant_forward, float b_top, float cf_pow, float cb_pow,
     int stage, void* cuda_stream) {
-  Params p = {};
-  p.taugas = (const float*)taugas;
-  p.tauray = (const float*)tauray;
-  p.cld_opd = (const float*)cld_opd;
-  p.cld_w0 = (const float*)cld_w0;
-  p.cld_g0 = (const float*)cld_g0;
-  p.rf = (const float*)rf;
-  p.sr = (const float*)surf_reflect;
-  p.f0pi = (const float*)F0PI;
-  p.u0 = (const float*)ubar0;
-  p.u1 = (const float*)ubar1;
-  p.cos_theta = (const float*)cos_theta;
-  p.out = (float*)out;
-  p.scr = (float*)scratch;
-  p.nlayer = nlayer;
-  p.nwno = nwno;
-  p.nang = nang;
-  p.dedd = delta_eddington;
-  p.w_single_form = w_single_form;
-  p.w_multi_form = w_multi_form;
-  p.psingle_form = psingle_form;
-  p.w_single_rayleigh = w_single_rayleigh;
-  p.w_multi_rayleigh = w_multi_rayleigh;
-  p.psingle_rayleigh = psingle_rayleigh;
-  p.single_form = single_form;
-  p.frac_a = frac_a;
-  p.frac_b = frac_b;
-  p.frac_c = frac_c;
-  p.constant_back = constant_back;
-  p.constant_forward = constant_forward;
-  p.b_top = b_top;
-  p.cf_pow = cf_pow;
-  p.cb_pow = cb_pow;
+  const Params p = reflected_params(
+      taugas, tauray, cld_opd, cld_w0, cld_g0, rf, surf_reflect, F0PI, ubar0,
+      ubar1, cos_theta, out, scratch, nlayer, nwno, nang, delta_eddington,
+      w_single_form, w_multi_form, psingle_form, w_single_rayleigh,
+      w_multi_rayleigh, psingle_rayleigh, single_form, frac_a, frac_b, frac_c,
+      constant_back, constant_forward, b_top, cf_pow, cb_pow);
   const cudaStream_t s = (cudaStream_t)cuda_stream;
   if (stream == 4) return launch_reflected<4>(p, stage, s);
   if (stream == 2) return launch_reflected<2>(p, stage, s);
@@ -1269,6 +1374,31 @@ extern "C" int sh_thermal_launch(
   return (int)cudaErrorInvalidValue;
 }
 #else
+// sh_reflected_launch's arguments without stage and stream, on host
+// memory: both stages run to completion; 0, or -1 for another stream count
+extern "C" int sh_reflected_host(
+    int stream, const void* taugas, const void* tauray, const void* cld_opd,
+    const void* cld_w0, const void* cld_g0, const void* rf,
+    const void* surf_reflect, const void* F0PI, const void* ubar0,
+    const void* ubar1, const void* cos_theta, void* out, void* scratch,
+    int nlayer, int nwno, int nang, int delta_eddington, int w_single_form,
+    int w_multi_form, int psingle_form, int w_single_rayleigh,
+    int w_multi_rayleigh, int psingle_rayleigh, int single_form,
+    float frac_a, float frac_b, float frac_c, float constant_back,
+    float constant_forward, float b_top, float cf_pow, float cb_pow) {
+  const Params p = reflected_params(
+      taugas, tauray, cld_opd, cld_w0, cld_g0, rf, surf_reflect, F0PI, ubar0,
+      ubar1, cos_theta, out, scratch, nlayer, nwno, nang, delta_eddington,
+      w_single_form, w_multi_form, psingle_form, w_single_rayleigh,
+      w_multi_rayleigh, psingle_rayleigh, single_form, frac_a, frac_b, frac_c,
+      constant_back, constant_forward, b_top, cf_pow, cb_pow);
+  if (stream == 4)
+    return run_host(p, sh_reflected_columns<4>, sh_reflected_angles<4>);
+  if (stream == 2)
+    return run_host(p, sh_reflected_columns<2>, sh_reflected_angles<2>);
+  return -1;
+}
+
 // sh_thermal_launch's arguments without stage and stream, on host memory:
 // both stages run to completion; 0, or -1 for another stream count
 extern "C" int sh_thermal_host(
@@ -1280,8 +1410,10 @@ extern "C" int sh_thermal_host(
   const Params p = thermal_params(
       all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, rf, surf_reflect, ubar1,
       ptfac, out, scratch, nlayer, nwno, nang, delta_eddington, hard_surface);
-  if (stream == 4) return run_thermal_host<4>(p);
-  if (stream == 2) return run_thermal_host<2>(p);
+  if (stream == 4)
+    return run_host(p, sh_thermal_columns<4>, sh_thermal_angles<4>);
+  if (stream == 2)
+    return run_host(p, sh_thermal_columns<2>, sh_thermal_angles<2>);
   return -1;
 }
 #endif

@@ -18,11 +18,13 @@ timing and digest helpers of ``probes/toon_ab.py``).  Per run it prints
 one JSON line (and appends it to ``chiprun_out/sh_ab.jsonl``): the card's
 name and power limit; the time of reflected_sh4/sh2 and thermal_sh4/sh2 by
 CUDA events, and of reflected_sh4 and thermal_sh4 at a phase curve's 6 x 6
-disk of 36 angles; a SHA-256 of each kernel's output (both angle counts),
-equal between two checkouts exactly when their outputs are bitwise equal;
-each kernel's max abs difference from its plain twin (5 angles); the time
-of each stage of a wrapper that takes ``split_event`` (the two-stage
-kernels); and the wall time and peak device memory of the SH4 and SH2 forwards.  A peak is
+disk of 36 angles, and of reflected_sh4/sh2 at 1, 8, 9 and (SH2) 36
+angles (stage B's chunk edges); a SHA-256 of each kernel's output at
+every angle count, equal between two checkouts exactly when their
+outputs are bitwise equal; each kernel's max abs difference from its
+plain twin (5 angles); the time of each stage of a wrapper that takes
+``split_event`` (the two-stage kernels); and the wall time and peak
+device memory of the SH4 and SH2 forwards.  A peak is
 ``max_memory_allocated`` over one forward after ``gc.collect()``,
 ``torch.cuda.empty_cache()`` and a reset, beside the bytes alive before
 the call.
@@ -114,6 +116,19 @@ def main(argv=None):
     calls['reflected_sh4 36 angles'] = (cuda_sh.reflected_sh4, r36_args,
                                         r36_kw)
     calls['thermal_sh4 36 angles'] = (cuda_sh.thermal_sh4, t36_args, t36_kw)
+    # the reflected kernels at stage B's chunk edges: one angle (the
+    # default disk's third), one full chunk of 8, two chunks of 5 (9),
+    # five of 8 (36, SH2)
+    scenes = {1: scene._replace(ubar0=scene.ubar0[2:3].contiguous(),
+                                ubar1=scene.ubar1[2:3].contiguous())}
+    for ng, nt in ((4, 2), (3, 3), (6, 6)):
+        scenes[ng * nt] = pipeline.with_geometry(scene, disco.make_geometry(
+            math.radians(45.0), num_gangle=ng, num_tangle=nt))
+    for s, nang in ((4, 1), (4, 8), (4, 9), (2, 1), (2, 8), (2, 9), (2, 36)):
+        (rn_args, rn_kw), _ = pipeline.sh_args(scenes[nang], grid,
+                                               configs[s], tg, tr, rf)
+        calls[f'reflected_sh{s} {nang} angles'] = (
+            getattr(cuda_sh, f'reflected_sh{s}'), rn_args, rn_kw)
     result = {'tree': args.tree, 'card': smi[0], 'kernel_ms': {},
               'stages_ms': {}, 'sha256': {}, 'max_abs_err': {}}
     for name, (fn, a, kw) in calls.items():
@@ -124,7 +139,7 @@ def main(argv=None):
                                               **kw), 10)
         out = fn(*a, **kw)
         result['sha256'][name] = _digest(out)
-        if '36' not in name:
+        if 'angles' not in name:
             ref = getattr(cuda_sh, f'{fn.__name__}_plain')(*a, **kw)
             result['max_abs_err'][name] = (out - ref).abs().max().item()
             del ref

@@ -603,8 +603,8 @@ def _launch_reflected(name, stream, taugas, tauray, cld_opd, cld_w0, cld_g0,
     lib = library()
     out = torch.empty((nang, nwno), dtype=torch.float32, device=dev)
     scratch = torch.empty((lib.sh_reflected_scratch_slots(stream, nang),
-                           nlayer + 1, nwno), dtype=torch.float32,
-                          device=dev)
+                           nlayer + 1, lib.sh_scratch_row(nwno)),
+                          dtype=torch.float32, device=dev)
     c = controls
     args = (
         stream, taugas.data_ptr(), tauray.data_ptr(), cld_opd.data_ptr(),
@@ -641,8 +641,8 @@ def _launch_thermal(name, stream, all_b, taugas, tauray, cld_opd, cld_w0,
     lib = library()
     out = torch.empty((nang, nwno), dtype=torch.float32, device=dev)
     scratch = torch.empty((lib.sh_thermal_scratch_slots(stream),
-                           nlayer + 1, nwno), dtype=torch.float32,
-                          device=dev)
+                           nlayer + 1, lib.sh_scratch_row(nwno)),
+                          dtype=torch.float32, device=dev)
     args = (stream, all_b.data_ptr(), taugas.data_ptr(), tauray.data_ptr(),
             cld_opd.data_ptr(), cld_w0.data_ptr(), cld_g0.data_ptr(),
             rf.data_ptr(), surf_reflect.data_ptr(),
@@ -678,11 +678,13 @@ def reflected_sh4(taugas, tauray, cld_opd, cld_w0, cld_g0, rf, surf_reflect,
     Left out of the TPU kernel, with the reason: the wavelength blocks and
     their VMEM staging (a thread owns a column in stage A, a column and an
     angle in stage B; per-layer values in global scratch [slot, row,
-    nwno]); the staged A/B/C blocks (stage A rebuilds each block row from
-    the layer's coefficients); the angle-stacked right-hand sides (stage B
-    replays each block row's recorded Gauss-Jordan step on one angle's);
-    the triangular-matmul cumsum (a running sum); the SMEM angle operands
-    (small device arrays read by every thread).
+    column], rows padded to 128 bytes); the staged A/B/C blocks (stage A
+    builds each block row from the layer's coefficients, computed once
+    and stored with the beam's angle-free factors for stage B); the
+    angle-stacked right-hand sides (stage B replays each block row's
+    recorded Gauss-Jordan step on one angle's); the triangular-matmul
+    cumsum (a running sum); the SMEM angle operands (small device arrays
+    read by every thread).
     """
     args = (taugas, tauray, cld_opd, cld_w0, cld_g0, rf, surf_reflect,
             ubar0, ubar1, cos_theta, F0PI)
@@ -711,13 +713,13 @@ def thermal_sh4(all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, rf, ptfac,
     Left out of the TPU kernel, with the reason: the wavelength blocks and
     their VMEM staging (a thread owns a column in stage A, a column and an
     angle in stage B; per-layer values in global scratch [slot, row,
-    nwno]); the staged A/B/C/D blocks (stage A builds each block row and
-    its source rows in registers from the coefficients of three layers,
-    each computed once); the per-angle sources of all layers at once (stage
-    B sweeps its angle layer by layer over the layer values stage A
-    stored); the triangular-matmul cumsum (not
-    needed: the thermal solve reads no cumulative depth); the SMEM angle
-    operands (small device arrays read by every thread).
+    column], rows padded to 128 bytes); the staged A/B/C/D blocks (stage
+    A builds each block row and its source rows in registers from the
+    coefficients of three layers, each computed once); the per-angle
+    sources of all layers at once (stage B sweeps its angle layer by
+    layer over the layer values stage A stored); the triangular-matmul
+    cumsum (not needed: the thermal solve reads no cumulative depth); the
+    SMEM angle operands (small device arrays read by every thread).
     """
     args = (all_b, taugas, tauray, cld_opd, cld_w0, cld_g0, rf, ptfac,
             surf_reflect, ubar1)

@@ -48,6 +48,8 @@ def lib(tmp_path_factory):
     lib.sh_thermal_host.restype = _I
     lib.sh_thermal_scratch_slots.argtypes = [_I]
     lib.sh_thermal_scratch_slots.restype = _I
+    lib.sh_scratch_row.argtypes = [_I]
+    lib.sh_scratch_row.restype = _I
     return lib
 
 
@@ -83,7 +85,7 @@ def _run_host(lib, stream, args, **kw):
     nlayer, nwno = args[1].shape
     out = torch.full((args[-1].numel(), nwno), float('nan'))
     scratch = torch.full((lib.sh_thermal_scratch_slots(stream), nlayer + 1,
-                          nwno), float('nan'))
+                          lib.sh_scratch_row(nwno)), float('nan'))
     assert _call_host(lib, stream, args, out, scratch, **kw) == 0
     return out
 
@@ -131,6 +133,7 @@ def test_host_thermal_refuses_other_streams(lib):
     assert lib.sh_thermal_scratch_slots(4) > lib.sh_thermal_scratch_slots(2)
     args = _inputs(nwno=40, nang=1)
     out = torch.zeros(1, 40)
-    scratch = torch.zeros(lib.sh_thermal_scratch_slots(4), 13, 40)
+    scratch = torch.zeros(lib.sh_thermal_scratch_slots(4), 13,
+                          lib.sh_scratch_row(40))
     assert _call_host(lib, 3, args, out, scratch) != 0
     assert torch.equal(out, torch.zeros(1, 40))
