@@ -41,7 +41,10 @@ class Window:
 class Context:
     """What a metric's reader reads: the cell's definitions, the window,
     the set-up time, the trace and the raw inputs of the traced
-    spectra."""
+    spectra: ``traced_items``, the scenes the program ran for them
+    (``(pool atmosphere, geometry index)``, flattened; the index into
+    ``geom_args``); ``program_table``, the table the program gathers
+    from."""
 
     def __init__(self, **kw):
         self.__dict__.update(kw)
@@ -69,13 +72,26 @@ def _log(msg):
 MIN_REQUESTS = 2
 
 
+def program_table_of(cfg, traffic, int16=False):
+    """The table the program gathers from: the traffic's
+    ``program_table`` (only ``int16``, the program's quantised table, is
+    named), else the configuration's ``table_dtype``; ``int16`` forces
+    the quantised one."""
+    named = traffic.get('program_table')
+    if named not in (None, 'int16'):
+        raise ValueError(f'program_table {named!r}: only "int16" is known')
+    return 'int16' if int16 or named else cfg['table_dtype']
+
+
 def run_cell(spec, name, seed, seconds, traced, device, t_start,
              controls=(), int16=False, readings=False,
              every=False) -> Dict[str, Any]:
     """Run cell ``name`` once; the result line's object.  For
     ``readings.py``: ``controls``, precisions of the reference (``'f32'``,
     ``'bf16'``, ``'f16'``, ``'tf32'``) whose gaps on the same sample go under
-    ``control_checks``; ``int16``, the program on its int16 table;
+    ``control_checks``; ``int16``, the program on its int16 table (what
+    a traffic's ``program_table`` ``int16`` asks for; on such a cell it
+    changes nothing);
     ``readings``, every number's reading under ``readings`` and the
     sample's spectra under ``where``; ``every``, a sample of every
     spectrum of each request's last run in place of the seeded one."""
@@ -83,9 +99,9 @@ def run_cell(spec, name, seed, seconds, traced, device, t_start,
     cfg = spec.config(cell['config'])
     traffic = spec.traffic(cell['traffic'])
     limits = spec.limits(name)
-    req = traffic['request']
-    outputs = tuple(req['outputs'])
+    outputs = tuple(traffic['request']['outputs'])
     dev = torch.device(device)
+    program_table = program_table_of(cfg, traffic, int16)
 
     _log(f'{name} seed {seed}: set-up from {time.perf_counter() - t_start:.2f} s')
     table = inputs.table(spec.dir, cfg, seed, dev)
@@ -94,36 +110,17 @@ def run_cell(spec, name, seed, seconds, traced, device, t_start,
          f'{time.perf_counter() - t_start:.2f} s')
     planet = inputs.planet(cfg)
     pool = inputs.pool(cfg, traffic, seed)
-    port = Port(table, planet, cfg, outputs, dev, int16=int16)
-    geom_args = [(float(ph), *req['disk']) for ph in req['phases_deg']]
-    geoms = [port.geometry(*g) for g in geom_args]
-    nlayer = cfg['levels'] - 1
-    g0, w0 = port.cloud_constants(nlayer, traffic['cloud']['g0'],
-                                  traffic['cloud']['w0'])
-    scenes = [port.scene(a, geoms[0], g0, w0) for a in pool]
-    per = req['atmospheres']
-    groups = [list(range(i, i + per)) for i in range(0, len(pool), per)]
-    # the spectra of a request, in its batch order: (atmosphere, phase)
-    items = [[(a, p) for a in grp for p in range(len(geoms))]
-             for grp in groups]
-
-    def stacked(gi):
-        if len(geoms) == 1:
-            return port.stack([scenes[a] for a in groups[gi]])
-        return port.stack([port.with_geometry(scenes[a], geoms[p])
-                           for a, p in items[gi]])
-    stacks = None
-    if req['stack'] == 'setup':
-        stacks = [stacked(gi) for gi in range(len(groups))]
-        scenes = None
-        gc.collect()
+    port = Port(table, planet, cfg, outputs, dev,
+                int16=program_table == 'int16')
+    kind = spec.requests(traffic)(cfg, traffic, pool)
+    kind.setup(port)
 
     _log(f'{len(pool)} scenes at {time.perf_counter() - t_start:.2f} s')
     rng = np.random.default_rng([seed, 2])
 
     def order():
         while True:
-            yield from rng.permutation(len(groups)).tolist()
+            yield from rng.permutation(len(kind.spectra)).tolist()
     next_group = order()
     win = Window()
     sampler = check.Sampler(traffic['check']['requests'], seed)
@@ -134,10 +131,10 @@ def run_cell(spec, name, seed, seconds, traced, device, t_start,
         try:
             with _span(trace.REQUEST, spans):
                 with _span('bench.stack_scenes', spans):
-                    st = stacks[gi] if stacks is not None else stacked(gi)
+                    st = kind.batch(gi)
                 with _span('bench.forward_batch', spans):
                     tf = time.perf_counter()
-                    out = port.forward_batch(st)
+                    out = kind.forward(st)
                     tf = time.perf_counter() - tf
                 with _span('bench.to_host', spans):
                     host = {k: v.cpu() for k, v in out.items()}
@@ -150,8 +147,8 @@ def run_cell(spec, name, seed, seconds, traced, device, t_start,
         t1 = time.perf_counter()
         if timed:
             win.latencies.append(t1 - t0)
-            win.spectra += len(items[gi])
-            win.host_spans.append((tf, len(items[gi]), spans))
+            win.spectra += len(kind.spectra[gi])
+            win.host_spans.append((tf, len(kind.spectra[gi]), spans))
             sampler.offer((gi, host))
             last[gi] = host
         return t1
@@ -190,7 +187,8 @@ def run_cell(spec, name, seed, seconds, traced, device, t_start,
 
     # the program's state goes before the reference runs
     kept = sorted(last.items()) if every else sampler.kept
-    del stacks, scenes, port, g0, w0
+    kind.release()
+    del port
     gc.collect()
     if dev.type == 'cuda':
         torch.cuda.empty_cache()
@@ -198,17 +196,17 @@ def run_cell(spec, name, seed, seconds, traced, device, t_start,
     pick = np.random.default_rng([seed, 4])
     samples = []
     for gi, host in kept:
-        n_spec = len(items[gi])
+        n_spec = len(kind.spectra[gi])
         k = n_spec if every else min(n_spec, traffic['check']['spectra'])
         for j in sorted(pick.choice(n_spec, k, replace=False).tolist()):
-            a, p = items[gi][j]
-            samples.append((pool[a], geom_args[p],
+            samples.append((kind.spectra[gi][j],
                             {k: host[k][j].numpy() for k in outputs},
-                            (a, p)))
+                            (gi, j)))
     opts = check.options(cfg)
     t_ref = time.perf_counter()
-    wants = check.reference(samples, table, planet, opts, outputs, dev)
-    gots = [got for _, _, got, _ in samples]
+    wants = check.reference(kind, samples, table, planet, opts, outputs,
+                            dev)
+    gots = [got for _, got, _ in samples]
     gaps = check.compare(gots, wants, outputs)
     _sync(dev)
     _log(f'reference on {len(samples)} spectra: '
@@ -217,8 +215,8 @@ def run_cell(spec, name, seed, seconds, traced, device, t_start,
     checks = {k: {'value': gaps[k], 'limit': v} for k, v in limits.items()}
     control_checks, lows = {}, {}
     for precision in controls:
-        lows[precision] = check.reference(samples, table, planet, opts,
-                                          outputs, dev, precision)
+        lows[precision] = check.reference(kind, samples, table, planet,
+                                          opts, outputs, dev, precision)
         control_checks[precision] = check.compare(lows[precision], wants,
                                                   outputs)
     correct = (win.failed == 0 and bool(samples)
@@ -228,12 +226,12 @@ def run_cell(spec, name, seed, seconds, traced, device, t_start,
                   layers=spec.layers(), window=win, setup_s=setup_s,
                   trace=tr, window_peak=window_peak, table=table,
                   planet=planet, pool=pool, opts=opts, outputs=outputs,
-                  geom_args=geom_args,
-                  traced_items=[it for gi in traced_groups
-                                for it in items[gi]], device=dev)
-    kind = 'per_layer' if traced else 'end_to_end'
+                  geom_args=kind.geom_args, program_table=program_table,
+                  traced_items=[sc for gi in traced_groups
+                                for sc in kind.scenes(gi)], device=dev)
+    group = 'per_layer' if traced else 'end_to_end'
     metrics = {}
-    for m in spec.metrics(kind, name):
+    for m in spec.metrics(group, name):
         value = spec.reader(m['name'])(ctx)
         if value is not None:
             metrics[m['name']] = {'value': value, 'unit': m['unit']}
@@ -248,9 +246,10 @@ def run_cell(spec, name, seed, seconds, traced, device, t_start,
     if readings:
         result['control_checks'] = control_checks
         result['readings'] = gaps
-        result['where'] = [dict(atmosphere=ap[0], phase=ap[1], got=got,
-                                want=want, **{c: lows[c][i] for c in lows})
-                           for i, ((_, _, got, ap), want)
+        result['where'] = [dict(request=gj[0], spectrum=gj[1],
+                                scenes=scenes, got=got, want=want,
+                                **{c: lows[c][i] for c in lows})
+                           for i, ((scenes, got, gj), want)
                            in enumerate(zip(samples, wants))]
     result['checks'] = checks
     return result

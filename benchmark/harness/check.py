@@ -1,8 +1,9 @@
 """``correct``: what the window produced against the plain reference.
 
 Each sampled spectrum (drawn from the seed among the finished requests)
-is worked out again by :func:`benchmark.reference.spectrum.spectrum` from
-the raw inputs, in float64, and each output kind gives five numbers, each
+is worked out again by the request kind's reference (for ``disk``,
+:func:`benchmark.reference.spectrum.spectrum` of its one scene) from the
+raw inputs, in float64, and each output kind gives five numbers, each
 the worst over the sample:
 
 * ``<output>_peak_gap``, ``<output>_p999_gap``: the widest gap over the
@@ -72,13 +73,14 @@ class Sampler:
                 self.kept[j] = item
 
 
-def reference(samples, table, planet, opts, outputs, device,
+def reference(kind, samples, table, planet, opts, outputs, device,
               precision='f64'):
     """The reference's spectra ({output: [nwno]}) of ``samples``, a list
-    of (atmosphere, geometry args, ...), in ``precision``."""
-    return [ref.spectrum(table, atm, planet, ref.geometry(*geom_args), opts,
-                         outputs=outputs, device=device, precision=precision)
-            for atm, geom_args, *_ in samples]
+    of (scenes, ...), each spectrum worked out by the request ``kind``
+    (``harness/kind.py``) from its scenes, in ``precision``."""
+    return [kind.reference(scenes, table, planet, opts, outputs, device,
+                           precision)
+            for scenes, *_ in samples]
 
 
 def compare(gots, wants, outputs):

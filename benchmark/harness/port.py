@@ -23,7 +23,8 @@ def _modules():
 class Port:
     """One cell's grid, scenes and config in the port's types; with
     ``int16`` the grid carries the program's int16 table, which its
-    gather then reads (``readings.py``'s control)."""
+    gather (K8) then reads: a traffic's ``program_table`` ``int16``, or
+    ``readings.py``'s control on a float cell."""
 
     def __init__(self, table, planet, cfg, outputs, device, int16=False):
         pipeline, disco, db, toon = _modules()
@@ -55,7 +56,7 @@ class Port:
             molecules=tuple(table.molecules),
             continuum_molecules=tuple(table.continuum))
         if int16:
-            # the program's own 16-bit table path (K8): a control
+            # the program's own 16-bit table path (K8)
             self.grid = self.grid.with_blocked_table(quantize=True)
         rt = cfg['rt']
         self.rt = dict(

@@ -2,7 +2,14 @@
 under the benchmark's folder:
 
 * ``configs/<config>.json``: the deployment (file named in BENCHMARK.json);
-* ``traffic/<mix>.json``: a traffic mix's parameters;
+* ``traffic/<mix>.json``: a traffic mix's parameters; its
+  ``request.kind`` names the request kind (``disk`` where absent), its
+  ``program_table`` the table the program gathers from (``int16``: the
+  program's quantised table; absent: the configuration's
+  ``table_dtype``);
+* ``requests/<kind>.py``: a request kind, its class ``Requests``
+  (``harness/kind.py``): how requests are made of the pool, run and
+  worked out again by the reference;
 * ``limits/<config>.<mix>.json``: the limits ``correct`` is held to;
 * ``layers/<layer>.json``: a layer's kernel-name patterns;
 * ``metrics/<metric>.py``: a per-layer metric's reader, ``read(ctx)``;
@@ -75,11 +82,20 @@ class Spec:
         return [m for m in self.bench[kind]
                 if cell in m.get('workloads', [cell])]
 
-    def reader(self, metric):
-        """The ``read(ctx)`` of ``metrics/<metric>.py``."""
-        path = os.path.join(self.dir, 'metrics', f'{metric}.py')
+    def _module(self, folder, name):
+        path = os.path.join(self.dir, folder, f'{name}.py')
         spec = importlib.util.spec_from_file_location(
-            f'benchmark_metric_{metric.replace(".", "_")}', path)
+            f'benchmark_{folder}_{name.replace(".", "_")}', path)
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
-        return mod.read
+        return mod
+
+    def reader(self, metric):
+        """The ``read(ctx)`` of ``metrics/<metric>.py``."""
+        return self._module('metrics', metric).read
+
+    def requests(self, traffic):
+        """The ``Requests`` class of the traffic's request kind,
+        ``requests/<kind>.py``."""
+        return self._module('requests',
+                            traffic['request'].get('kind', 'disk')).Requests

@@ -2,7 +2,9 @@
 card's memory rate, over the traced device time of the gather kernels.
 The bytes count each distinct table row that a profile's layers bracket
 (the reference's own bracketing) once, for every molecule and
-wavenumber, plus the per-layer inputs and the optical depth written."""
+wavenumber, at the element size of the table the program gathers from
+(4 B float32 for K1; 2 B int16 and its 8 B of qparams for K8), plus the
+per-layer inputs and the optical depth written."""
 
 from benchmark.reference import counts, opacity
 from benchmark.reference.constants import PCONV
@@ -21,5 +23,5 @@ def read(ctx):
         s = ctx.derived(a)
         _, _, idx = opacity.bracket(grid, s.tlayer, s.player / PCONV)
         nbytes += counts.gather_bytes(counts.distinct_rows(idx), nmol, nwno,
-                                      len(s.tlayer))
+                                      len(s.tlayer), ctx.program_table)
     return 100.0 * nbytes / ctx.peaks['bytes_per_s'] / seconds

@@ -5,7 +5,9 @@ sample.  Every number is read, compared or not.  ``--controls`` reads
 the same sample against the reference in lower precisions: ``bf16``,
 ``f16`` and ``tf32``, the controls, and ``f32``, the reference in float32
 as it is (a witness for float32's own rounding).  ``--int16`` runs the
-program on its own int16 table (K8), the other control.  ``--every``
+program on its own int16 table (K8), the other control; on a cell whose
+traffic names ``program_table`` ``int16`` the program runs on that table
+already, and ``--int16`` changes nothing.  ``--every``
 checks every spectrum of each request's last run in place of the
 window's sample.
 
@@ -39,12 +41,13 @@ def widest(got, want):
 
 
 def where(samples, controls):
-    """{output: [per sampled spectrum: atmosphere, phase, the program's
-    and each control's (gap, index)]}."""
+    """{output: [per sampled spectrum: its request, its index there, its
+    scenes, the program's and each control's (gap, index)]}."""
     out = {}
     for s in samples:
         for k, want in s['want'].items():
-            row = {'atmosphere': s['atmosphere'], 'phase': s['phase'],
+            row = {'request': s['request'], 'spectrum': s['spectrum'],
+                   'scenes': s['scenes'],
                    'program': widest(s['got'][k], want)}
             for c in controls:
                 row[c] = widest(s[c][k], want)
@@ -67,10 +70,13 @@ def main(argv):
         print('readings: no CUDA device', file=sys.stderr)
         return 2
     torch.set_num_threads(4)
-    from benchmark.harness.cell import run_cell
+    from benchmark.harness.cell import program_table_of, run_cell
     from benchmark.harness.spec import Spec
     spec = Spec(ROOT)
     controls = tuple(c for c in args.controls.split(',') if c)
+    cell = spec.cell(args.workload)
+    program = program_table_of(spec.config(cell['config']),
+                               spec.traffic(cell['traffic']), args.int16)
     for seed in [int(s) for s in args.seeds.split(',')]:
         t0 = time.perf_counter()
         r = run_cell(spec, args.workload, seed, args.seconds, False, 'cuda',
@@ -78,7 +84,7 @@ def main(argv):
                      readings=True, every=args.every)
         line = json.dumps({
             'workload': args.workload, 'seed': seed,
-            'program': 'int16' if args.int16 else 'float32',
+            'program': program,
             'correct': r['correct'], 'attempted': r['attempted'],
             'readings': r['readings'], 'controls': r['control_checks'],
             'where': where(r['where'], controls),

@@ -129,11 +129,19 @@ def distinct_rows(idx):
     return int(np.unique(np.asarray(idx)).size)
 
 
-def gather_bytes(rows, nmol, nwno, nlayer):
+# (bytes a table element, bytes of the table's parameters) of each table
+# the program can gather from: int16 codes with their float32 scale and
+# offset (``qparams``), or float32 log cross sections
+TABLE_BYTES = {'float32': (F32, 0), 'int16': (2, 2 * F32)}
+
+
+def gather_bytes(rows, nmol, nwno, nlayer, table='float32'):
     """What one gather must move: each distinct table row of every
-    molecule once, the per-layer inputs (corner rows, weights, column
-    weights) and the optical depth it writes."""
-    return (rows * nmol * nwno * F32 + 4 * nlayer * (4 + F32)
+    molecule once, at the element size of the ``table`` it gathers from,
+    with that table's parameters, the per-layer inputs (corner rows,
+    weights, column weights) and the optical depth it writes."""
+    element, params = TABLE_BYTES[table]
+    return (rows * nmol * nwno * element + params + 4 * nlayer * (4 + F32)
             + nmol * nlayer * F32 + nlayer * nwno * F32)
 
 

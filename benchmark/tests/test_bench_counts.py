@@ -36,6 +36,16 @@ def test_rt_ops_exact_at_a_tiny_shape():
     assert counts.rt_ops('sh', 4, True, False, 4, 5, 16) == EXACT_SH4
 
 
+@pytest.mark.parametrize('table,element,params', [
+    ('float32', 4, 0), ('int16', 2, 8)])
+def test_gather_bytes_exact_at_the_table_element(table, element, params):
+    # K1 reads 4 B float32 rows; K8 2 B int16 rows and its 8 B of
+    # qparams (a float32 scale and offset); the rest is the same
+    assert counts.gather_bytes(73, 16, 1000, 90, table) == (
+        73 * 16 * 1000 * element + params + 4 * 90 * 8 + 16 * 90 * 4
+        + 90 * 1000 * 4)
+
+
 def test_bytes_exact_and_linear():
     assert counts.gather_bytes(73, 16, 1000, 90) == (
         73 * 16 * 1000 * 4 + 4 * 90 * 8 + 16 * 90 * 4 + 90 * 1000 * 4)

@@ -155,7 +155,8 @@ def _stale(forward_batch):
 @pytest.mark.parametrize('fault', [_half_batch, _altered, _stale],
                          ids=['half_batch', 'altered', 'stale'])
 @pytest.mark.parametrize('cell', ['picaso_r15k_toon.grid16',
-                                  'picaso_r15k_sh4.curve36x8'])
+                                  'picaso_r15k_sh4.curve36x8',
+                                  'picaso_r15k_toon.int16grid16'])
 def test_faults_make_correct_false(root32, monkeypatch, cell, fault):
     from benchmark.harness import port
     original = port.Port.forward_batch
@@ -169,7 +170,7 @@ def test_faults_make_correct_false(root32, monkeypatch, cell, fault):
 
 
 @pytest.mark.parametrize('precision', ['bf16', 'f16'])
-@pytest.mark.parametrize('cell', CELLS)
+@pytest.mark.parametrize('cell', CELLS + ['picaso_r15k_toon.int16grid16'])
 def test_control_fails_the_limits(root32, cell, precision):
     """Each control, the reference with its table rows (and, for bf16,
     its optical depths) rounded to 16 bits, fails at least one of the
@@ -184,11 +185,14 @@ def test_control_fails_the_limits(root32, cell, precision):
     outputs = tuple(req['outputs'])
     opts = check.options(cfg)
     # as a run's sample: the worst over several atmospheres
-    sample = [(atm, (float(req['phases_deg'][-1]), *req['disk']))
-              for atm in inputs.pool(cfg, traffic, SEED)]
-    control = check.reference(sample, table, planet, opts, outputs, 'cpu',
-                              precision)
-    want = check.reference(sample, table, planet, opts, outputs, 'cpu')
+    pool = inputs.pool(cfg, traffic, SEED)
+    kind = spec.requests(traffic)(cfg, traffic, pool)
+    last = len(req['phases_deg']) - 1
+    sample = [([(a, last)],) for a in range(len(pool))]
+    control = check.reference(kind, sample, table, planet, opts, outputs,
+                              'cpu', precision)
+    want = check.reference(kind, sample, table, planet, opts, outputs,
+                           'cpu')
     gaps = check.compare(control, want, outputs)
     assert any(gaps[k] > limit for k, limit in limits.items()), gaps
 

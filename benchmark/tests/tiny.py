@@ -11,14 +11,16 @@ import shutil
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-DATA_DIRS = ('configs', 'traffic', 'limits', 'layers', 'metrics', 'data')
+DATA_DIRS = ('configs', 'traffic', 'limits', 'layers', 'metrics', 'data',
+             'requests')
 
 
 def tiny_root(tmp, levels=31, resolution=1000.0, band=(1.0, 1.1), pool=4,
               per_grid=2, phases=(0, 60, 120)):
     """A root with BENCHMARK.json and the benchmark's data files, at
     ``resolution`` over ``band`` (um), ``levels`` levels, a pool of
-    ``pool`` atmospheres, ``per_grid`` of them to a grid request."""
+    ``pool`` atmospheres, ``per_grid`` of them to a request of one
+    phase."""
     tmp = str(tmp)
     shutil.copy(os.path.join(ROOT, 'BENCHMARK.json'), tmp)
     for d in DATA_DIRS:
@@ -29,12 +31,17 @@ def tiny_root(tmp, levels=31, resolution=1000.0, band=(1.0, 1.1), pool=4,
     for name in os.listdir(os.path.join(tmp, 'benchmark', 'configs')):
         edit(tmp, 'configs', name, wavelength_um=list(band),
              resolution=resolution, nwno=nwno, levels=levels)
-    edit(tmp, 'traffic', 'grid16.json', pool=pool,
-         request_atmospheres=per_grid,
-         trace_requests=1)
-    edit(tmp, 'traffic', 'curve36x8.json', pool=pool,
-         request_phases_deg=list(phases),
-         trace_requests=1)
+    # every mix: a phase curve keeps its atmospheres and takes
+    # ``phases``, any other takes ``per_grid`` atmospheres a request
+    for name in os.listdir(os.path.join(tmp, 'benchmark', 'traffic')):
+        with open(os.path.join(tmp, 'benchmark', 'traffic', name)) as f:
+            curve = len(json.load(f)['request']['phases_deg']) > 1
+        if curve:
+            edit(tmp, 'traffic', name, pool=pool,
+                 request_phases_deg=list(phases), trace_requests=1)
+        else:
+            edit(tmp, 'traffic', name, pool=pool,
+                 request_atmospheres=per_grid, trace_requests=1)
     return tmp
 
 
